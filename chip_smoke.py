@@ -22,6 +22,20 @@ calls, in phases that each print one JSON line:
                 bytes equal to the state's bytes
 6. read_object — reads the chunked ``embed.tokens`` onto the card
 7. integrity  — a flipped payload byte must raise ``ChecksumError``
+   async_*    — ``Snapshot.async_take`` forced into each staging mode
+                (``async_pinned_host`` twice: ``auto``, which must resolve
+                to pinned_host, then ``pinned_host``; ``async_device``;
+                ``async_host``).  Each times the stall (until async_take
+                returns), mutates every tensor in place and frees and
+                refills the largest, runs training steps (bf16 8192^2
+                matmuls) while the drain runs, times them against the same
+                steps before the take (stream-local and device-wide syncs),
+                then ``wait()``s, restores into zeroed targets and requires
+                bit-exact equality with the state before the mutation,
+                ``device_stage`` (device modes) and ``d2h`` bytes equal to
+                the state's bytes, the forced mode, and no
+                ``async_take.staging_downgrade`` event; it reports the RSS
+                high-water mark and pinned host bytes
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -38,8 +52,10 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -133,6 +149,152 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+N_STEPS = 5
+STEP_DIM = 8192
+
+
+def training_steps(torch, mats, n: int, device_sync: bool):
+    """Milliseconds of ``n`` stand-in training steps (three bf16 matmuls
+    each), each ended by a stream-local or a device-wide synchronize."""
+    times = []
+    for _ in range(n):
+        begin = time.perf_counter()
+        x = mats[0] @ mats[1]
+        x = x @ mats[0]
+        x = x @ mats[1]
+        if device_sync:
+            torch.cuda.synchronize()
+        else:
+            torch.cuda.current_stream().synchronize()
+        times.append((time.perf_counter() - begin) * 1e3)
+    del x
+    return times
+
+
+class RSSSampler:
+    """Samples an ``RSSWatermark`` every 20 ms on a thread."""
+
+    def __init__(self, watermark) -> None:
+        self.watermark = watermark
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.watermark.sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self.watermark
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.watermark.sample()
+
+
+def pinned_host_bytes(torch):
+    """Byte counters of CUDA's caching host (pinned) allocator, where this
+    torch has them."""
+    stats_fn = getattr(torch.cuda, "host_memory_stats", None)
+    if stats_fn is None:
+        return None
+    return {k: int(v) for k, v in stats_fn().items() if "bytes" in k and k.endswith((".current", ".peak"))}
+
+
+def get_leaf(tree, path):
+    node = tree
+    for key in path.split("/"):
+        node = node[key]
+    return node
+
+
+def set_leaf(tree, path, value):
+    *parents, last = path.split("/")
+    node = tree
+    for key in parents:
+        node = node[key]
+    node[last] = value
+
+
+def async_phase(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, mats, events, workdir,
+                label, mode, expect_mode, run=1):
+    """One async take in ``mode``: stall, mutation after return, steps
+    during the drain, wait, bit-exact restore, byte and mode checks."""
+    snap_path = os.path.join(workdir, f"{label}_{run}")
+    idle_stream = training_steps(torch, mats, N_STEPS, device_sync=False)
+    idle_device = training_steps(torch, mats, N_STEPS, device_sync=True)
+    n_events = len(events)
+    largest = max(ref, key=lambda p: ref[p].numel())
+    torch.cuda.synchronize()
+    phase_stats.reset()
+    with RSSSampler(RSSWatermark()) as rss:
+        begin = time.monotonic()
+        with knobs.override_async_staging(mode):
+            pending = ts.Snapshot.async_take(snap_path, app_state)
+        stall_s = time.monotonic() - begin
+        pinned_after_stage = pinned_host_bytes(torch)
+        # Training resumes: every tensor changes in place, and the largest
+        # is freed and its memory reused (a stand-in for donation).
+        model = app_state["model"].state_dict()
+        for path in ref:
+            get_leaf(model, path).view(torch.int16).bitwise_not_()
+        shape = ref[largest].shape
+        set_leaf(model, largest, None)
+        refill = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        refill.view(torch.int16).fill_(0x3F80)
+        set_leaf(model, largest, refill)
+        del refill
+        drain_stream = training_steps(torch, mats, N_STEPS, device_sync=False)
+        drain_device = training_steps(torch, mats, N_STEPS, device_sync=True)
+        steps_overlapped_drain = not pending.done()
+        snapshot = pending.wait()
+        total_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    staging_mode = pending.staging_mode
+    downgrades = [e.metadata for e in events[n_events:] if e.name == "async_take.staging_downgrade"]
+
+    model = app_state["model"].state_dict()
+    for path in ref:
+        get_leaf(model, path).zero_()
+    torch.cuda.synchronize()
+    begin = time.monotonic()
+    snapshot.restore(app_state)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - begin
+    model = app_state["model"].state_dict()
+    mismatched = [p for p in ref if not bit_equal(torch, get_leaf(model, p), ref[p])]
+
+    stage_bytes = int(stats.get("device_stage", {}).get("bytes", 0))
+    d2h_bytes = int(stats.get("d2h", {}).get("bytes", 0))
+    ok = (
+        not mismatched
+        and staging_mode == expect_mode
+        and not downgrades
+        and d2h_bytes == nbytes
+        and (mode == "host" or stage_bytes == nbytes)
+    )
+    emit({"phase": label, "run": run, "ok": ok, "mode": mode, "staging_mode": staging_mode, "downgrades": downgrades,
+          "stall_s": round(stall_s, 4), "total_s": round(total_s, 3), "gbps": round(nbytes / GB / total_s, 3),
+          "stall_gbps": round(nbytes / GB / stall_s, 3), "restore_s": round(restore_s, 3),
+          "bit_exact": not mismatched, "mismatched": mismatched[:5], "state_bytes": nbytes,
+          "device_stage_bytes": stage_bytes, "d2h_bytes": d2h_bytes,
+          "step_ms_idle": round(statistics.median(idle_stream), 3),
+          "step_ms_during_drain": round(statistics.median(drain_stream), 3),
+          "step_ms_idle_device_sync": round(statistics.median(idle_device), 3),
+          "step_ms_during_drain_device_sync": round(statistics.median(drain_device), 3),
+          "steps_ms_during_drain": [round(t, 3) for t in drain_stream],
+          "steps_overlapped_drain": steps_overlapped_drain,
+          "rss_high_water_bytes": rss.high_water, "rss_baseline_bytes": rss.baseline,
+          "pinned_host_after_stage": pinned_after_stage, "pinned_host_after_wait": pinned_host_bytes(torch),
+          "pinned_alloc": phase_summary({k: v for k, v in stats.items() if k == "pinned_alloc"}).get("pinned_alloc"),
+          "phases": phase_summary(stats)})
+    shutil.rmtree(snap_path, ignore_errors=True)
+    if not ok:
+        raise RuntimeError(f"{label}: not bit-exact, wrong mode, a downgrade, or stage/d2h bytes differ")
+    return stall_s
+
+
 def copy_gbps(torch, dst, src, reps: int = 5) -> float:
     dst.copy_(src, non_blocking=True)  # warm-up
     torch.cuda.synchronize()
@@ -179,7 +341,8 @@ def run(args) -> int:
         import numpy as np
 
         import torchsnapshot_tpu_torch as ts
-        from torchsnapshot_tpu_torch import phase_stats
+        from torchsnapshot_tpu_torch import event_handlers, knobs, phase_stats
+        from torchsnapshot_tpu_torch.rss_profiler import RSSWatermark
         from torchsnapshot_tpu_torch.manifest import (
             ChunkedTensorEntry,
             ObjectEntry,
@@ -219,9 +382,10 @@ def run(args) -> int:
     free_disk = shutil.disk_usage(args.workdir).free
     n_layers = args.n_layers
     reserve_disk = (1 << 30) + (4 << 30)  # yardstick file + slack
-    reserve_dev = 4 << 30  # read_object copy of embed.tokens + slack
+    reserve_dev = 4 << 30  # read_object copy of embed.tokens, step matmuls + slack
+    # state + reference copy + the async device-mode copy
     while n_layers > 1 and (
-        2 * state_bytes(n_layers) + reserve_dev > free_dev
+        3 * state_bytes(n_layers) + reserve_dev > free_dev
         or state_bytes(n_layers) + reserve_disk > free_disk
     ):
         n_layers -= 1
@@ -320,6 +484,26 @@ def run(args) -> int:
         raise RuntimeError("a flipped payload byte was not detected")
     shutil.rmtree(snap_path)
 
+    # async phases: async_take in each staging mode at full size.  The
+    # state is reached through app_state from here on, so that freeing a
+    # tensor there really frees it.
+    del params, w, small
+    events: list = []
+    event_handlers.register_event_handler(events.append)
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    mats = [torch.randn(STEP_DIM, STEP_DIM, generator=g, dtype=torch.bfloat16, device="cuda") * STEP_DIM ** -0.5
+            for _ in range(2)]
+    training_steps(torch, mats, 2, device_sync=True)  # warm-up
+    common = (torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, mats, events, args.workdir)
+    stalls = [async_phase(*common, "async_pinned_host", "auto", "pinned_host", run=1),
+              async_phase(*common, "async_pinned_host", "pinned_host", "pinned_host", run=2)]
+    emit({"phase": "async_pinned_host_stalls", "ok": True, "first_stall_s": round(stalls[0], 4),
+          "second_stall_s": round(stalls[1], 4)})
+    async_phase(*common, "async_device", "device", "device")
+    async_phase(*common, "async_host", "host", "host")
+    event_handlers.unregister_event_handler(events.append)
+    del mats
+
     # 8. yardsticks for the take/restore rates.
     n = 1 << 30
     host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
@@ -334,7 +518,7 @@ def run(args) -> int:
 
     emit({"kernels": [], "reason": "torchsnapshot_tpu has no Pallas kernel (no pallas_call in the tree; "
           "docs/design.md:102-112): its device work is slicing plus a bitcast repack, which the port "
-          "does as copy-engine D2H/H2D copies and view(torch.uint8)"})
+          "does as copy-engine D2H/H2D/D2D copies and view(torch.uint8)"})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

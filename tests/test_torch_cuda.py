@@ -1,5 +1,6 @@
-"""CUDA paths of the port: D2H staging into pinned buffers and in-place
-H2D restore.  Marked ``cuda``; each test skips without a CUDA device.  This
+"""CUDA paths of the port: D2H staging into pinned buffers, in-place H2D
+restore, and async takes staged on the card (device mode) or into pinned
+host memory (pinned_host mode).  Marked ``cuda``; each test skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs on a GPU host that
 has neither:
 
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from torchsnapshot_tpu_torch import ChecksumError, Snapshot, StateDict, knobs
-from torchsnapshot_tpu_torch import phase_stats
+from torchsnapshot_tpu_torch import device_staging, phase_stats
 from torchsnapshot_tpu_torch.manifest import ChunkedTensorEntry
 
 
@@ -101,3 +102,61 @@ def test_cuda_flipped_byte_raises(tmp_path, cuda_device):
     payload.write_bytes(bytes(data))
     with pytest.raises(ChecksumError):
         Snapshot(str(path)).restore({"m": StateDict({"w": torch.zeros_like(w)})})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["device", "pinned_host"])
+def test_cuda_async_take_mutation_after_return(tmp_path, cuda_device, mode):
+    """Mutate every tensor in place, and free and refill one, right after
+    async_take returns: the restore is bit-exact to the state of the take,
+    and the D2H moved the state's bytes exactly once."""
+    state = _state(cuda_device)
+    expected = {k: _bits(v).clone() for k, v in state.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    app_state = {"m": StateDict(state)}
+    device_staging.reset_pinned_host_health()
+    phase_stats.reset()
+    with knobs.override_async_staging(mode):
+        pending = Snapshot.async_take(str(tmp_path / "snap"), app_state)
+    for t in app_state["m"].values():
+        t.fill_(-3)
+    del state, t
+    app_state["m"]["w"] = torch.full((256, 64), 9.0, dtype=torch.bfloat16, device=cuda_device)
+    assert pending.staging_mode == mode
+    snapshot = pending.wait()
+    stats = phase_stats.snapshot()
+    assert stats["device_stage"]["bytes"] == nbytes and stats["d2h"]["bytes"] == nbytes
+    dst = {k: torch.zeros_like(v) for k, v in _state(cuda_device).items()}
+    snapshot.restore({"m": StateDict(dst)})
+    torch.cuda.synchronize()
+    for k, v in expected.items():
+        assert torch.equal(_bits(dst[k]), v), k
+
+
+@pytest.mark.cuda
+def test_cuda_device_mode_non_contiguous_and_parameter(tmp_path, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    nc = torch.randn(64, 48, generator=g, device=cuda_device).t()
+    p = torch.nn.Parameter(torch.randn(1000, generator=g, device=cuda_device))
+    expected = {"nc": nc.clone(), "p": p.detach().clone()}
+    with knobs.override_async_staging("device"):
+        pending = Snapshot.async_take(str(tmp_path / "snap"), {"m": StateDict({"nc": nc, "p": p})})
+    nc.zero_()
+    with torch.no_grad():
+        p.zero_()
+    assert pending.staging_mode == "device"
+    dst = {"nc": torch.zeros(48, 64, device=cuda_device), "p": torch.zeros(1000, device=cuda_device)}
+    pending.wait().restore({"m": StateDict(dst)})
+    torch.cuda.synchronize()
+    for k, v in expected.items():
+        assert torch.equal(_bits(dst[k]), _bits(v)), k
+
+
+@pytest.mark.cuda
+def test_cuda_auto_resolves_to_pinned_host(tmp_path, cuda_device):
+    device_staging.reset_pinned_host_health()
+    with knobs.override_async_staging("auto"):
+        assert device_staging.resolve_mode({"m/w": torch.ones(4, device=cuda_device)}) == "pinned_host"
+        pending = Snapshot.async_take(str(tmp_path / "snap"), {"m": StateDict({"w": torch.ones(4, device=cuda_device)})})
+    pending.wait()
+    assert pending.staging_mode == "pinned_host"

@@ -17,6 +17,9 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import json, sys\n"
         "import torchsnapshot_tpu_torch\n"
         "import torchsnapshot_tpu_torch.snapshot\n"
+        "import torchsnapshot_tpu_torch.device_staging\n"
+        "import torchsnapshot_tpu_torch.preemption\n"
+        "import torchsnapshot_tpu_torch.rss_profiler\n"
         f"print(json.dumps([m for m in {FORBIDDEN!r} if m in sys.modules]))\n"
     )
     out = subprocess.run(

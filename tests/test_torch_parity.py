@@ -218,3 +218,106 @@ def test_manifest_json_roundtrips_across_packages(tmp_path):
         doc = (tmp_path / taker / ".snapshot_metadata").read_text()
         assert PortMetadata.from_json(doc).to_json() == doc
         assert JaxMetadata.from_json(doc).to_json() == doc
+
+
+# ------------------------------------------------------------------- async take
+
+ASYNC_MODES = ["host", "device", "pinned_host"]
+_64BIT = {"float64", "int64", "uint64", "complex128"}
+
+
+@pytest.fixture
+def cpu_as_device(monkeypatch):
+    """Drive the port's device and pinned_host staging on CPU tensors (the
+    residency predicate accepts every tensor; pinned buffers are plain)."""
+    from torchsnapshot_tpu_torch import device_staging, staging
+
+    device_staging.reset_pinned_host_health()
+    monkeypatch.setattr(device_staging, "_is_device_resident", lambda obj: isinstance(obj, torch.Tensor))
+    monkeypatch.setattr(staging, "pinned_empty", lambda n: torch.empty(n, dtype=torch.uint8))
+
+
+def _async_port_state(state):
+    """The numpy state as torch tensors, plus a numpy array and a pickled
+    object that stay what they are."""
+    port = state_from_numpy(state)
+    port["np_arr"] = np.arange(100, dtype=np.int32)
+    port["tags"] = {"a", "b"}
+    return port
+
+
+def _mutate_everything(port):
+    for v in port.values():
+        if isinstance(v, torch.Tensor):
+            v.reshape(-1).view(torch.uint8).fill_(0x55)
+        elif isinstance(v, np.ndarray):
+            v.fill(-1)
+        elif isinstance(v, set):
+            v.add("c")
+    port["nested"]["step"] = -1
+
+
+@pytest.mark.parametrize("mode", ASYNC_MODES)
+def test_port_async_take_restores_through_both(tmp_path, cpu_as_device, mode):
+    """Mutating tensors, numpy arrays and objects right after async_take
+    returns leaves the snapshot at the values of the take: bit-exact
+    through the port and through the JAX package."""
+    state = _numpy_state()
+    port = _async_port_state(state)
+    with ts.knobs.override_async_staging(mode):
+        pending = ts.Snapshot.async_take(str(tmp_path / "snap"), {"m": ts.StateDict(port)})
+    _mutate_everything(port)
+    assert pending.staging_mode == mode
+    pending.wait()
+    expected = dict(state, np_arr=np.arange(100, dtype=np.int32))
+
+    dst = {"m": JaxStateDict(_zeros_numpy(expected))}
+    JaxSnapshot(str(tmp_path / "snap")).restore(dst)
+    _assert_same_bytes(expected, {k: v for k, v in dst["m"].state_dict().items() if k != "tags"})
+    assert dst["m"]["tags"] == {"a", "b"}
+
+    targets = state_from_numpy(_zeros_numpy(expected))
+    targets["np_arr"] = np.zeros(100, dtype=np.int32)
+    port_dst = {"m": ts.StateDict(targets)}
+    ts.Snapshot(str(tmp_path / "snap")).restore(port_dst)
+    _assert_same_bytes(expected, {k: v for k, v in port_dst["m"].state_dict().items() if k != "tags"})
+    assert port_dst["m"]["tags"] == {"a", "b"}
+
+
+@pytest.mark.parametrize("mode", ASYNC_MODES)
+def test_jax_async_take_port_restore(tmp_path, mode):
+    """A JAX async_take on CPU (jax.Arrays for the 32-bit-safe dtypes, numpy
+    for the rest) restores bit-exact through the port."""
+    from torchsnapshot_tpu import knobs as jax_knobs
+
+    state = _numpy_state()
+    jax_state = {
+        k: jnp.asarray(v) if isinstance(v, np.ndarray) and str(v.dtype) not in _64BIT else v
+        for k, v in state.items()
+    }
+    with jax_knobs.override_async_staging(mode):
+        pending = JaxSnapshot.async_take(str(tmp_path / "snap"), {"m": JaxStateDict(jax_state)})
+        pending.wait()
+    targets = state_from_numpy(_zeros_numpy(state))
+    dst = {"m": ts.StateDict(targets)}
+    ts.Snapshot(str(tmp_path / "snap")).restore(dst)
+    _assert_same_bytes(state, dst["m"].state_dict())
+
+
+@pytest.mark.parametrize("mode", ASYNC_MODES)
+def test_async_manifest_equals_sync_manifest(tmp_path, cpu_as_device, toggle_batching, mode):
+    """A port async take writes the manifest of the sync take, entry by
+    entry (locations, dtypes, shapes, byte ranges, digests), and the JAX
+    package's sync take writes it too."""
+    state = _numpy_state()
+    ts.Snapshot.take(str(tmp_path / "sync"), {"m": ts.StateDict(state_from_numpy(state))})
+    with ts.knobs.override_async_staging(mode):
+        ts.Snapshot.async_take(str(tmp_path / "async"), {"m": ts.StateDict(state_from_numpy(state))}).wait()
+    JaxSnapshot.take(str(tmp_path / "jax"), {"m": JaxStateDict(state)})
+    docs = {
+        name: json.loads((tmp_path / name / ".snapshot_metadata").read_text())
+        for name in ("sync", "async", "jax")
+    }
+    assert sorted(docs["async"]["manifest"]) == sorted(docs["sync"]["manifest"])
+    for key, entry in docs["sync"]["manifest"].items():
+        assert docs["async"]["manifest"][key] == entry == docs["jax"]["manifest"][key], key

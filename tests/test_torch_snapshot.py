@@ -430,10 +430,12 @@ def test_scheduler_retries_only_transient_write_failures(monkeypatch, error):
         entry, reqs = io_preparer.prepare_write(x, "m/x", rank=0)
         if error == "terminal":
             with pytest.raises(PermissionError):
-                sync_execute_write_reqs(reqs, storage, 1 << 20, rank=0)
+                sync_execute_write_reqs(reqs, storage, 1 << 20, rank=0).sync_complete()
             assert len(attempts) == 1
             return
-        assert sync_execute_write_reqs(reqs, storage, 1 << 20, rank=0) == x.numel() * 8
+        pending = sync_execute_write_reqs(reqs, storage, 1 << 20, rank=0)
+        pending.sync_complete()
+        assert pending.bytes_total == x.numel() * 8
         assert len(attempts) == 2
         read_io = ReadIO(path=entry.location)
         storage.sync_read(read_io)

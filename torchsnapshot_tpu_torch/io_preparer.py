@@ -44,8 +44,11 @@ def get_storage_path(logical_path: str, rank: int) -> str:
 
 
 def prepare_write(
-    obj: Any, logical_path: str, rank: int
+    obj: Any, logical_path: str, rank: int, is_async_snapshot: bool = False
 ) -> Tuple[Entry, List[WriteReq]]:
+    """``is_async_snapshot``: an async take that stages on the host before
+    returning (host mode) — CPU tensors and numpy arrays are copied at
+    staging, since the caller may mutate them once ``async_take`` returns."""
     if PrimitiveEntry.supports(obj) and not isinstance(obj, np.generic):
         return PrimitiveEntry.from_object(obj), []
 
@@ -76,8 +79,11 @@ def prepare_write(
                 storage_path=storage_path,
                 obj=obj,
                 chunking_instruction=instruction,
+                is_async_snapshot=is_async_snapshot,
             )
-        return ArrayIOPreparer.prepare_write(storage_path=storage_path, obj=obj)
+        return ArrayIOPreparer.prepare_write(
+            storage_path=storage_path, obj=obj, is_async_snapshot=is_async_snapshot
+        )
 
     return ObjectIOPreparer.prepare_write(storage_path=storage_path, obj=obj)
 

@@ -65,7 +65,7 @@ def _is_contiguous(obj: Any) -> bool:
 class ArrayIOPreparer:
     @classmethod
     def prepare_write(
-        cls, storage_path: str, obj: Any
+        cls, storage_path: str, obj: Any, is_async_snapshot: bool = False
     ) -> Tuple[TensorEntry, List[WriteReq]]:
         entry = TensorEntry(
             location=storage_path,
@@ -75,7 +75,9 @@ class ArrayIOPreparer:
             else list(obj.shape),
             replicated=False,
         )
-        stager = ArrayBufferStager(obj=obj, entry=entry)
+        stager = ArrayBufferStager(
+            obj=obj, entry=entry, is_async_snapshot=is_async_snapshot
+        )
         return entry, [WriteReq(path=storage_path, buffer_stager=stager)]
 
     @staticmethod
@@ -154,9 +156,15 @@ class ArrayIOPreparer:
 
 
 class ArrayBufferStager(BufferStager):
-    def __init__(self, obj: Any, entry: TensorEntry) -> None:
+    """Stages one tensor or numpy array.  ``is_async_snapshot`` (an async
+    take in host mode) copies a CPU value instead of viewing it: JAX arrays
+    are immutable, but torch CPU tensors and numpy arrays are not, and the
+    caller may mutate them as soon as ``async_take`` returns."""
+
+    def __init__(self, obj: Any, entry: TensorEntry, is_async_snapshot: bool = False) -> None:
         self._obj = obj
         self._entry = entry
+        self._is_async_snapshot = is_async_snapshot
         # Deferred-digest contract with the scheduler: one sink per buffer
         # part, resolved at write time — fused into the native write+hash
         # where the storage supports it, else by one pre-write hash pass.
@@ -177,6 +185,10 @@ class ArrayBufferStager(BufferStager):
                 host = finish_d2h(handle)
         else:
             host = serialization.host_bytes(obj)
+            if self._is_async_snapshot and _is_contiguous(obj):
+                # A contiguous value was viewed in place; a non-contiguous
+                # one was already copied by host_bytes.
+                host = host.copy()
         self._obj = None
         if integrity.save_checksums_enabled():
             entry = self._entry
@@ -190,13 +202,13 @@ class ArrayBufferStager(BufferStager):
     def get_staging_cost_bytes(self) -> int:
         """A CUDA tensor costs its pinned host buffer (plus its contiguous
         device copy when it is not contiguous); a contiguous CPU value is
-        viewed in place and costs nothing."""
+        viewed in place and costs nothing, unless an async take copies it."""
         nbytes = serialization.array_nbytes(self._entry.shape, self._entry.dtype)
         obj = self._obj
         contiguous = _is_contiguous(obj)
         if is_cuda_tensor(obj):
             return nbytes if contiguous else 2 * nbytes
-        return 0 if contiguous else nbytes
+        return 0 if contiguous and not self._is_async_snapshot else nbytes
 
 
 class H2DBatcher:

@@ -57,6 +57,7 @@ class ChunkedArrayIOPreparer:
         storage_path: str,
         obj: Any,
         chunking_instruction: List[Chunk],
+        is_async_snapshot: bool = False,
     ) -> Tuple[ChunkedTensorEntry, List[WriteReq]]:
         write_reqs: List[WriteReq] = []
         chunks: List[Shard] = []
@@ -68,7 +69,9 @@ class ChunkedArrayIOPreparer:
                 else obj
             )
             chunk_entry, chunk_write_reqs = ArrayIOPreparer.prepare_write(
-                storage_path=f"{storage_path}_{suffix}", obj=view
+                storage_path=f"{storage_path}_{suffix}",
+                obj=view,
+                is_async_snapshot=is_async_snapshot,
             )
             chunks.append(
                 Shard(offsets=chunk.offsets, sizes=chunk.sizes, tensor=chunk_entry)

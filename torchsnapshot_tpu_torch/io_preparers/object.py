@@ -27,7 +27,9 @@ class ObjectIOPreparer:
         entry = ObjectEntry(
             location=storage_path,
             serializer="pickle",
-            obj_type=type(obj).__name__,
+            obj_type=obj.obj_type
+            if isinstance(obj, serialization.PrePickled)
+            else type(obj).__name__,
             replicated=False,
         )
         return entry, [
@@ -65,9 +67,12 @@ class ObjectBufferStager(BufferStager):
         self.hash_sinks: Optional[list] = None
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
-        begin = time.monotonic()
-        data = serialization.pickle_save_as_bytes(self._obj)
-        phase_stats.add("serialize", time.monotonic() - begin, len(data))
+        if isinstance(self._obj, serialization.PrePickled):
+            data = self._obj.data
+        else:
+            begin = time.monotonic()
+            data = serialization.pickle_save_as_bytes(self._obj)
+            phase_stats.add("serialize", time.monotonic() - begin, len(data))
         if integrity.save_checksums_enabled():
             entry = self._entry
 
@@ -78,6 +83,8 @@ class ObjectBufferStager(BufferStager):
         return data
 
     def get_staging_cost_bytes(self) -> int:
+        if isinstance(self._obj, serialization.PrePickled):
+            return len(self._obj.data)
         # sys.getsizeof is knowingly inaccurate; pickling to measure would
         # defeat the lazy staging.
         return max(sys.getsizeof(self._obj), 4096)

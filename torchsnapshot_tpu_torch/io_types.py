@@ -160,6 +160,10 @@ class StoragePlugin(abc.ABC):
         ...
 
     @abc.abstractmethod
+    async def delete(self, path: str) -> None:
+        ...
+
+    @abc.abstractmethod
     async def delete_dir(self, path: str) -> None:
         ...
 
@@ -175,6 +179,9 @@ class StoragePlugin(abc.ABC):
 
     def sync_exists(self, path: str) -> bool:
         return run_coro(lambda: self.exists(path))
+
+    def sync_delete(self, path: str) -> None:
+        run_coro(lambda: self.delete(path))
 
     def sync_delete_dir(self, path: str) -> None:
         run_coro(lambda: self.delete_dir(path))

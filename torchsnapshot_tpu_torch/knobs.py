@@ -1,7 +1,7 @@
 """Environment-variable configuration knobs.
 
 Counterpart of ``torchsnapshot_tpu/knobs.py``, holding only the knobs the
-synchronous take/restore path reads.  The environment variable names are
+take/restore and async-take paths read.  The environment variable names are
 the JAX package's own, so one setting (and one test override) drives both
 packages.  Defaults are storage-side numbers and match the JAX package:
 512 MB chunks, 128 MB slabs, 16 concurrent I/O operations per process.
@@ -26,6 +26,9 @@ RETRY_BASE_S_ENV_VAR = _ENV_PREFIX + "RETRY_BASE_S"
 NATIVE_THREADS_ENV_VAR = _ENV_PREFIX + "NATIVE_THREADS"
 CHECKSUM_ENV_VAR = _ENV_PREFIX + "CHECKSUM"
 CHECKSUM_ON_SAVE_ENV_VAR = _ENV_PREFIX + "CHECKSUM_ON_SAVE"
+ASYNC_STAGING_ENV_VAR = _ENV_PREFIX + "ASYNC_STAGING"
+PINNED_HOST_RETRY_S_ENV_VAR = _ENV_PREFIX + "PINNED_HOST_RETRY_S"
+SAVE_DEADLINE_S_ENV_VAR = _ENV_PREFIX + "SAVE_DEADLINE_S"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
@@ -33,6 +36,10 @@ _DEFAULT_MAX_PER_RANK_IO_CONCURRENCY = 16
 _DEFAULT_MAX_READ_MERGE_GAP_BYTES = 8 * 1024 * 1024
 _DEFAULT_IO_RETRIES = 2
 _DEFAULT_RETRY_BASE_S = 0.2
+_DEFAULT_PINNED_HOST_RETRY_S = 300.0
+# Emergency-flush budget (preemption.py), sized for a typical cloud
+# preemption grace window (GCE gives 30 s).
+_DEFAULT_SAVE_DEADLINE_S = 30.0
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -108,6 +115,20 @@ def checksum_on_save_enabled() -> bool:
     return _get_flag_env(CHECKSUM_ON_SAVE_ENV_VAR, "1")
 
 
+def get_pinned_host_retry_s() -> float:
+    """Seconds to skip pinned_host staging after a failure before retrying
+    it (device_staging.py health tracking); 0 retries immediately."""
+    val = os.environ.get(PINNED_HOST_RETRY_S_ENV_VAR)
+    return float(val) if val is not None else _DEFAULT_PINNED_HOST_RETRY_S
+
+
+def get_save_deadline_s() -> float:
+    """Emergency-flush budget: seconds the preemption handler gives an
+    in-flight snapshot to reach a committed state after SIGTERM."""
+    val = os.environ.get(SAVE_DEADLINE_S_ENV_VAR)
+    return max(0.0, float(val)) if val is not None else _DEFAULT_SAVE_DEADLINE_S
+
+
 @contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -130,7 +151,10 @@ def override_max_chunk_size_bytes(value: int) -> Generator[None, None, None]:
         yield
 
 
-
+@contextmanager
+def override_max_per_rank_io_concurrency(value: int) -> Generator[None, None, None]:
+    with _override_env(MAX_PER_RANK_IO_CONCURRENCY_ENV_VAR, str(value)):
+        yield
 
 
 @contextmanager
@@ -142,4 +166,18 @@ def override_batching_disabled(disabled: bool) -> Generator[None, None, None]:
 @contextmanager
 def override_per_rank_memory_budget_bytes(value: int) -> Generator[None, None, None]:
     with _override_env(PER_RANK_MEMORY_BUDGET_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_async_staging(mode: str) -> Generator[None, None, None]:
+    """auto / device / pinned_host / host — where async_take makes the app
+    state snapshot-stable before returning (device_staging.py)."""
+    with _override_env(ASYNC_STAGING_ENV_VAR, mode):
+        yield
+
+
+@contextmanager
+def override_save_deadline_s(value: float) -> Generator[None, None, None]:
+    with _override_env(SAVE_DEADLINE_S_ENV_VAR, str(value)):
         yield

@@ -1,7 +1,8 @@
 """Memory-budgeted execution pipelines for write/read requests.
 
-Counterpart of ``torchsnapshot_tpu/scheduler.py`` for the synchronous
-slice (``sync_execute_write_reqs`` / ``sync_execute_read_reqs``).
+Counterpart of ``torchsnapshot_tpu/scheduler.py``: ``sync_execute_write_reqs``
+(with :class:`PendingIOWork` and :class:`DeferredIOWork`) and
+``sync_execute_read_reqs``.
 
 Write path: each request moves ready_for_staging → staging → io.  Staging
 (the D2H copy into a pinned host buffer, or a zero-copy view of a CPU
@@ -9,8 +10,11 @@ value) is admitted while its declared cost fits the remaining memory
 budget, with an always-admit-one starvation guard when nothing is in
 flight.  The budget is debited by staging cost, re-credited down to the
 staged buffer size, and fully re-credited once the write lands.  Storage
-I/O concurrency is capped (``TPUSNAP_MAX_PER_RANK_IO_CONCURRENCY``).  The
-synchronous take waits for every write.
+I/O concurrency is capped (``TPUSNAP_MAX_PER_RANK_IO_CONCURRENCY``, widened
+in place by the preemption deadline mode).  ``sync_execute_write_reqs``
+returns once staging has drained, with the writes still running in a
+:class:`PendingIOWork`: the synchronous take completes it at once, an async
+take on its background thread.
 
 Read path mirrors it: io → consuming, with budget-gated read admission.
 A CUDA target's pinned read buffer is allocated at admission
@@ -32,7 +36,7 @@ from collections import Counter, deque
 from concurrent.futures import Executor, ThreadPoolExecutor
 from typing import List, Optional
 
-from . import knobs, phase_stats, retry as retry_policy
+from . import knobs, phase_stats, preemption, retry as retry_policy
 from .io_types import ReadIO, ReadReq, ScatterBuffer, StoragePlugin, WriteIO, WriteReq
 from .pg_wrapper import PGWrapper
 from .utils.loops import call_outside_loop
@@ -195,14 +199,110 @@ async def _with_retries(fn, what: str, path: str, rank: int, semaphore) -> None:
             await asyncio.sleep(retry_policy.backoff_s(attempt))
 
 
+class PendingIOWork:
+    """The storage I/O of a write pipeline whose staging has drained: owns
+    the pipeline's event loop, its executor and the write tasks (each
+    already started).  :meth:`sync_complete` drives them to the end, from
+    any thread; the first failure cancels the rest."""
+
+    def __init__(
+        self,
+        loop: asyncio.AbstractEventLoop,
+        executor: Executor,
+        io_tasks: List["asyncio.Task"],
+        bytes_total: int,
+    ) -> None:
+        self._loop = loop
+        self._executor = executor
+        self._io_tasks = io_tasks
+        self.bytes_total = bytes_total
+
+    def sync_complete(self) -> None:
+        call_outside_loop(self._sync_complete_impl)
+
+    async def _drain(self) -> None:
+        pending = set(self._io_tasks)
+        while pending:
+            # FIRST_COMPLETED: the first failure surfaces at once, never
+            # after every other write finished.
+            done, pending = await asyncio.wait(
+                pending, return_when=asyncio.FIRST_COMPLETED
+            )
+            for task in done:
+                if task.exception() is not None:
+                    raise task.exception()
+
+    def _sync_complete_impl(self) -> None:
+        begin = time.monotonic()
+        try:
+            if self._io_tasks:
+                self._loop.run_until_complete(self._drain())
+        except BaseException:
+            # Cancel and drain the rest, so the loop closes clean and the
+            # staged host buffers are released.
+            pending = [t for t in self._io_tasks if not t.done()]
+            for t in pending:
+                t.cancel()
+            if pending:
+                self._loop.run_until_complete(
+                    asyncio.gather(*pending, return_exceptions=True)
+                )
+            raise
+        finally:
+            self._executor.shutdown()
+            self._loop.close()
+        elapsed = time.monotonic() - begin
+        if elapsed > 0 and self.bytes_total:
+            logger.debug(
+                "Completed pending I/O: %.1f MB in %.2fs (%.1f MB/s)",
+                self.bytes_total / 1e6,
+                elapsed,
+                self.bytes_total / 1e6 / elapsed,
+            )
+
+
+class DeferredIOWork:
+    """:class:`PendingIOWork` for device-staged async takes: the whole write
+    pipeline, D2H staging included, runs at ``sync_complete`` time on the
+    background thread.  Safe because the app state was already copied
+    (device_staging.py): the copies, not host staging, make the take safe
+    against the caller's mutations."""
+
+    def __init__(
+        self,
+        write_reqs: List[WriteReq],
+        storage: StoragePlugin,
+        memory_budget_bytes: int,
+        rank: int,
+    ) -> None:
+        self._write_reqs = write_reqs
+        self._storage = storage
+        self._memory_budget_bytes = memory_budget_bytes
+        self._rank = rank
+        self.bytes_total = 0
+
+    def sync_complete(self) -> None:
+        pending = sync_execute_write_reqs(
+            write_reqs=self._write_reqs,
+            storage=self._storage,
+            memory_budget_bytes=self._memory_budget_bytes,
+            rank=self._rank,
+        )
+        self._write_reqs = []
+        self.bytes_total = pending.bytes_total
+        pending.sync_complete()
+
+
 async def execute_write_reqs(
     write_reqs: List[WriteReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
-) -> int:
+) -> PendingIOWork:
     """Stage every buffer under the memory budget, overlapping staging with
-    storage I/O, and wait for every write.  Returns the bytes staged."""
+    storage I/O; return once staging has drained.  The returned
+    :class:`PendingIOWork` owns this loop and the writes still running."""
+    loop = asyncio.get_running_loop()
     executor = ThreadPoolExecutor(max_workers=_NUM_EXECUTOR_THREADS)
     budget = _BudgetTracker(memory_budget_bytes)
     phases_before = phase_stats.snapshot()
@@ -216,7 +316,14 @@ async def execute_write_reqs(
     staging_tasks: dict = {}  # task -> pipeline
     io_tasks: dict = {}  # task -> pipeline, every write ever started
     io_live: set = set()  # the writes still running
-    io_semaphore = asyncio.Semaphore(knobs.get_max_per_rank_io_concurrency())
+    # Deadline mode (preemption.py) starts new pipelines at the boosted io
+    # width; otherwise the semaphore is registered, so an activation landing
+    # mid-drain widens it in place.
+    base_io_cap = knobs.get_max_per_rank_io_concurrency()
+    io_cap = preemption.effective_io_cap(base_io_cap)
+    io_semaphore = asyncio.Semaphore(io_cap)
+    if io_cap == base_io_cap:
+        preemption.register_write_semaphore(loop, io_semaphore, base_io_cap)
     staged_bytes = 0
 
     async def _io(pipeline: _WritePipeline) -> None:
@@ -269,8 +376,6 @@ async def execute_write_reqs(
                 else:
                     task.result()  # a write failure surfaces immediately
             dispatch_staging()
-        # Staging drained: wait for the writes (the first failure raises).
-        await asyncio.gather(*io_tasks)
     except BaseException:
         # Cancel and drain everything outstanding before re-raising, so no
         # task is left pending and every buffer is released.
@@ -280,13 +385,12 @@ async def execute_write_reqs(
         await asyncio.gather(*staging_tasks, *io_tasks, return_exceptions=True)
         for pipeline in io_tasks.values():
             pipeline.release_after_io(budget)
-        raise
-    finally:
         executor.shutdown(wait=False)
+        raise
     elapsed = time.monotonic() - begin
     if staged_bytes and elapsed > 0:
         logger.info(
-            "[rank %d] wrote %.1f MB in %.2fs (%.1f MB/s), %d requests; phases: %s",
+            "[rank %d] staged %.1f MB in %.2fs (%.1f MB/s), %d requests; phases: %s",
             rank,
             staged_bytes / 1e6,
             elapsed,
@@ -294,7 +398,9 @@ async def execute_write_reqs(
             len(write_reqs),
             phase_stats.format_line(phase_stats.delta(phases_before)),
         )
-    return staged_bytes
+    return PendingIOWork(
+        loop=loop, executor=executor, io_tasks=list(io_tasks), bytes_total=staged_bytes
+    )
 
 
 def _run_on_new_loop(coro_fn, *args):
@@ -305,22 +411,28 @@ def _run_on_new_loop(coro_fn, *args):
         loop.close()
 
 
+def _stage_on_new_loop(*args) -> PendingIOWork:
+    # The returned PendingIOWork owns the loop; it is closed here only when
+    # staging failed.
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(execute_write_reqs(*args))
+    except BaseException:
+        loop.close()
+        raise
+
+
 def sync_execute_write_reqs(
     write_reqs: List[WriteReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
-) -> int:
-    """Run the write pipeline to completion on a private event loop (a
-    helper thread when the caller is inside a running loop); returns the
-    bytes staged."""
+) -> PendingIOWork:
+    """Run the write pipeline's staging on a private event loop (a helper
+    thread when the caller is inside a running loop); the returned
+    :class:`PendingIOWork` completes the writes, from any thread."""
     return call_outside_loop(
-        _run_on_new_loop,
-        execute_write_reqs,
-        write_reqs,
-        storage,
-        memory_budget_bytes,
-        rank,
+        _stage_on_new_loop, write_reqs, storage, memory_budget_bytes, rank
     )
 
 

@@ -193,3 +193,15 @@ def pickle_save_as_bytes(obj: Any) -> bytes:
 
 def pickle_load_from_bytes(data: bytes) -> Any:
     return pickle.loads(data)
+
+
+class PrePickled:
+    """An object whose pickle bytes were captured eagerly: device-staged
+    async takes pickle on the caller's thread, so the background pipeline
+    never races the caller's mutations (device_staging.py)."""
+
+    __slots__ = ("data", "obj_type")
+
+    def __init__(self, obj: Any) -> None:
+        self.data = pickle_save_as_bytes(obj)
+        self.obj_type = type(obj).__name__

@@ -1,7 +1,7 @@
-"""The Snapshot API: take / restore / read_object.
+"""The Snapshot API: take / async_take / restore / read_object.
 
-Counterpart of ``torchsnapshot_tpu/snapshot.py`` for the synchronous,
-single-process slice, in the JAX order:
+Counterpart of ``torchsnapshot_tpu/snapshot.py`` for the single-process
+slices, in the JAX order:
 
 - ``take``: flatten each stateful's state dict (RNG state last) into a
   manifest, plan one write per leaf (chunking tensors above 512 MB), batch
@@ -9,6 +9,10 @@ single-process slice, in the JAX order:
   buffers, fused write+hash), then commit ``.snapshot_metadata`` — the one
   durable write whose existence means "committed".  A take that fails
   before its commit removes its partial directory.
+- ``async_take``: the same take, returning a :class:`PendingSnapshot` once
+  the state is snapshot-stable (copied on the card, into pinned host
+  memory, or staged to the host: device_staging.py); the storage drain and
+  the commit run on a background thread.
 - ``restore``: per stateful, read every entry in place into the tensors its
   current ``state_dict()`` returns (same ``data_ptr()`` before and after),
   uploading CUDA targets through an :class:`H2DBatcher` that is drained
@@ -16,9 +20,8 @@ single-process slice, in the JAX order:
 - ``read_object``: random access to one value; a tensor with no target is
   placed on ``device``, which defaults to ``"cuda"``.
 
-Asynchronous takes, distribution, sharded (DTensor) state, compression,
-content addressing, journals, caches and telemetry are later slices and
-are absent here.
+Distribution, sharded (DTensor) state, compression, content addressing,
+journals, caches and telemetry are later slices and are absent here.
 """
 
 from __future__ import annotations
@@ -26,14 +29,15 @@ from __future__ import annotations
 import inspect
 import logging
 import random
+import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import io_preparer, knobs, retry as retry_policy
+from . import device_staging, io_preparer, knobs, preemption, retry as retry_policy
 from .batcher import batch_read_requests, batch_write_requests
 from .event import Event
 from .event_handlers import log_event
@@ -54,6 +58,7 @@ from .manifest_utils import is_container_entry
 from .pg_wrapper import PGWrapper
 from .rng_state import RNGState
 from .scheduler import (
+    DeferredIOWork,
     get_process_memory_budget_bytes,
     sync_execute_read_reqs,
     sync_execute_write_reqs,
@@ -90,12 +95,20 @@ class Snapshot:
         }
         log_event(Event(name="take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        in_flight = _TakeInFlight()
+        preemption.track_save(in_flight)
         try:
             cls._validate_app_state(app_state)
             storage = url_to_storage_plugin(path)
             try:
                 try:
-                    entries, nbytes = cls._take_impl(app_state, storage, pg)
+                    pending_io_work, entries, _ = cls._take_impl(
+                        app_state, storage, pg, is_async_snapshot=False
+                    )
+                    pending_io_work.sync_complete()
+                    nbytes = pending_io_work.bytes_total
+                    # Stagers annotated their entries with digests during the
+                    # pipeline, so the manifest is complete only now.
                     global_manifest = cls._gather_manifest(entries, pg)
                     metadata = SnapshotMetadata(
                         version=manifest_version_for(global_manifest),
@@ -117,6 +130,8 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="take.end", metadata=event_metadata))
             raise
+        finally:
+            in_flight.finish()
         snapshot = cls(path=path, pg=pg)
         snapshot._metadata = metadata
         event_metadata["duration_s"] = time.monotonic() - begin
@@ -126,10 +141,70 @@ class Snapshot:
         return snapshot
 
     @classmethod
+    def async_take(
+        cls, path: str, app_state: AppState, pg: Optional[PGWrapper] = None
+    ) -> "PendingSnapshot":
+        """Returns once the app state is snapshot-stable; storage I/O and the
+        metadata commit continue on a background thread.  The caller may
+        mutate, free or reuse every tensor as soon as this returns.
+
+        How the state is made stable depends on the staging mode
+        (device_staging.py, ``TPUSNAP_ASYNC_STAGING``): ``pinned_host`` (the
+        default on CUDA) copies each CUDA tensor into page-locked host
+        memory, ``device`` copies it into fresh device memory, and both copy
+        CPU tensors, numpy arrays and objects on this thread; the D2H and the
+        storage drain then run in the background.  ``host`` stages every
+        buffer to host memory before returning."""
+        pg = pg or PGWrapper()
+        unique_id = uuid.uuid4().hex
+        event_metadata: Dict[str, Any] = {
+            "unique_id": unique_id,
+            "rank": pg.get_rank(),
+            "action": "async_take",
+        }
+        log_event(Event(name="async_take.start", metadata=dict(event_metadata)))
+        begin = time.monotonic()
+        try:
+            cls._validate_app_state(app_state)
+            storage = url_to_storage_plugin(path)
+            try:
+                pending_io_work, _, finalizer = cls._take_impl(
+                    app_state, storage, pg, is_async_snapshot=True
+                )
+            except BaseException:
+                cls._cleanup_failed_take(storage, pg, action="async_take")
+                storage.sync_close()
+                raise
+        except BaseException:
+            # Every async_take.start reaches an async_take.end, also when
+            # planning or staging raises before the background thread exists.
+            event_metadata["duration_s"] = time.monotonic() - begin
+            event_metadata["is_success"] = False
+            log_event(Event(name="async_take.end", metadata=event_metadata))
+            raise
+        return PendingSnapshot(
+            path=path,
+            pending_io_work=pending_io_work,
+            pg=pg,
+            finalizer=finalizer,
+            storage=storage,
+            unique_id=unique_id,
+            stall_s=time.monotonic() - begin,
+        )
+
+    @classmethod
     def _take_impl(
-        cls, app_state: AppState, storage: StoragePlugin, pg: PGWrapper
-    ) -> Tuple[Manifest, int]:
+        cls,
+        app_state: AppState,
+        storage: StoragePlugin,
+        pg: PGWrapper,
+        is_async_snapshot: bool,
+    ) -> Tuple[Any, Optional[Manifest], Optional["_ManifestFinalizer"]]:
+        """Flatten, stage (async takes), plan and start the write pipeline.
+        Returns (I/O work to complete, this rank's entries for a synchronous
+        take, the manifest finalizer of an async take)."""
         rank = pg.get_rank()
+        world_size = pg.get_world_size()
         app_state = dict(app_state)
         rng_state_item = cls._pop_rng_state(app_state)
 
@@ -154,29 +229,95 @@ class Snapshot:
         random.setstate(py_rng_state)
         np.random.set_state(np_rng_state)
 
+        # Async takes copy the state (on the card, into pinned host memory,
+        # or on the host for CPU leaves) so that async_take can return before
+        # any D2H of the drain runs (device_staging.py).
+        staging_mode = "host"
+        staging_stats: Dict[str, Any] = {}
+        if is_async_snapshot:
+            staging_mode = device_staging.resolve_mode(
+                flattened, pg=pg if world_size > 1 else None, emit_events=True
+            )
+            if staging_mode != "host":
+                try:
+                    flattened, staging_stats = device_staging.stage_app_state(
+                        flattened, staging_mode
+                    )
+                except Exception as staging_exc:  # noqa: BLE001 — evented
+                    logger.warning(
+                        "Device-side async staging failed; falling back to host "
+                        "staging (stage-before-return)",
+                        exc_info=True,
+                    )
+                    device_staging._log_downgrade_event(
+                        staging_mode,
+                        "host",
+                        f"{type(staging_exc).__name__}: {staging_exc}",
+                    )
+                    staging_mode = "host"
+                else:
+                    staging_mode = staging_stats["mode"]
+                    log_event(
+                        Event(
+                            name="async_take.device_staged",
+                            metadata={"rank": rank, **staging_stats},
+                        )
+                    )
+
         entries: Manifest = dict(manifest)
         write_reqs: List[WriteReq] = []
         for logical_path, obj in flattened.items():
             entry, obj_write_reqs = io_preparer.prepare_write(
-                obj=obj, logical_path=logical_path, rank=rank
+                obj=obj,
+                logical_path=logical_path,
+                rank=rank,
+                # Device-staged state needs no staging-time copies: every
+                # leaf the caller could mutate was copied above.
+                is_async_snapshot=is_async_snapshot and staging_mode == "host",
             )
             entries[logical_path] = entry
             write_reqs += obj_write_reqs
-        # (Partitioning write requests across ranks is the identity at
-        # world size 1.)
+        # (Partitioning write requests across ranks is the identity at world
+        # size 1, and the JAX package's content-addressed pre-stage skip has
+        # no counterpart: content addressing is not ported.)
         if not knobs.is_batching_disabled():
             entries, write_reqs = batch_write_requests(
                 entries, write_reqs, scatter_ok=storage.supports_scatter
             )
-        nbytes = sync_execute_write_reqs(
-            write_reqs=write_reqs,
-            storage=storage,
-            memory_budget_bytes=get_process_memory_budget_bytes(pg),
+        memory_budget_bytes = get_process_memory_budget_bytes(pg)
+        if not is_async_snapshot:
+            pending = sync_execute_write_reqs(
+                write_reqs=write_reqs,
+                storage=storage,
+                memory_budget_bytes=memory_budget_bytes,
+                rank=rank,
+            )
+            return pending, entries, None
+        # Stagers annotate entries with digests during staging, which for a
+        # device-staged take runs on the background thread: the manifest is
+        # finalized there.
+        if staging_mode == "host":
+            pending_io_work: Any = sync_execute_write_reqs(
+                write_reqs=write_reqs,
+                storage=storage,
+                memory_budget_bytes=memory_budget_bytes,
+                rank=rank,
+            )
+        else:
+            pending_io_work = DeferredIOWork(
+                write_reqs=write_reqs,
+                storage=storage,
+                memory_budget_bytes=memory_budget_bytes,
+                rank=rank,
+            )
+        finalizer = _ManifestFinalizer(
+            entries=entries,
             rank=rank,
+            world_size=world_size,
+            staging_mode=staging_mode,
+            staging_stats=staging_stats,
         )
-        # Stagers annotated their entries with digests during the pipeline,
-        # so the manifest is complete only now.
-        return entries, nbytes
+        return pending_io_work, None, finalizer
 
     # --------------------------------------------------------------- restore
 
@@ -391,7 +532,9 @@ class Snapshot:
         )
 
     @staticmethod
-    def _cleanup_failed_take(storage: StoragePlugin, pg: PGWrapper) -> None:
+    def _cleanup_failed_take(
+        storage: StoragePlugin, pg: PGWrapper, action: str = "take"
+    ) -> None:
         """Remove the partial directory of a take that failed before its
         commit (rank 0, and only while the commit marker is absent).  A
         failing cleanup is logged: the take's own error is what raises."""
@@ -401,12 +544,25 @@ class Snapshot:
             if storage.sync_exists(SNAPSHOT_METADATA_FNAME):
                 return
             storage.sync_delete_dir("")
-            logger.warning("take failed before commit; removed its partial snapshot")
+            logger.warning("%s failed before commit; removed its partial snapshot", action)
         except Exception:  # noqa: BLE001 — never mask the take's error
             logger.warning(
-                "take failed before commit and its cleanup failed too",
+                "%s failed before commit and its cleanup failed too",
+                action,
                 exc_info=True,
             )
+
+    @staticmethod
+    def install_preemption_handler(
+        signum: Optional[int] = None, chain: bool = True
+    ) -> "preemption.PreemptionHandler":
+        """Register the SIGTERM emergency-flush handler (preemption.py): on
+        preemption the process enters deadline mode for the
+        ``TPUSNAP_SAVE_DEADLINE_S`` budget (io concurrency raised) and
+        drives any in-flight ``async_take`` to a committed state inside the
+        grace window, bracketed by ``preemption.flush`` start/end events.
+        Main thread only; returns a handler with ``.uninstall()``."""
+        return preemption.install_handler(signum=signum, chain=chain)
 
     @staticmethod
     def _validate_app_state(app_state: AppState) -> None:
@@ -442,11 +598,254 @@ class Snapshot:
         gather at world size 1)."""
         gathered = pg.gather_object_root(entries)
         assert gathered is not None
-        return {
-            f"{rank}/{logical_path}": entry
-            for rank, rank_entries in enumerate(gathered)
-            for logical_path, entry in rank_entries.items()
+        return _rank_prefixed(gathered)
+
+
+class _TakeInFlight:
+    """A running synchronous take, as the preemption flush watcher sees it."""
+
+    def __init__(self) -> None:
+        self._done = False
+
+    def done(self) -> bool:
+        return self._done
+
+    def finish(self) -> None:
+        self._done = True
+
+
+class _ManifestFinalizer:
+    """Builds the global manifest of an async take on its background thread,
+    once that rank's staging and storage I/O have drained: stagers annotate
+    per-entry digests during staging, which for device-staged takes runs
+    after ``async_take`` has returned.
+
+    The cross-rank exchange goes through storage, since the background
+    thread issues no collectives: each rank other than 0 writes its entries
+    as a sidecar payload; rank 0 reads and merges them, commits, and removes
+    the sidecars.  At world size 1 (the only world this package runs yet)
+    there is no sidecar, and the global manifest is this rank's entries
+    under the ``0/`` prefix.  (The JAX package also merges replicated
+    entries here; no entry is replicated in this package yet.)
+    """
+
+    SIDECAR_FMT = ".manifest_rank_{rank}"
+
+    def __init__(
+        self,
+        entries: Manifest,
+        rank: int,
+        world_size: int,
+        staging_mode: str,
+        staging_stats: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        self._entries = entries
+        self._rank = rank
+        self._world_size = world_size
+        self.staging_mode = staging_mode
+        self.staging_stats = staging_stats or {}
+
+    def write_sidecar(self, storage: StoragePlugin) -> None:
+        """Ranks other than 0: persist this rank's digest-annotated entries
+        for rank 0 to merge."""
+        if self._rank == 0 or self._world_size == 1:
+            return
+        payload = SnapshotMetadata(
+            version=manifest_version_for(self._entries),
+            world_size=self._world_size,
+            manifest=self._entries,
+        ).to_json()
+        storage.sync_write(
+            WriteIO(
+                path=self.SIDECAR_FMT.format(rank=self._rank),
+                buf=payload.encode("utf-8"),
+            )
+        )
+
+    def build_global(self, storage: StoragePlugin) -> SnapshotMetadata:
+        """Rank 0: merge the sidecars into the rank-prefixed global
+        manifest."""
+        gathered: List[Manifest] = [self._entries]
+        for r in range(1, self._world_size):
+            read_io = ReadIO(path=self.SIDECAR_FMT.format(rank=r))
+            storage.sync_read(read_io)
+            gathered.append(
+                SnapshotMetadata.from_json(bytes(read_io.buf).decode("utf-8")).manifest
+            )
+        global_manifest = _rank_prefixed(gathered)
+        return SnapshotMetadata(
+            version=manifest_version_for(global_manifest),
+            world_size=self._world_size,
+            manifest=global_manifest,
+        )
+
+    def cleanup_sidecars(self, storage: StoragePlugin) -> None:
+        """Rank 0, after the commit: best-effort sidecar removal (a leftover
+        sidecar is harmless, dot-prefixed outside every payload path)."""
+        for r in range(1, self._world_size):
+            try:
+                storage.sync_delete(self.SIDECAR_FMT.format(rank=r))
+            except OSError:
+                pass
+
+
+class PendingSnapshot:
+    """Handle of an in-flight async take.  A background thread completes
+    the storage I/O (and, for device-staged takes, the whole write
+    pipeline), builds the manifest and commits ``.snapshot_metadata``; a
+    failure before the commit removes the partial snapshot.  Without a
+    distributed process group there is no commit barrier and no liveness
+    lease."""
+
+    def __init__(
+        self,
+        path: str,
+        pending_io_work: Any,
+        pg: PGWrapper,
+        finalizer: _ManifestFinalizer,
+        storage: StoragePlugin,
+        unique_id: str,
+        stall_s: float = 0.0,
+    ) -> None:
+        self.path = path
+        self.pg = pg
+        self._finalizer = finalizer
+        self.stall_s = stall_s
+        self._metadata: Optional[SnapshotMetadata] = None
+        self._storage = storage
+        self._unique_id = unique_id
+        self.exception: Optional[BaseException] = None
+        self._begin = time.monotonic()
+        self._bytes_total = 0
+        self._done_event = threading.Event()
+        self._callbacks_lock = threading.Lock()
+        self._done_callbacks: List[Callable[["PendingSnapshot"], Any]] = []
+        preemption.track_save(self)
+        self._thread = threading.Thread(
+            target=self._complete_snapshot,
+            args=(pending_io_work,),
+            name="tpusnap-torch-pending-snapshot",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def _complete_snapshot(self, pending_io_work: Any) -> None:
+        try:
+            pending_io_work.sync_complete()
+            self._bytes_total = pending_io_work.bytes_total
+            # Payloads durable: exchange the digest-annotated manifests
+            # through storage (no collectives on this thread).
+            self._finalizer.write_sidecar(self._storage)
+            if self.pg.get_rank() == 0:
+                self._metadata = self._finalizer.build_global(self._storage)
+                Snapshot._write_snapshot_metadata(self._metadata, self._storage)
+                self._finalizer.cleanup_sidecars(self._storage)
+            self._storage.sync_close()
+            log_event(
+                Event(
+                    name="async_take.end",
+                    metadata=self._end_event_metadata(is_success=True),
+                )
+            )
+        except BaseException as e:  # noqa: BLE001 — surfaced by wait()
+            self.exception = e
+            Snapshot._cleanup_failed_take(self._storage, self.pg, action="async_take")
+            try:
+                self._storage.sync_close()
+            except Exception:  # noqa: BLE001 — the take's error is what raises
+                logger.warning("closing the storage of a failed async take failed", exc_info=True)
+            log_event(
+                Event(
+                    name="async_take.end",
+                    metadata=self._end_event_metadata(is_success=False),
+                )
+            )
+        finally:
+            with self._callbacks_lock:
+                self._done_event.set()
+                callbacks = list(self._done_callbacks)
+                self._done_callbacks = []
+            for fn in callbacks:
+                self._run_done_callback(fn)
+
+    def _end_event_metadata(self, is_success: bool) -> Dict[str, Any]:
+        """async_take.end carries the staging telemetry (stall, mode, copied
+        bytes, any downgrade), so a stall regression shows in the event
+        stream alone."""
+        stats = self._finalizer.staging_stats
+        metadata: Dict[str, Any] = {
+            "unique_id": self._unique_id,
+            "rank": self.pg.get_rank(),
+            "action": "async_take",
+            "is_success": is_success,
+            "duration_s": time.monotonic() - self._begin,
+            "bytes": self._bytes_total,
+            "staging_mode": self._finalizer.staging_mode,
+            "stall_s": round(self.stall_s, 4),
+            "copy_bytes": stats.get("copy_bytes", 0),
+            "copy_s": round(stats.get("copy_s", 0.0), 4),
         }
+        if "downgraded_from" in stats:
+            metadata["downgraded_from"] = stats["downgraded_from"]
+            metadata["downgrade_reason"] = stats["downgrade_reason"]
+        return metadata
+
+    def wait(self) -> Snapshot:
+        """Blocks until the commit; raises the background failure, if any."""
+        self._thread.join()
+        if self.exception is not None:
+            raise self.exception
+        snapshot = Snapshot(path=self.path, pg=self.pg)
+        snapshot._metadata = self._metadata
+        return snapshot
+
+    @property
+    def staging_mode(self) -> str:
+        """How the state was made stable before return: "pinned_host" or
+        "device" (copies; D2H drained in the background) or "host" (staged
+        to host memory before return)."""
+        return self._finalizer.staging_mode
+
+    def done(self) -> bool:
+        return self._done_event.is_set()
+
+    def progress(self) -> Dict[str, Any]:
+        """Live progress of the take, from any thread.  Without the
+        telemetry monitor (not ported yet) it says whether the take is done
+        and whether it succeeded."""
+        return {
+            "action": "async_take",
+            "op_id": self._unique_id,
+            "rank": self.pg.get_rank(),
+            "done": self.done(),
+            "success": None if not self.done() else self.exception is None,
+        }
+
+    def add_done_callback(self, fn: Callable[["PendingSnapshot"], Any]) -> None:
+        """Run ``fn(self)`` once the take commits or fails: on the background
+        thread, or at once on the calling thread if already done.  Callback
+        exceptions are logged and swallowed."""
+        with self._callbacks_lock:
+            if not self._done_event.is_set():
+                self._done_callbacks.append(fn)
+                return
+        self._run_done_callback(fn)
+
+    def _run_done_callback(self, fn: Callable[["PendingSnapshot"], Any]) -> None:
+        try:
+            fn(self)
+        except Exception:  # noqa: BLE001 — never masks the take's outcome
+            logger.warning("PendingSnapshot done-callback %r failed", fn, exc_info=True)
+
+
+def _rank_prefixed(gathered: List[Manifest]) -> Manifest:
+    """The global manifest of the ranks' entries: each path under its
+    ``<rank>/`` prefix."""
+    return {
+        f"{rank}/{logical_path}": entry
+        for rank, rank_entries in enumerate(gathered)
+        for logical_path, entry in rank_entries.items()
+    }
 
 
 def _manifest_for_rank(metadata: SnapshotMetadata, rank: int) -> Manifest:

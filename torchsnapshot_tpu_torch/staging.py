@@ -73,20 +73,23 @@ class D2HHandle:
 
 
 def begin_d2h(t: torch.Tensor) -> D2HHandle:
-    """Enqueue the async D2H copy of a CUDA tensor's bytes."""
+    """Enqueue the async D2H copy of a CUDA tensor's bytes.  Runs under the
+    tensor's device, so a caller whose current device is another one (an
+    async take's background thread starts on device 0) stays correct."""
     device = t.device
-    current = torch.cuda.current_stream(device)
-    src = t.detach()
-    if not src.is_contiguous():
-        src = src.contiguous()  # on the current stream, ordered before the copy
-    src_u8 = tensor_u8(src)
-    host = pinned_empty(src_u8.numel())
-    side = torch.cuda.Stream(device=device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        host.copy_(src_u8, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(side)
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream(device)
+        src = t.detach()
+        if not src.is_contiguous():
+            src = src.contiguous()  # on the current stream, ordered before the copy
+        src_u8 = tensor_u8(src)
+        host = pinned_empty(src_u8.numel())
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            host.copy_(src_u8, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
     return D2HHandle(host=host, event=event, src=src)
 
 

@@ -149,6 +149,9 @@ class FSStoragePlugin(StoragePlugin):
         except (FileNotFoundError, NotADirectoryError):
             return False
 
+    async def delete(self, path: str) -> None:
+        os.remove(os.path.join(self.root, path))
+
     async def delete_dir(self, path: str) -> None:
         shutil.rmtree(os.path.join(self.root, path), ignore_errors=True)
 

@@ -44,6 +44,11 @@ class MemoryStoragePlugin(StoragePlugin):
         with _LOCK:
             return path in self._files
 
+    async def delete(self, path: str) -> None:
+        with _LOCK:
+            if self._files.pop(path, None) is None:
+                raise FileNotFoundError(path)
+
     async def delete_dir(self, path: str) -> None:
         prefix = path.rstrip("/") + "/" if path else ""
         with _LOCK:
