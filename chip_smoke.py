@@ -11,6 +11,23 @@ calls, in phases that each print one JSON line:
 1. device     — requires CUDA; the card's name and power limit (nvidia-smi)
 2. build      — builds the native library from this checkout; requires the
                 fused write+hash entry point
+   dist_*     — several ranks on this one card, before this process builds
+                any state: spawned processes on cuda:0 in a gloo group,
+                each holding only its own boxes of the same parameter set
+                as DTensors (built from a per-tensor seed and the global
+                index).  Four ranks on a 2x2 ("replicate", "shard") mesh,
+                weights HSDP [Replicate(), Shard(0)], norms Replicate:
+                ``dist_take`` (the ranks' bytes written must sum to the
+                payload on disk: each replicated box written once),
+                ``dist_restore`` (zeroed, restored in place: bit-exact,
+                ``data_ptr()`` unchanged), ``dist_async_take`` (mutated
+                after the return; one commit through the LinearBarrier;
+                the restore equals the state before the mutation); then
+                two fresh ranks on a 1-D mesh restore every tensor
+                ``Shard(-1)`` (``dist_elastic_restore``, bit-exact), and
+                this process reads the largest sharded entry whole onto
+                the card (``dist_read_object``).  A rank that fails or
+                times out fails the phase.
 3. state      — builds the state and a device-side reference copy; cuts
                 the depth (n_layers) if card memory or disk is short
 4. take       — ``Snapshot.take`` to local disk: seconds, GB/s, per-phase
@@ -327,6 +344,443 @@ def fsync_write_gbps(np, path: str, nbytes: int) -> float:
     return nbytes / GB / seconds
 
 
+
+# ------------------------------------------------------ distributed phases
+#
+# Several ranks share the one card: spawned processes (CUDA cannot be
+# forked), each on cuda:0, joined in a gloo group (NCCL refuses two ranks
+# on one device; the library uses the group only to bootstrap its store).
+# Every rank builds its boxes of the Llama-3-8B parameter set from a
+# per-tensor seed and the global index (seeded_fill), never from a copy of
+# the whole tensor, and checks restored boxes against the same function.
+
+DEV = "cuda"
+DIST_TIMEOUT_S = 600
+FILL_BLOCK_ELEMS = 1 << 26
+
+
+def device_sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def seeded_fill(torch, out, seed: int, global_shape, offsets, check: bool = False) -> bool:
+    """Write (or, with ``check``, compare against) the seeded bf16 values of
+    the box at ``offsets`` of a tensor of ``global_shape``: a hash of the
+    global linear index and the seed, with a fixed exponent, so every value
+    is finite.  Computed on the card in blocks of rows."""
+    ndim = len(global_shape)
+    strides = [1] * ndim
+    for d in range(ndim - 2, -1, -1):
+        strides[d] = strides[d + 1] * global_shape[d + 1]
+    sizes = list(out.shape)
+    if not all(sizes):
+        return True
+    inner = 1
+    for x in sizes[1:]:
+        inner *= x
+    rows = max(1, FILL_BLOCK_ELEMS // max(inner, 1))
+    for r0 in range(0, sizes[0], rows):
+        r1 = min(sizes[0], r0 + rows)
+        lin = (torch.arange(r0, r1, device=DEV) + offsets[0]) * strides[0]
+        lin = lin.reshape([-1] + [1] * (ndim - 1))
+        for d in range(1, ndim):
+            idx = (torch.arange(sizes[d], device=DEV) + offsets[d]) * strides[d]
+            lin = lin + idx.reshape([1] * d + [-1] + [1] * (ndim - 1 - d))
+        x = lin * 2654435761 + seed * 40503
+        x = x ^ (x >> 13)
+        x = x * 1274126177
+        x = x ^ (x >> 16)
+        bits = ((x & 0x80FF) | 0x3E00).to(torch.int16)
+        block = out[r0:r1].view(torch.int16)
+        if check:
+            if not torch.equal(block, bits):
+                return False
+        else:
+            block.copy_(bits)
+    return True
+
+
+def tensor_seed(seed: int, path) -> int:
+    return seed * 1000 + [p for p, _, _ in llama_shapes(N_LAYERS)].index(path)
+
+
+def make_mesh(torch, shape, names):
+    """init_device_mesh, or a DeviceMesh built by hand where init_device_mesh
+    refuses several ranks on one device."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    try:
+        return init_device_mesh(DEV, tuple(shape), mesh_dim_names=tuple(names)), "init_device_mesh"
+    except Exception as e:  # noqa: BLE001 — reported in the phase line
+        n = 1
+        for x in shape:
+            n *= x
+        mesh = DeviceMesh(DEV, torch.arange(n).reshape(tuple(shape)), mesh_dim_names=tuple(names))
+        return mesh, f"DeviceMesh ({type(e).__name__}: {e})"
+
+
+def dist_state(torch, ts, mesh, placements_of, seed: int, zero: bool = False):
+    """The Llama-3-8B parameter set as DTensors on ``mesh``; each rank fills
+    only its own box (zeros with ``zero``)."""
+    from torch.distributed.tensor import DTensor
+
+    from torchsnapshot_tpu_torch import staging
+
+    params: dict = {}
+    for path, shape, scale in llama_shapes(N_LAYERS):
+        placements = placements_of(path, scale)
+        offsets, sizes = staging.box_at(shape, mesh.shape, mesh.get_coordinate(), placements)
+        local = torch.empty(sizes, dtype=torch.bfloat16, device=DEV)
+        if zero:
+            local.zero_()
+        else:
+            seeded_fill(torch, local, tensor_seed(seed, path), shape, offsets)
+        dt = DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(shape),
+                                stride=torch.empty(shape, device="meta").stride())
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = dt
+    return params
+
+
+def dist_check(torch, params, seed: int):
+    """Paths whose local box differs from the seeded values."""
+    from torchsnapshot_tpu_torch import staging
+
+    bad = []
+    for path, shape, _ in llama_shapes(N_LAYERS):
+        node = params
+        for key in path:
+            node = node[key]
+        offsets, _ = staging.local_box(node)
+        if not seeded_fill(torch, node.to_local(), tensor_seed(seed, path), shape, offsets, check=True):
+            bad.append("/".join(path))
+    return bad
+
+
+def dist_locals(params):
+    return [dt.to_local() for _, dt in leaves(params)]
+
+
+def host_memory(torch):
+    free, total = torch.cuda.mem_get_info() if DEV == "cuda" else (0, 0)
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+    return {"mem_available_bytes": avail, "cuda_free_bytes": int(free), "cuda_total_bytes": int(total)}
+
+
+def dist_job_hsdp(torch, ts, rank, world, seed, workdir):
+    """Four ranks, a 2x2 ("replicate", "shard") mesh: weights HSDP
+    [Replicate(), Shard(0)], the norms fully Replicate.  dist_take,
+    dist_restore (zero, restore in place), dist_async_take (mutate after
+    return, wait, restore)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from torchsnapshot_tpu_torch import event_handlers, faults, knobs, phase_stats
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+    from torchsnapshot_tpu_torch.scheduler import get_process_memory_budget_bytes
+
+    out = {}
+    mesh, mesh_ctor = make_mesh(torch, (2, 2), ("replicate", "shard"))
+    params = dist_state(torch, ts, mesh, lambda path, scale: [Replicate(), Replicate()] if scale is None
+                        else [Replicate(), Shard(0)], seed)
+    app_state = {"model": ts.StateDict(params), "train": ts.StateDict({"step": 1000}), "rng": ts.RNGState()}
+    local_bytes = sum(t.numel() * t.element_size() for t in dist_locals(params))
+    pg = PGWrapper.from_torch()
+    budget = get_process_memory_budget_bytes(pg)
+    events: list = []
+    event_handlers.register_event_handler(events.append)
+
+    # dist_take
+    mem = host_memory(torch)
+    device_sync(torch)
+    pg.barrier()
+    phase_stats.reset()
+    begin = time.monotonic()
+    ts.Snapshot.take(os.path.join(workdir, "dist_snap"), app_state, pg=pg, replicated=["train/step"])
+    take_s = time.monotonic() - begin
+    ends = [e.metadata for e in events if e.name == "take.end"]
+    out["dist_take"] = {"seconds": take_s, "bytes_written": ends[-1]["bytes"], "local_bytes": local_bytes,
+                        "memory_budget_bytes": budget, "mesh": mesh_ctor, "mem_at_start": mem,
+                        "phases": phase_summary(phase_stats.snapshot())}
+
+    # dist_restore: zero every local tensor, restore in place.
+    for t in dist_locals(params):
+        t.zero_()
+    ptrs = [t.data_ptr() for t in dist_locals(params)]
+    mem = host_memory(torch)
+    device_sync(torch)
+    pg.barrier()
+    phase_stats.reset()
+    begin = time.monotonic()
+    ts.Snapshot(os.path.join(workdir, "dist_snap"), pg=pg).restore(app_state)
+    device_sync(torch)
+    restore_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    moved = sum(a != t.data_ptr() for a, t in zip(ptrs, dist_locals(params)))
+    out["dist_restore"] = {"seconds": restore_s, "mismatched": dist_check(torch, params, seed),
+                           "data_ptr_moved": moved, "step": app_state["train"]["step"],
+                           "h2d_bytes": int(stats.get("h2d_dispatch", {}).get("bytes", 0)),
+                           "local_bytes": local_bytes, "mem_at_start": mem, "phases": phase_summary(stats)}
+
+    # dist_async_take (auto → pinned_host); the fault wrapper's byte meter
+    # (a spec of "none") counts the commits.
+    faults.reset_write_counters()
+    mem = host_memory(torch)
+    device_sync(torch)
+    pg.barrier()
+    phase_stats.reset()
+    n_events = len(events)
+    begin = time.monotonic()
+    with knobs.override_faults("none"):
+        pending = ts.Snapshot.async_take(os.path.join(workdir, "dist_async_snap"), app_state, pg=pg,
+                                         replicated=["train/step"])
+    stall_s = time.monotonic() - begin
+    for t in dist_locals(params):
+        t.view(torch.int16).bitwise_not_()
+    pending.wait()
+    total_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    ends = [e.metadata for e in events[n_events:] if e.name == "async_take.end"]
+    commit_bytes = faults.write_counters().get(".snapshot_metadata", 0)
+    for t in dist_locals(params):
+        t.zero_()
+    device_sync(torch)
+    ts.Snapshot(os.path.join(workdir, "dist_async_snap"), pg=pg).restore(app_state)
+    device_sync(torch)
+    out["dist_async_take"] = {"stall_s": stall_s, "total_s": total_s, "staging_mode": pending.staging_mode,
+                              "bytes_written": ends[-1]["bytes"], "commit_bytes_written": commit_bytes,
+                              "mismatched": dist_check(torch, params, seed), "mem_at_start": mem,
+                              "phases": phase_summary(stats)}
+    event_handlers.unregister_event_handler(events.append)
+    pg.barrier()
+    return out
+
+
+def dist_job_elastic(torch, ts, rank, world, seed, workdir):
+    """A fresh world of two ranks on a 1-D mesh restores the four-rank
+    snapshot with every tensor Shard on its last dim."""
+    from torch.distributed.tensor import Shard
+
+    from torchsnapshot_tpu_torch import phase_stats
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    mesh, mesh_ctor = make_mesh(torch, (world,), ("shard",))
+    params = dist_state(torch, ts, mesh, lambda path, scale: [Shard(-1)], seed, zero=True)
+    app_state = {"model": ts.StateDict(params), "train": ts.StateDict({"step": -1})}
+    pg = PGWrapper.from_torch()
+    ptrs = [t.data_ptr() for t in dist_locals(params)]
+    mem = host_memory(torch)
+    device_sync(torch)
+    pg.barrier()
+    phase_stats.reset()
+    begin = time.monotonic()
+    ts.Snapshot(os.path.join(workdir, "dist_snap"), pg=pg).restore(app_state)
+    device_sync(torch)
+    seconds = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    moved = sum(a != t.data_ptr() for a, t in zip(ptrs, dist_locals(params)))
+    pg.barrier()
+    return {"dist_elastic_restore": {
+        "seconds": seconds, "mismatched": dist_check(torch, params, seed), "data_ptr_moved": moved,
+        "step": app_state["train"]["step"], "mesh": mesh_ctor, "mem_at_start": mem,
+        "local_bytes": sum(t.numel() * t.element_size() for t in dist_locals(params)),
+        "phases": phase_summary(stats)}}
+
+
+DIST_JOBS = {"hsdp": dist_job_hsdp, "elastic": dist_job_elastic}
+
+
+def dist_entry(job, rank, world, port, seed, workdir, conn) -> None:
+    """A spawned rank: join the gloo group, run the job, send its results
+    (or its traceback) to the parent."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+
+        if DEV == "cuda":
+            torch.cuda.set_device(0)
+        sys.path.insert(0, HERE)
+        import torchsnapshot_tpu_torch as ts
+
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+        )
+        try:
+            result = DIST_JOBS[job](torch, ts, rank, world, seed, workdir)
+        finally:
+            torch.distributed.destroy_process_group()
+        conn.send({"ok": True, "result": result})
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        conn.send({"ok": False, "error": traceback.format_exc()})
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_launch(torch, job: str, world: int, args):
+    """Run ``job`` on ``world`` spawned ranks; every rank's result, by rank.
+    A rank that fails, dies or times out fails the phase, and every rank
+    still running is stopped."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    port = free_port()
+    procs, conns = [], []
+    for rank in range(world):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=dist_entry, args=(job, rank, world, port, args.seed, args.workdir, child))
+        p.start()
+        procs.append(p)
+        conns.append(parent)
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    results, errors = {}, {}
+    try:
+        while len(results) + len(errors) < world and time.monotonic() < deadline and not errors:
+            for rank, (p, conn) in enumerate(zip(procs, conns)):
+                if rank in results or rank in errors:
+                    continue
+                if conn.poll(0.05):
+                    msg = conn.recv()
+                    if msg["ok"]:
+                        results[rank] = msg["result"]
+                    else:
+                        errors[rank] = msg["error"]
+                elif not p.is_alive():
+                    errors[rank] = f"exited with code {p.exitcode} before reporting"
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in range(world):
+        if rank not in results and rank not in errors:
+            errors[rank] = "timed out" if time.monotonic() >= deadline else "stopped after a peer failed"
+    if errors:
+        raise RuntimeError(f"{job}: " + "; ".join(f"rank {r}: {e}" for r, e in sorted(errors.items())))
+    return [results[r] for r in range(world)]
+
+
+def snapshot_payload(ts, path: str):
+    """(bytes of payload files on disk, bytes of the model tensors the
+    manifest describes, each distinct stored piece counted once)."""
+    from torchsnapshot_tpu_torch import serialization
+    from torchsnapshot_tpu_torch.manifest import iter_payload_entries
+
+    on_disk = 0
+    for dirpath, _, files in os.walk(path):
+        for name in files:
+            if name != ".snapshot_metadata":
+                on_disk += os.path.getsize(os.path.join(dirpath, name))
+    seen = set()
+    tensor_bytes = 0
+    for key, entry in iter_payload_entries(ts.Snapshot(path).get_manifest()):
+        if "/model/" not in key or entry.serializer != "buffer_protocol":
+            continue
+        location = (entry.location, tuple(entry.byte_range or ()))
+        if location not in seen:
+            seen.add(location)
+            tensor_bytes += serialization.array_nbytes(entry.shape, entry.dtype)
+    return on_disk, tensor_bytes
+
+
+def dist_phases(torch, ts, args) -> None:
+    """dist_take, dist_restore, dist_async_take (four ranks),
+    dist_elastic_restore (two ranks), dist_read_object (this process)."""
+    global_bytes = state_bytes(N_LAYERS)
+    emit({"phase": "dist_start", "ok": True, **host_memory(torch)})
+    ranks = dist_launch(torch, "hsdp", 4, args)
+
+    take = [r["dist_take"] for r in ranks]
+    snap = os.path.join(args.workdir, "dist_snap")
+    on_disk, tensor_bytes = snapshot_payload(ts, snap)
+    written = sum(r["bytes_written"] for r in take)
+    seconds = max(r["seconds"] for r in take)
+    take_ok = written == on_disk and tensor_bytes == global_bytes and on_disk < global_bytes + (64 << 20)
+    emit({"phase": "dist_take", "ok": take_ok, "ranks": 4, "mesh": "2x2 (replicate, shard)",
+          "placements": "weights [Replicate(), Shard(0)], norms [Replicate(), Replicate()]",
+          "mesh_ctor": take[0]["mesh"], "seconds": round(seconds, 3), "gbps": round(global_bytes / GB / seconds, 3),
+          "state_bytes": global_bytes, "bytes_written_sum": written, "payload_bytes_on_disk": on_disk,
+          "manifest_tensor_bytes": tensor_bytes,
+          "per_rank": [{k: r[k] for k in ("seconds", "bytes_written", "local_bytes", "memory_budget_bytes",
+                                          "mem_at_start", "phases")} for r in take]})
+    if not take_ok:
+        raise RuntimeError("dist_take: bytes written differ from the payload, or a replicated box was written twice")
+
+    restore = [r["dist_restore"] for r in ranks]
+    seconds = max(r["seconds"] for r in restore)
+    restore_ok = all(not r["mismatched"] and r["data_ptr_moved"] == 0 and r["step"] == 1000 for r in restore)
+    emit({"phase": "dist_restore", "ok": restore_ok, "ranks": 4, "seconds": round(seconds, 3),
+          "gbps": round(sum(r["local_bytes"] for r in restore) / GB / seconds, 3),
+          "per_rank": [{k: r[k] for k in ("seconds", "mismatched", "data_ptr_moved", "h2d_bytes", "local_bytes",
+                                          "mem_at_start", "phases")} for r in restore]})
+    if not restore_ok:
+        raise RuntimeError("dist_restore: a rank is not bit-exact in place")
+
+    async_ = [r["dist_async_take"] for r in ranks]
+    async_snap = os.path.join(args.workdir, "dist_async_snap")
+    on_disk_async, tensor_bytes_async = snapshot_payload(ts, async_snap)
+    written_async = sum(r["bytes_written"] for r in async_)
+    commit_size = os.path.getsize(os.path.join(async_snap, ".snapshot_metadata"))
+    commits = sum(r["commit_bytes_written"] for r in async_)
+    leftovers = [n for n in os.listdir(async_snap) if n.startswith(".manifest_rank_")]
+    async_ok = (all(not r["mismatched"] and r["staging_mode"] == "pinned_host" for r in async_)
+                and commits == commit_size and not leftovers and written_async == on_disk_async
+                and tensor_bytes_async == global_bytes)
+    emit({"phase": "dist_async_take", "ok": async_ok, "ranks": 4, "mode": "auto",
+          "commit_bytes_written_sum": commits, "commit_file_bytes": commit_size, "sidecars_left": leftovers,
+          "bytes_written_sum": written_async, "payload_bytes_on_disk": on_disk_async,
+          "max_stall_s": round(max(r["stall_s"] for r in async_), 4),
+          "max_total_s": round(max(r["total_s"] for r in async_), 3),
+          "per_rank": [{k: r[k] for k in ("stall_s", "total_s", "staging_mode", "bytes_written", "mismatched",
+                                          "mem_at_start", "phases")} for r in async_]})
+    if not async_ok:
+        raise RuntimeError("dist_async_take: not bit-exact, wrong mode, not one commit, or bytes differ")
+    shutil.rmtree(async_snap)
+
+    elastic = [r["dist_elastic_restore"] for r in dist_launch(torch, "elastic", 2, args)]
+    seconds = max(r["seconds"] for r in elastic)
+    elastic_ok = all(not r["mismatched"] and r["data_ptr_moved"] == 0 and r["step"] == 1000 for r in elastic)
+    emit({"phase": "dist_elastic_restore", "ok": elastic_ok, "ranks": 2, "mesh": "1-D (shard,)",
+          "placements": "every tensor [Shard(-1)]", "mesh_ctor": elastic[0]["mesh"],
+          "seconds": round(seconds, 3), "gbps": round(global_bytes / GB / seconds, 3),
+          "per_rank": [{k: r[k] for k in ("seconds", "mismatched", "data_ptr_moved", "local_bytes",
+                                          "mem_at_start", "phases")} for r in elastic]})
+    if not elastic_ok:
+        raise RuntimeError("dist_elastic_restore: a rank is not bit-exact")
+
+    # dist_read_object: the largest sharded entry, whole, onto the card.
+    path = ("layers", "mlp", "w_gate")
+    shape = next(s for p, s, _ in llama_shapes(N_LAYERS) if p == path)
+    mem = host_memory(torch)
+    device_sync(torch)
+    begin = time.monotonic()
+    w = ts.Snapshot(snap).read_object("0/model/" + "/".join(path), device=DEV)
+    device_sync(torch)
+    seconds = time.monotonic() - begin
+    nbytes = w.numel() * w.element_size()
+    read_ok = (w.device.type == DEV and list(w.shape) == list(shape)
+               and seeded_fill(torch, w, tensor_seed(args.seed, path), shape, [0] * len(shape), check=True))
+    emit({"phase": "dist_read_object", "ok": read_ok, "path": "0/model/" + "/".join(path), "device": str(w.device),
+          "bytes": nbytes, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+          "mem_at_start": mem})
+    del w
+    if not read_ok:
+        raise RuntimeError("dist_read_object: wrong bytes")
+    shutil.rmtree(snap)
+
+
 def run(args) -> int:
     try:
         import torch
@@ -376,6 +830,9 @@ def run(args) -> int:
           "native_pool_threads": native.pool_size()})
     if not fused:
         raise RuntimeError("the fused write+hash entry point did not load")
+
+    # dist_*: several ranks on this card, before this process builds state.
+    dist_phases(torch, ts, args)
 
     # 3. state: full width; cut only the depth, and only if it does not fit.
     free_dev, total_dev = torch.cuda.mem_get_info()

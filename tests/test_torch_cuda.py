@@ -160,3 +160,110 @@ def test_cuda_auto_resolves_to_pinned_host(tmp_path, cuda_device):
         pending = Snapshot.async_take(str(tmp_path / "snap"), {"m": StateDict({"w": torch.ones(4, device=cuda_device)})})
     pending.wait()
     assert pending.staging_mode == "pinned_host"
+
+
+# ------------------------------------------------ DTensors on the card
+#
+# Two ranks share cuda:0 and join a gloo group (NCCL refuses two ranks on
+# one device; the library uses the group only to bootstrap its store).
+# Ranks are forks of the test_utils forkserver, which never touched CUDA.
+
+from torchsnapshot_tpu_torch.test_utils import run_with_procs  # noqa: E402
+
+
+def _card_mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    return init_device_mesh("cuda", (2,), mesh_dim_names=("fsdp",))
+
+
+def _card_dtensor(full, mesh, placements, local=None):
+    from torch.distributed.tensor import DTensor
+
+    from torchsnapshot_tpu_torch import staging
+
+    offsets, sizes = staging.box_at(full.shape, mesh.shape, mesh.get_coordinate(), placements)
+    box = full[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))]
+    if local is None:
+        local = box.clone()
+    else:
+        local.copy_(box)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape, stride=full.stride())
+
+
+def _card_box(dt, full):
+    from torchsnapshot_tpu_torch import staging
+
+    offsets, sizes = staging.local_box(dt)
+    return full[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))]
+
+
+@run_with_procs(nproc=2, gloo=True)
+def _cuda_dtensor_take_restore_body():
+    import os
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    mesh = _card_mesh()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fulls = {
+        "fsdp": torch.randn(64, 48, generator=g, device="cuda"),
+        "rep": torch.randn(33, generator=g, device="cuda"),
+        "bf16": torch.randn(40, 24, generator=g, device="cuda").to(torch.bfloat16),
+    }
+    placements = {"fsdp": [Shard(0)], "rep": [Replicate()], "bf16": [Shard(1)]}
+    state = {k: _card_dtensor(v, mesh, placements[k]) for k, v in fulls.items()}
+    path = os.path.join(os.path.dirname(knobs.get_store_path()), "snap")
+    snapshot = Snapshot.take(path, {"m": StateDict(state)}, pg=PGWrapper.from_torch())
+    dst = {k: _card_dtensor(torch.zeros_like(v), mesh, placements[k]) for k, v in fulls.items()}
+    ptrs = {k: v.to_local().data_ptr() for k, v in dst.items()}
+    snapshot.restore({"m": StateDict(dst)})
+    torch.cuda.synchronize()
+    for k, full in fulls.items():
+        assert dst[k].to_local().is_cuda and dst[k].to_local().data_ptr() == ptrs[k]
+        assert torch.equal(_bits(dst[k].to_local()), _bits(_card_box(dst[k], full))), k
+    # read_object of a sharded entry, whole, onto the card.
+    whole = snapshot.read_object("0/m/fsdp")
+    assert whole.is_cuda and torch.equal(_bits(whole), _bits(fulls["fsdp"]))
+
+
+@pytest.mark.cuda
+def test_cuda_dtensor_take_restore_two_ranks(cuda_device):
+    _cuda_dtensor_take_restore_body()
+
+
+@run_with_procs(nproc=2, gloo=True)
+def _cuda_noncontiguous_local_body():
+    import os
+
+    from torch.distributed.tensor import Shard
+
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    mesh = _card_mesh()
+    full = torch.randn(64, 48, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    path = os.path.join(os.path.dirname(knobs.get_store_path()), "snap")
+    snapshot = Snapshot.take(
+        path, {"m": StateDict({"w": _card_dtensor(full, mesh, [Shard(0)])})}, pg=PGWrapper.from_torch()
+    )
+    # FSDP2-style: the local shard is a strided view into a flat buffer.
+    flat = torch.zeros(64 + 48 * 32 * 2, device="cuda")
+    grid = flat[64:].view(48, 32, 2)
+    local = grid[:, :, 0].t()  # (32, 48), non-contiguous
+    assert not local.is_contiguous()
+    target = _card_dtensor(torch.zeros_like(full), mesh, [Shard(0)], local=local)
+    ptr = target.to_local().data_ptr()
+    snapshot.restore({"m": StateDict({"w": target})})
+    torch.cuda.synchronize()
+    assert target.to_local().data_ptr() == ptr
+    assert torch.equal(local, _card_box(target, full))
+    # Nothing outside the view was written.
+    assert torch.count_nonzero(flat[:64]) == 0 and torch.count_nonzero(grid[:, :, 1]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_restore_into_noncontiguous_local_view(cuda_device):
+    _cuda_noncontiguous_local_body()

@@ -20,6 +20,16 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch.device_staging\n"
         "import torchsnapshot_tpu_torch.preemption\n"
         "import torchsnapshot_tpu_torch.rss_profiler\n"
+        "import torchsnapshot_tpu_torch.dist_store\n"
+        "import torchsnapshot_tpu_torch.tpustore\n"
+        "import torchsnapshot_tpu_torch.coordination\n"
+        "import torchsnapshot_tpu_torch.pg_wrapper\n"
+        "import torchsnapshot_tpu_torch.partitioner\n"
+        "import torchsnapshot_tpu_torch.manifest_ops\n"
+        "import torchsnapshot_tpu_torch.manifest_utils\n"
+        "import torchsnapshot_tpu_torch.io_preparers.sharded_array\n"
+        "import torchsnapshot_tpu_torch.test_utils\n"
+        "import torchsnapshot_tpu_torch.faults\n"
         f"print(json.dumps([m for m in {FORBIDDEN!r} if m in sys.modules]))\n"
     )
     out = subprocess.run(

@@ -321,3 +321,148 @@ def test_async_manifest_equals_sync_manifest(tmp_path, cpu_as_device, toggle_bat
     assert sorted(docs["async"]["manifest"]) == sorted(docs["sync"]["manifest"])
     for key, entry in docs["sync"]["manifest"].items():
         assert docs["async"]["manifest"][key] == entry == docs["jax"]["manifest"][key], key
+
+
+# ------------------------------------------------------ sharded, multi-rank
+#
+# The JAX side runs in this process on the 8-device CPU mesh
+# (tests/conftest.py); the port side runs on 2 or 4 gloo ranks whose bodies
+# live in tests/test_torch_sharded.py (a module without JAX).
+
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
+from test_torch_sharded import (  # noqa: E402
+    PARITY_SHAPES,
+    parity_restore_jax_snapshot_2,
+    parity_restore_jax_snapshot_4,
+    parity_restore_raises_checksum_error,
+    parity_take_for_jax,
+    parity_take_hsdp_layout,
+    parity_value,
+)
+
+
+def _jax_mesh(shape, names):
+    devices = np.array(jax.devices()[: int(np.prod(shape))]).reshape(shape)
+    return Mesh(devices, names)
+
+
+def _parity_np(name) -> np.ndarray:
+    """parity_value as numpy, bf16 through ml_dtypes with the same bits."""
+    t = parity_value(name)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+JAX_SOURCE_SHARDINGS = {
+    "w_f32": lambda: NamedSharding(_jax_mesh((8,), ("x",)), P("x", None)),
+    "w_bf16": lambda: NamedSharding(_jax_mesh((4, 2), ("x", "y")), P(("x", "y"), None)),
+    "w_i32": lambda: NamedSharding(_jax_mesh((2, 4), ("r", "s")), P(None, None)),
+}
+
+
+def _jax_sharded_state():
+    return {
+        name: jax.device_put(jnp.asarray(_parity_np(name)), JAX_SOURCE_SHARDINGS[name]())
+        for name in PARITY_SHAPES
+    }
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_jax_sharded_snapshot_restores_into_dtensors(tmp_path, monkeypatch, world):
+    """A snapshot the JAX package took of NamedSharding arrays on its
+    8-device mesh restores in place into torch DTensors across 2 and 4
+    gloo ranks, every rank's box bit-exact."""
+    JaxSnapshot.take(str(tmp_path / "snap"), {"m": JaxStateDict(_jax_sharded_state())})
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(tmp_path / "snap"))
+    (parity_restore_jax_snapshot_2 if world == 2 else parity_restore_jax_snapshot_4)()
+
+
+JAX_TARGET_SHARDINGS = {
+    "w_f32": lambda: NamedSharding(_jax_mesh((4, 2), ("x", "y")), P(None, "y")),
+    "w_bf16": lambda: NamedSharding(_jax_mesh((2, 4), ("a", "b")), P("b", "a")),
+    "w_i32": lambda: NamedSharding(_jax_mesh((4, 2), ("x", "y")), P("x", "y")),
+}
+
+
+def test_port_sharded_snapshot_restores_through_jax(tmp_path, monkeypatch):
+    """DTensors that 4 torch ranks took (HSDP, two mesh axes, an uneven
+    Shard(1) with an empty box) restore through the JAX package into other
+    NamedShardings with equal global values, and read_object assembles
+    them whole in both packages."""
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(tmp_path / "snap"))
+    parity_take_for_jax()
+    targets = {
+        name: jax.device_put(jnp.zeros(shape, _parity_np(name).dtype), JAX_TARGET_SHARDINGS[name]())
+        for name, (shape, _) in PARITY_SHAPES.items()
+    }
+    dst = {"m": JaxStateDict(targets)}
+    JaxSnapshot(str(tmp_path / "snap")).restore(dst)
+    port_snap = ts.Snapshot(str(tmp_path / "snap"))
+    for name in PARITY_SHAPES:
+        got = dst["m"][name]
+        assert got.sharding == targets[name].sharding
+        assert _raw(np.asarray(got)) == _raw(_parity_np(name)), name
+        whole = port_snap.read_object(f"0/m/{name}", device="cpu")
+        assert torch.equal(whole.view(torch.uint8), parity_value(name).view(torch.uint8)), name
+
+
+def test_sharded_entry_fields_match_across_packages(tmp_path, monkeypatch):
+    """For a layout both can express (a (2, 2) mesh, dim 0 sharded over
+    "shard", replicated over "replicate") both packages write the same
+    ShardedArrayEntry: shape, dtype, shard boxes and piece paths, mesh
+    shape, axis names and partition spec; each replicated box once."""
+    jax_arr = jax.device_put(
+        jnp.asarray(_parity_np("w_f32")),
+        NamedSharding(_jax_mesh((2, 2), ("replicate", "shard")), P("shard", None)),
+    )
+    # Unbatched on both sides: the JAX package, at world size 1, would pack
+    # both small pieces into one slab, each port rank has one piece.
+    monkeypatch.setenv(ts.knobs.DISABLE_BATCHING_ENV_VAR, "1")
+    jax_snap = JaxSnapshot.take(str(tmp_path / "jax"), {"m": JaxStateDict({"w_f32": jax_arr})})
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(tmp_path / "port"))
+    parity_take_hsdp_layout()
+    port_snap = ts.Snapshot(str(tmp_path / "port"))
+
+    from torchsnapshot_tpu.manifest_ops import get_manifest_for_rank as jax_view
+    from torchsnapshot_tpu_torch.manifest_ops import get_manifest_for_rank as port_view
+
+    def fields(entry):
+        return {
+            "shape": entry.shape,
+            "dtype": entry.dtype,
+            "boxes": sorted((s.offsets, s.sizes, s.tensor.location, s.tensor.shape) for s in entry.shards),
+            "mesh_shape": entry.mesh_shape,
+            "axis_names": entry.axis_names,
+            "partition_spec": entry.partition_spec,
+        }
+
+    jax_entry = jax_view(jax_snap.metadata, 0)[0]["m/w_f32"]
+    port_entry = port_view(port_snap.metadata, 0)[0]["m/w_f32"]
+    assert fields(port_entry) == fields(jax_entry)
+    assert fields(port_entry)["partition_spec"] == [["shard"], []]
+    assert len(port_entry.shards) == 2  # 4 ranks, each HSDP box written once
+
+
+@pytest.mark.parametrize("taker", ["jax", "port"])
+def test_flipped_shard_byte_raises_checksum_error_in_both(tmp_path, monkeypatch, taker):
+    """A flipped byte in one shard piece raises ChecksumError in both
+    packages, whichever took the snapshot."""
+    snap = tmp_path / "snap"
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(snap))
+    if taker == "jax":
+        JaxSnapshot.take(str(snap), {"m": JaxStateDict(_jax_sharded_state())})
+    else:
+        parity_take_for_jax()
+    entry = ts.Snapshot(str(snap)).get_manifest()["0/m/w_f32"]
+    piece = entry.shards[0].tensor
+    with open(snap / piece.location, "r+b") as f:
+        f.seek((piece.byte_range or [0])[0] + 5)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x10]))
+    with pytest.raises(ts.ChecksumError):
+        ts.Snapshot(str(snap)).read_object("0/m/w_f32", device="cpu")
+    with pytest.raises(JaxChecksumError):
+        JaxSnapshot(str(snap)).read_object("0/m/w_f32")
+    parity_restore_raises_checksum_error()

@@ -8,6 +8,8 @@
 //   tpusnap_xxhash64 / tpusnap_xxhash64_striped
 //   tpusnap_write_file_parts / tpusnap_write_parts_hash
 //   tpusnap_read_ranges_hash / tpusnap_file_size
+// and the coordination store's TCP server and client (tpustore_server_*,
+// tpustore_client_*; see the "TCP store" section at the end).
 // The digest values ("xxh64" and the striped "xxh64s") are bit-identical to
 // the JAX package's, so either package verifies the other's snapshots.
 // Entry points return 0 (or a size) on success and -errno on failure.
@@ -371,7 +373,7 @@ int write_one_file(const char* path, const void* const* bufs,
 
 extern "C" {
 
-int tpusnap_abi_version() { return 1; }
+int tpusnap_abi_version() { return 2; }
 
 // Sizes the worker pool BEFORE its lazy creation (TPUSNAP_NATIVE_THREADS);
 // once threads exist the request is ignored.  n <= 0 selects auto
@@ -583,6 +585,373 @@ int tpusnap_read_ranges_hash(const char* path, int n, const int64_t* offsets,
     }
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------ TCP store
+// The coordination store of multi-rank snapshots: a key-value server (one
+// acceptor thread plus one handler thread per connection) and its client,
+// copied from torchsnapshot_tpu's _native/tpustore.cc with the same wire
+// protocol, so either package's client talks to either package's server.
+//
+// Protocol (all integers little-endian uint32 unless noted):
+//   request:  op(1) keylen(4) key value_len(4) value
+//   response: status(1) value_len(4) value
+//   ops: 0=SET 1=GET(blocking, timeout_ms in value) 2=TRYGET
+//        3=ADD(int64 delta in value, returns int64) 4=PING
+//        5=DELETE_PREFIX(erases all keys starting with key, returns int64
+//          count): retired collective generations are swept, so a job that
+//          takes thousands of snapshots keeps the server's map bounded
+//   status: 0=ok 1=not_found 2=timeout 3=error
+
+#include <arpa/inet.h>
+#include <chrono>
+#include <map>
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <string>
+#include <sys/socket.h>
+
+namespace {
+
+struct Store {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::map<std::string, std::string> data;
+};
+
+int sock_read_full(int fd, void* buf, size_t n) {
+  char* p = static_cast<char*>(buf);
+  size_t got = 0;
+  while (got < n) {
+    ssize_t r = ::read(fd, p + got, n - got);
+    if (r == 0) return -1;
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -1;
+    }
+    got += static_cast<size_t>(r);
+  }
+  return 0;
+}
+
+int sock_write_full(int fd, const void* buf, size_t n) {
+  const char* p = static_cast<const char*>(buf);
+  size_t put = 0;
+  while (put < n) {
+    ssize_t r = ::write(fd, p + put, n - put);
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -1;
+    }
+    put += static_cast<size_t>(r);
+  }
+  return 0;
+}
+
+bool send_response(int fd, uint8_t status, const std::string& value) {
+  uint32_t len = static_cast<uint32_t>(value.size());
+  std::string out;
+  out.reserve(5 + value.size());
+  out.push_back(static_cast<char>(status));
+  out.append(reinterpret_cast<const char*>(&len), 4);
+  out.append(value);
+  return sock_write_full(fd, out.data(), out.size()) == 0;
+}
+
+struct Server {
+  int listen_fd = -1;
+  int port = 0;
+  std::thread acceptor;
+  std::vector<std::thread> handlers;
+  std::mutex handlers_mu;
+  Store store;
+  std::atomic<bool> stopping{false};
+
+  void handle_conn(int fd) {
+    int one = 1;
+    setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+    for (;;) {
+      uint8_t op;
+      uint32_t keylen, vallen;
+      if (sock_read_full(fd, &op, 1) < 0) break;
+      if (sock_read_full(fd, &keylen, 4) < 0) break;
+      std::string key(keylen, '\0');
+      if (keylen && sock_read_full(fd, &key[0], keylen) < 0) break;
+      if (sock_read_full(fd, &vallen, 4) < 0) break;
+      std::string value(vallen, '\0');
+      if (vallen && sock_read_full(fd, &value[0], vallen) < 0) break;
+
+      bool ok = true;
+      switch (op) {
+        case 0: {  // SET
+          {
+            std::lock_guard<std::mutex> lock(store.mu);
+            store.data[key] = value;
+          }
+          store.cv.notify_all();
+          ok = send_response(fd, 0, "");
+          break;
+        }
+        case 1: {  // blocking GET with timeout_ms payload
+          int64_t timeout_ms = 1800000;
+          if (value.size() == 8) memcpy(&timeout_ms, value.data(), 8);
+          std::unique_lock<std::mutex> lock(store.mu);
+          auto deadline = std::chrono::steady_clock::now() +
+                          std::chrono::milliseconds(timeout_ms);
+          bool found = store.cv.wait_until(lock, deadline, [&] {
+            return stopping || store.data.count(key) > 0;
+          });
+          if (stopping) { ok = send_response(fd, 3, ""); break; }
+          if (!found) {
+            ok = send_response(fd, 2, "");
+          } else {
+            ok = send_response(fd, 0, store.data[key]);
+          }
+          break;
+        }
+        case 2: {  // TRYGET
+          std::lock_guard<std::mutex> lock(store.mu);
+          auto it = store.data.find(key);
+          if (it == store.data.end()) {
+            ok = send_response(fd, 1, "");
+          } else {
+            ok = send_response(fd, 0, it->second);
+          }
+          break;
+        }
+        case 3: {  // ADD int64
+          int64_t delta = 0;
+          if (value.size() == 8) memcpy(&delta, value.data(), 8);
+          int64_t result;
+          {
+            std::lock_guard<std::mutex> lock(store.mu);
+            int64_t current = 0;
+            auto it = store.data.find(key);
+            if (it != store.data.end() && it->second.size() == 8) {
+              memcpy(&current, it->second.data(), 8);
+            }
+            result = current + delta;
+            std::string packed(8, '\0');
+            memcpy(&packed[0], &result, 8);
+            store.data[key] = packed;
+          }
+          store.cv.notify_all();
+          std::string out(8, '\0');
+          memcpy(&out[0], &result, 8);
+          ok = send_response(fd, 0, out);
+          break;
+        }
+        case 4: {  // PING
+          ok = send_response(fd, 0, "");
+          break;
+        }
+        case 5: {  // DELETE_PREFIX
+          int64_t count = 0;
+          {
+            std::lock_guard<std::mutex> lock(store.mu);
+            auto it = store.data.lower_bound(key);
+            while (it != store.data.end() &&
+                   it->first.compare(0, key.size(), key) == 0) {
+              it = store.data.erase(it);
+              ++count;
+            }
+          }
+          std::string out(8, '\0');
+          memcpy(&out[0], &count, 8);
+          ok = send_response(fd, 0, out);
+          break;
+        }
+        default:
+          ok = send_response(fd, 3, "");
+      }
+      if (!ok) break;
+    }
+    ::close(fd);
+  }
+
+  void accept_loop() {
+    for (;;) {
+      int fd = ::accept(listen_fd, nullptr, nullptr);
+      if (fd < 0) {
+        if (stopping) return;
+        if (errno == EINTR) continue;
+        return;
+      }
+      std::lock_guard<std::mutex> lock(handlers_mu);
+      handlers.emplace_back([this, fd] { handle_conn(fd); });
+    }
+  }
+};
+
+struct Client {
+  int fd = -1;
+  std::string last_value;
+  std::mutex mu;
+};
+
+}  // namespace
+
+extern "C" {
+
+// ----------------------------------------------------------------- server
+
+void* tpustore_server_start(int port) {
+  auto* srv = new Server();
+  srv->listen_fd = ::socket(AF_INET, SOCK_STREAM, 0);
+  if (srv->listen_fd < 0) { delete srv; return nullptr; }
+  int one = 1;
+  setsockopt(srv->listen_fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+  sockaddr_in addr{};
+  addr.sin_family = AF_INET;
+  addr.sin_addr.s_addr = htonl(INADDR_ANY);
+  addr.sin_port = htons(static_cast<uint16_t>(port));
+  if (::bind(srv->listen_fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) < 0 ||
+      ::listen(srv->listen_fd, 128) < 0) {
+    ::close(srv->listen_fd);
+    delete srv;
+    return nullptr;
+  }
+  if (port == 0) {
+    socklen_t len = sizeof(addr);
+    getsockname(srv->listen_fd, reinterpret_cast<sockaddr*>(&addr), &len);
+  }
+  srv->port = ntohs(addr.sin_port);
+  srv->acceptor = std::thread([srv] { srv->accept_loop(); });
+  return srv;
+}
+
+int tpustore_server_port(void* handle) {
+  return static_cast<Server*>(handle)->port;
+}
+
+void tpustore_server_stop(void* handle) {
+  auto* srv = static_cast<Server*>(handle);
+  srv->stopping = true;
+  srv->store.cv.notify_all();
+  ::shutdown(srv->listen_fd, SHUT_RDWR);
+  ::close(srv->listen_fd);
+  if (srv->acceptor.joinable()) srv->acceptor.join();
+  {
+    std::lock_guard<std::mutex> lock(srv->handlers_mu);
+    for (auto& t : srv->handlers) {
+      if (t.joinable()) t.detach();  // blocked conns exit on closed fds
+    }
+  }
+  // Leak srv intentionally: detached handlers may still touch the store for
+  // a moment during teardown; process exit reclaims. (Servers are one per
+  // job, not churned.)
+}
+
+// ----------------------------------------------------------------- client
+
+void* tpustore_client_connect(const char* host, int port, int timeout_ms) {
+  int fd = ::socket(AF_INET, SOCK_STREAM, 0);
+  if (fd < 0) return nullptr;
+  sockaddr_in addr{};
+  addr.sin_family = AF_INET;
+  addr.sin_port = htons(static_cast<uint16_t>(port));
+  if (inet_pton(AF_INET, host, &addr.sin_addr) != 1) {
+    ::close(fd);
+    return nullptr;
+  }
+  auto deadline = std::chrono::steady_clock::now() +
+                  std::chrono::milliseconds(timeout_ms);
+  while (::connect(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) < 0) {
+    ::close(fd);
+    if (std::chrono::steady_clock::now() > deadline) return nullptr;
+    std::this_thread::sleep_for(std::chrono::milliseconds(50));
+    fd = ::socket(AF_INET, SOCK_STREAM, 0);
+    if (fd < 0) return nullptr;
+  }
+  int one = 1;
+  setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+  auto* client = new Client();
+  client->fd = fd;
+  return client;
+}
+
+static int client_request(Client* c, uint8_t op, const char* key,
+                          const void* value, uint32_t value_len) {
+  std::string req;
+  uint32_t keylen = static_cast<uint32_t>(strlen(key));
+  req.push_back(static_cast<char>(op));
+  req.append(reinterpret_cast<const char*>(&keylen), 4);
+  req.append(key, keylen);
+  req.append(reinterpret_cast<const char*>(&value_len), 4);
+  if (value_len) req.append(static_cast<const char*>(value), value_len);
+  if (sock_write_full(c->fd, req.data(), req.size()) < 0) return -1;
+  uint8_t status;
+  uint32_t resp_len;
+  if (sock_read_full(c->fd, &status, 1) < 0) return -1;
+  if (sock_read_full(c->fd, &resp_len, 4) < 0) return -1;
+  c->last_value.resize(resp_len);
+  if (resp_len && sock_read_full(c->fd, &c->last_value[0], resp_len) < 0) return -1;
+  return static_cast<int>(status);
+}
+
+// returns status; value fetched with tpustore_client_value/_value_len
+int tpustore_client_set(void* handle, const char* key, const void* value,
+                        uint32_t value_len) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  return client_request(c, 0, key, value, value_len);
+}
+
+int tpustore_client_get(void* handle, const char* key, int64_t timeout_ms) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  return client_request(c, 1, key, &timeout_ms, 8);
+}
+
+int tpustore_client_tryget(void* handle, const char* key) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  return client_request(c, 2, key, nullptr, 0);
+}
+
+int tpustore_client_add(void* handle, const char* key, int64_t delta,
+                        int64_t* result) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  int status = client_request(c, 3, key, &delta, 8);
+  if (status == 0 && c->last_value.size() == 8) {
+    memcpy(result, c->last_value.data(), 8);
+  }
+  return status;
+}
+
+int tpustore_client_ping(void* handle) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  return client_request(c, 4, "", nullptr, 0);
+}
+
+int tpustore_client_delete_prefix(void* handle, const char* prefix,
+                                  int64_t* count) {
+  auto* c = static_cast<Client*>(handle);
+  std::lock_guard<std::mutex> lock(c->mu);
+  int status = client_request(c, 5, prefix, nullptr, 0);
+  if (status == 0 && c->last_value.size() == 8) {
+    memcpy(count, c->last_value.data(), 8);
+  }
+  return status;
+}
+
+uint32_t tpustore_client_value_len(void* handle) {
+  return static_cast<uint32_t>(static_cast<Client*>(handle)->last_value.size());
+}
+
+void tpustore_client_value(void* handle, void* out) {
+  auto* c = static_cast<Client*>(handle);
+  memcpy(out, c->last_value.data(), c->last_value.size());
+}
+
+void tpustore_client_close(void* handle) {
+  auto* c = static_cast<Client*>(handle);
+  ::close(c->fd);
+  delete c;
 }
 
 }  // extern "C"

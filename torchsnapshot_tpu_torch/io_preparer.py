@@ -4,7 +4,10 @@ Counterpart of ``torchsnapshot_tpu/io_preparer.py``, in its dispatch order.
 On write:
 
 1. python primitives → inlined :class:`PrimitiveEntry` (no storage I/O)
-2. (sharded arrays: DTensor state belongs to a later slice and raises)
+2. DTensors with a ``Shard`` placement → :class:`ShardedArrayIOPreparer`
+   (``Partial`` and ``_StridedShard`` placements raise a ``TypeError``); a
+   DTensor whose placements are all ``Replicate`` is its local tensor,
+   marked replicated by the caller
 3. tensors and numpy arrays above the chunk knob (512 MB) →
    :class:`ChunkedArrayIOPreparer`
 4. other tensors and numpy arrays of a registry dtype →
@@ -13,7 +16,9 @@ On write:
 5. everything else → pickle :class:`ObjectIOPreparer`
 
 (The JAX package's typed PRNG-key branch has no torch counterpart.)
-Rank-private payloads live under ``<rank>/``.
+Storage paths: ``sharded/`` for sharded entries (pieces shared across
+ranks), ``replicated/`` for replicated values (one writer, chosen by the
+partitioner), ``<rank>/`` for rank-private payloads.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from . import knobs, serialization, staging
 from .io_preparers.array import ArrayIOPreparer, H2DBatcher
 from .io_preparers.chunked_array import ChunkedArrayIOPreparer
 from .io_preparers.object import ObjectIOPreparer
+from .io_preparers.sharded_array import ShardedArrayIOPreparer, as_sharded_entry
 from .io_types import Future, ReadReq, WriteReq
 from .manifest import (
     ChunkedTensorEntry,
@@ -39,27 +45,48 @@ from .manifest import (
 from .serialization import Serializer
 
 
-def get_storage_path(logical_path: str, rank: int) -> str:
+def get_storage_path(obj: Any, logical_path: str, rank: int, replicated: bool) -> str:
+    if staging.is_sharded(obj):
+        return f"sharded/{logical_path}"
+    if replicated:
+        return f"replicated/{logical_path}"
     return f"{rank}/{logical_path}"
 
 
 def prepare_write(
-    obj: Any, logical_path: str, rank: int, is_async_snapshot: bool = False
+    obj: Any,
+    logical_path: str,
+    rank: int,
+    replicated: bool = False,
+    is_async_snapshot: bool = False,
 ) -> Tuple[Entry, List[WriteReq]]:
-    """``is_async_snapshot``: an async take that stages on the host before
-    returning (host mode) — CPU tensors and numpy arrays are copied at
-    staging, since the caller may mutate them once ``async_take`` returns."""
+    """``replicated``: every rank holds the same value, and one of them
+    writes it (partitioner.py).  ``is_async_snapshot``: an async take that
+    stages on the host — CPU tensors and numpy arrays are copied at
+    staging, since the caller may mutate them once ``async_take``
+    returns."""
     if PrimitiveEntry.supports(obj) and not isinstance(obj, np.generic):
-        return PrimitiveEntry.from_object(obj), []
-
-    storage_path = get_storage_path(logical_path, rank)
+        return PrimitiveEntry.from_object(obj, replicated=replicated), []
 
     if staging.is_dtensor(obj):
-        raise NotImplementedError(
-            f"{logical_path}: sharded (DTensor) state is not supported by "
-            "torchsnapshot_tpu_torch yet"
-        )
+        staging.check_placements(obj, logical_path)
+        if staging.is_sharded(obj):
+            return ShardedArrayIOPreparer.prepare_write(
+                storage_path=get_storage_path(obj, logical_path, rank, replicated),
+                obj=obj,
+                is_async_snapshot=is_async_snapshot,
+            )
+        obj = obj.to_local()  # every rank holds the whole tensor
 
+    storage_path = get_storage_path(obj, logical_path, rank, replicated)
+    entry, write_reqs = _prepare_write_local(obj, logical_path, storage_path, is_async_snapshot)
+    entry.replicated = replicated  # type: ignore[attr-defined]
+    return entry, write_reqs
+
+
+def _prepare_write_local(
+    obj: Any, logical_path: str, storage_path: str, is_async_snapshot: bool
+) -> Tuple[Entry, List[WriteReq]]:
     if isinstance(obj, torch.Tensor) and not serialization.is_supported_dtype(obj.dtype):
         # torch cannot unpickle tensors of these dtypes, so no pickle
         # fallback: refuse at plan time.
@@ -100,11 +127,19 @@ def prepare_read(
     that have no target (CPU when None)."""
     if isinstance(entry, PrimitiveEntry):
         return [], Future(obj=entry.get_value())
+    if staging.is_dtensor(obj_out) and (
+        isinstance(entry, (ShardedArrayEntry, ChunkedTensorEntry))
+        or (isinstance(entry, TensorEntry) and entry.serializer != Serializer.PICKLE.value)
+    ):
+        # A DTensor restores in place into its local tensor, whatever the
+        # saved layout: a dense or chunked entry is a sharded one of one
+        # shard or one shard per chunk.
+        return ShardedArrayIOPreparer.prepare_read(
+            as_sharded_entry(entry), obj_out, h2d_batch=h2d_batch, device=device
+        )
     if isinstance(entry, ShardedArrayEntry):
-        raise NotImplementedError(
-            "sharded array entries are not supported by "
-            "torchsnapshot_tpu_torch yet; restore this snapshot with "
-            "torchsnapshot_tpu"
+        return ShardedArrayIOPreparer.prepare_read(
+            entry, obj_out, h2d_batch=h2d_batch, device=device
         )
     if isinstance(entry, ChunkedTensorEntry):
         return ChunkedArrayIOPreparer.prepare_read(

@@ -199,6 +199,17 @@ class ArrayBufferStager(BufferStager):
             self.hash_sinks = [_set]
         return serialization.array_as_memoryview(host)
 
+    @property
+    def source(self) -> Any:
+        """The value this stager writes."""
+        return self._obj
+
+    def restage(self, staged: Any) -> None:
+        """Swap in a snapshot-stable copy of the value (a device-staged
+        async take): staging then copies nothing more."""
+        self._obj = staged
+        self._is_async_snapshot = False
+
     def get_staging_cost_bytes(self) -> int:
         """A CUDA tensor costs its pinned host buffer (plus its contiguous
         device copy when it is not contiguous); a contiguous CPU value is

@@ -82,6 +82,16 @@ class ObjectBufferStager(BufferStager):
             self.hash_sinks = [_set]
         return data
 
+    @property
+    def source(self) -> Any:
+        """The object this stager pickles."""
+        return self._obj
+
+    def restage(self, staged: Any) -> None:
+        """Swap in the object's eagerly pickled bytes (a device-staged
+        async take)."""
+        self._obj = staged
+
     def get_staging_cost_bytes(self) -> int:
         if isinstance(self._obj, serialization.PrePickled):
             return len(self._obj.data)

@@ -32,7 +32,7 @@ STRIPED_MIN_BYTES = 32 << 20
 
 # ABI generation of the library; a mismatch (a library built from another
 # source) is refused at load.
-NATIVE_ABI_VERSION = 1
+NATIVE_ABI_VERSION = 2
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64

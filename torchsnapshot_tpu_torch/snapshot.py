@@ -20,25 +20,38 @@ slices, in the JAX order:
 - ``read_object``: random access to one value; a tensor with no target is
   placed on ``device``, which defaults to ``"cuda"``.
 
-Distribution, sharded (DTensor) state, compression, content addressing,
-journals, caches and telemetry are later slices and are absent here.
+Every entry point runs on N torch.distributed ranks.  The ranks coordinate
+through object collectives over a KV store (pg_wrapper.py; the default
+process group is ``PGWrapper.from_torch()``), never through a collective
+on payloads: rank 0 gathers the per-rank manifests, dedups replicated and
+HSDP-replicated payloads so each is written once (partitioner.py), and
+commits ``.snapshot_metadata`` once.  DTensors are written as sharded
+entries and restore into any world size and placement
+(io_preparers/sharded_array.py, manifest_ops.py).  A liveness lease per
+operation lets peers of a rank that dies abort in about
+``TPUSNAP_LEASE_GRACE_S`` (dist_store.py).
+
+Compression, content addressing, journals, caches and telemetry are later
+slices and are absent here.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import inspect
 import logging
 import random
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import device_staging, io_preparer, knobs, preemption, retry as retry_policy
+from . import device_staging, io_preparer, knobs, preemption, retry as retry_policy, staging
 from .batcher import batch_read_requests, batch_write_requests
+from .dist_store import LinearBarrier, StorePeerError, acquire_op_lease, release_op_lease
 from .event import Event
 from .event_handlers import log_event
 from .flatten import flatten, inflate
@@ -49,12 +62,14 @@ from .manifest import (
     Entry,
     Manifest,
     PrimitiveEntry,
+    ShardedArrayEntry,
     SnapshotMetadata,
     TensorEntry,
-    UnsupportedSnapshotError,
     manifest_version_for,
 )
+from .manifest_ops import get_manifest_for_rank, handle_sharded_array_elasticity
 from .manifest_utils import is_container_entry
+from .partitioner import consolidate_replicated_entries, partition_write_reqs
 from .pg_wrapper import PGWrapper
 from .rng_state import RNGState
 from .scheduler import (
@@ -78,18 +93,28 @@ class Snapshot:
 
     def __init__(self, path: str, pg: Optional[PGWrapper] = None) -> None:
         self.path = path
-        self._pg = pg or PGWrapper()
+        self._pg = pg or PGWrapper.from_torch()
         self._metadata: Optional[SnapshotMetadata] = None
 
     # ------------------------------------------------------------------ take
 
     @classmethod
     def take(
-        cls, path: str, app_state: AppState, pg: Optional[PGWrapper] = None
+        cls,
+        path: str,
+        app_state: AppState,
+        pg: Optional[PGWrapper] = None,
+        replicated: Optional[List[str]] = None,
     ) -> "Snapshot":
-        pg = pg or PGWrapper()
+        """Collective over ``pg`` (default: ``PGWrapper.from_torch()``).
+        ``replicated``: globs of logical paths that hold the same value on
+        every rank; each is written once.  DTensors whose placements are all
+        ``Replicate`` are replicated without a glob.  Rank 0's ``path``
+        wins."""
+        pg = pg or PGWrapper.from_torch()
+        unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
-            "unique_id": uuid.uuid4().hex,
+            "unique_id": unique_id,
             "rank": pg.get_rank(),
             "action": "take",
         }
@@ -97,13 +122,20 @@ class Snapshot:
         begin = time.monotonic()
         in_flight = _TakeInFlight()
         preemption.track_save(in_flight)
+        # Liveness lease: while this rank is inside the take its store-side
+        # lease stays fresh, so peers blocked in a wait detect its death in
+        # about TPUSNAP_LEASE_GRACE_S (dist_store.OpLease).
+        lease = acquire_op_lease(pg.store, pg.get_rank())
         try:
             cls._validate_app_state(app_state)
+            path, replicated_patterns = cls._coalesce_path_and_replicated(
+                path, pg, replicated or []
+            )
             storage = url_to_storage_plugin(path)
             try:
                 try:
                     pending_io_work, entries, _ = cls._take_impl(
-                        app_state, storage, pg, is_async_snapshot=False
+                        app_state, replicated_patterns, storage, pg, is_async_snapshot=False
                     )
                     pending_io_work.sync_complete()
                     nbytes = pending_io_work.bytes_total
@@ -115,7 +147,7 @@ class Snapshot:
                         world_size=pg.get_world_size(),
                         manifest=global_manifest,
                     )
-                    # Every payload is durable → rank 0 commits.
+                    # Every rank's payloads are durable → rank 0 commits.
                     pg.barrier()
                     if pg.get_rank() == 0:
                         cls._write_snapshot_metadata(metadata, storage)
@@ -132,6 +164,7 @@ class Snapshot:
             raise
         finally:
             in_flight.finish()
+            release_op_lease(lease)
         snapshot = cls(path=path, pg=pg)
         snapshot._metadata = metadata
         event_metadata["duration_s"] = time.monotonic() - begin
@@ -142,7 +175,11 @@ class Snapshot:
 
     @classmethod
     def async_take(
-        cls, path: str, app_state: AppState, pg: Optional[PGWrapper] = None
+        cls,
+        path: str,
+        app_state: AppState,
+        pg: Optional[PGWrapper] = None,
+        replicated: Optional[List[str]] = None,
     ) -> "PendingSnapshot":
         """Returns once the app state is snapshot-stable; storage I/O and the
         metadata commit continue on a background thread.  The caller may
@@ -154,9 +191,11 @@ class Snapshot:
         memory, ``device`` copies it into fresh device memory, and both copy
         CPU tensors, numpy arrays and objects on this thread; the D2H and the
         storage drain then run in the background.  ``host`` stages every
-        buffer to host memory before returning."""
-        pg = pg or PGWrapper()
-        unique_id = uuid.uuid4().hex
+        buffer to host memory before returning.  Only what this rank writes
+        after dedup is copied.  Collective like :meth:`take`; the ranks
+        commit once, through a store-based two-phase barrier."""
+        pg = pg or PGWrapper.from_torch()
+        unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": pg.get_rank(),
@@ -164,12 +203,18 @@ class Snapshot:
         }
         log_event(Event(name="async_take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        # Held through the background commit; the PendingSnapshot releases
+        # it when its thread finishes.
+        lease = acquire_op_lease(pg.store, pg.get_rank())
         try:
             cls._validate_app_state(app_state)
+            path, replicated_patterns = cls._coalesce_path_and_replicated(
+                path, pg, replicated or []
+            )
             storage = url_to_storage_plugin(path)
             try:
                 pending_io_work, _, finalizer = cls._take_impl(
-                    app_state, storage, pg, is_async_snapshot=True
+                    app_state, replicated_patterns, storage, pg, is_async_snapshot=True
                 )
             except BaseException:
                 cls._cleanup_failed_take(storage, pg, action="async_take")
@@ -178,6 +223,7 @@ class Snapshot:
         except BaseException:
             # Every async_take.start reaches an async_take.end, also when
             # planning or staging raises before the background thread exists.
+            release_op_lease(lease)
             event_metadata["duration_s"] = time.monotonic() - begin
             event_metadata["is_success"] = False
             log_event(Event(name="async_take.end", metadata=event_metadata))
@@ -190,19 +236,21 @@ class Snapshot:
             storage=storage,
             unique_id=unique_id,
             stall_s=time.monotonic() - begin,
+            lease=lease,
         )
 
     @classmethod
     def _take_impl(
         cls,
         app_state: AppState,
+        replicated_patterns: List[str],
         storage: StoragePlugin,
         pg: PGWrapper,
         is_async_snapshot: bool,
     ) -> Tuple[Any, Optional[Manifest], Optional["_ManifestFinalizer"]]:
-        """Flatten, stage (async takes), plan and start the write pipeline.
-        Returns (I/O work to complete, this rank's entries for a synchronous
-        take, the manifest finalizer of an async take)."""
+        """Flatten, plan, partition, stage (async takes) and start the write
+        pipeline.  Returns (I/O work to complete, this rank's entries for a
+        synchronous take, the manifest finalizer of an async take)."""
         rank = pg.get_rank()
         world_size = pg.get_world_size()
         app_state = dict(app_state)
@@ -213,7 +261,10 @@ class Snapshot:
 
         manifest: Manifest = {}
         flattened: Dict[str, Any] = {}
-        for key in sorted(app_state):
+        # _gather_keys checked that every rank has every key, so nothing in
+        # the per-key barrier loop below can diverge across ranks.
+        for key in cls._gather_keys(app_state, pg):
+            # A state_dict() may itself run collectives: one key at a time.
             key_manifest, key_flattened = flatten(
                 app_state[key].state_dict(), prefix=key
             )
@@ -229,19 +280,43 @@ class Snapshot:
         random.setstate(py_rng_state)
         np.random.set_state(np_rng_state)
 
-        # Async takes copy the state (on the card, into pinned host memory,
-        # or on the host for CPU leaves) so that async_take can return before
-        # any D2H of the drain runs (device_staging.py).
+        replicated_paths = cls._calculate_replicated_entries(
+            flattened, replicated_patterns, pg
+        )
+
+        # Plan on the live state, host-staging semantics (CPU values copied
+        # at staging in an async take), then dedup across ranks.
+        entries: Manifest = dict(manifest)
+        write_reqs: List[WriteReq] = []
+        for logical_path, obj in flattened.items():
+            entry, obj_write_reqs = io_preparer.prepare_write(
+                obj=obj,
+                logical_path=logical_path,
+                rank=rank,
+                replicated=logical_path in replicated_paths,
+                is_async_snapshot=is_async_snapshot,
+            )
+            entries[logical_path] = entry
+            write_reqs += obj_write_reqs
+        entries, write_reqs = partition_write_reqs(entries, write_reqs, pg)
+
+        # Async takes copy what this rank writes (on the card, into pinned
+        # host memory, or on the host for CPU values) so that async_take
+        # can return before any D2H of the drain runs (device_staging.py).
+        # The JAX package copies every leaf before the partition; copying
+        # after it skips the payloads another rank writes.
         staging_mode = "host"
         staging_stats: Dict[str, Any] = {}
         if is_async_snapshot:
+            stagers = [wr.buffer_stager for wr in write_reqs]
+            sources = {str(i): st.source for i, st in enumerate(stagers)}  # type: ignore[attr-defined]
             staging_mode = device_staging.resolve_mode(
-                flattened, pg=pg if world_size > 1 else None, emit_events=True
+                sources, pg=pg if world_size > 1 else None, emit_events=True
             )
             if staging_mode != "host":
                 try:
-                    flattened, staging_stats = device_staging.stage_app_state(
-                        flattened, staging_mode
+                    staged, staging_stats = device_staging.stage_app_state(
+                        sources, staging_mode
                     )
                 except Exception as staging_exc:  # noqa: BLE001 — evented
                     logger.warning(
@@ -256,6 +331,8 @@ class Snapshot:
                     )
                     staging_mode = "host"
                 else:
+                    for i, stager in enumerate(stagers):
+                        stager.restage(staged[str(i)])  # type: ignore[attr-defined]
                     staging_mode = staging_stats["mode"]
                     log_event(
                         Event(
@@ -264,22 +341,6 @@ class Snapshot:
                         )
                     )
 
-        entries: Manifest = dict(manifest)
-        write_reqs: List[WriteReq] = []
-        for logical_path, obj in flattened.items():
-            entry, obj_write_reqs = io_preparer.prepare_write(
-                obj=obj,
-                logical_path=logical_path,
-                rank=rank,
-                # Device-staged state needs no staging-time copies: every
-                # leaf the caller could mutate was copied above.
-                is_async_snapshot=is_async_snapshot and staging_mode == "host",
-            )
-            entries[logical_path] = entry
-            write_reqs += obj_write_reqs
-        # (Partitioning write requests across ranks is the identity at world
-        # size 1, and the JAX package's content-addressed pre-stage skip has
-        # no counterpart: content addressing is not ported.)
         if not knobs.is_batching_disabled():
             entries, write_reqs = batch_write_requests(
                 entries, write_reqs, scatter_ok=storage.supports_scatter
@@ -322,26 +383,31 @@ class Snapshot:
     # --------------------------------------------------------------- restore
 
     def restore(self, app_state: AppState, strict: bool = True) -> None:
-        """Restores the app state in place.  Dense and chunked CUDA uploads
-        have landed when this returns.  ``strict=False`` is forwarded to
+        """Restores the app state in place, collectively over this handle's
+        process group.  Dense, chunked and sharded CUDA uploads have landed
+        when this returns.  DTensors restore into their local tensors from
+        any saved world size and layout.  ``strict=False`` is forwarded to
         statefuls whose ``load_state_dict`` accepts it."""
         self._validate_app_state(app_state)
         pg = self._pg
+        rank = pg.get_rank()
         event_metadata: Dict[str, Any] = {
-            "unique_id": uuid.uuid4().hex,
-            "rank": pg.get_rank(),
+            "unique_id": _gen_unique_id(pg),
+            "rank": rank,
             "action": "restore",
         }
         log_event(Event(name="restore.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        lease = acquire_op_lease(pg.store, rank)
         try:
             storage = url_to_storage_plugin(self.path)
             try:
                 metadata = self._get_metadata(storage)
                 app_state = dict(app_state)
                 rng_state_item = self._pop_rng_state(app_state)
+                global_keys = self._gather_keys(app_state, pg)
                 memory_budget_bytes = get_process_memory_budget_bytes(pg)
-                for key in sorted(app_state):
+                for key in global_keys:
                     self._load_stateful(
                         stateful_key=key,
                         stateful=app_state[key],
@@ -368,6 +434,8 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="restore.end", metadata=event_metadata))
             raise
+        finally:
+            release_op_lease(lease)
         event_metadata["duration_s"] = time.monotonic() - begin
         event_metadata["is_success"] = True
         log_event(Event(name="restore.end", metadata=event_metadata))
@@ -381,19 +449,28 @@ class Snapshot:
         memory_budget_bytes: int,
         strict: bool = True,
     ) -> None:
-        local_manifest = _manifest_for_rank(metadata, self._pg.get_rank())
+        rank = self._pg.get_rank()
+        local_manifest, merged_entries = get_manifest_for_rank(metadata, rank)
         # The current state dict provides the in-place restore targets.
         _, target_flattened = flatten(stateful.state_dict(), prefix=stateful_key)
+        tensor_requests = [
+            path
+            for path, obj in target_flattened.items()
+            if isinstance(obj, (torch.Tensor, np.ndarray))
+        ]
+        handle_sharded_array_elasticity(local_manifest, merged_entries, tensor_requests)
         sub_manifest = _sub_manifest(local_manifest, stateful_key)
         if not sub_manifest:
-            logger.warning("No entries for stateful %r in snapshot", stateful_key)
+            logger.warning(
+                "No entries for stateful %r in snapshot (rank %d)", stateful_key, rank
+            )
             return
         resolved, container_entries = _read_entries(
             sub_manifest,
             targets=target_flattened,
             storage=storage,
             memory_budget_bytes=memory_budget_bytes,
-            rank=self._pg.get_rank(),
+            rank=rank,
             device=None,
         )
         restored_state_dict = inflate(container_entries, resolved, prefix=stateful_key)
@@ -412,11 +489,13 @@ class Snapshot:
         memory_budget_bytes: Optional[int] = None,
     ) -> Any:
         """Random access to one value; ``path`` is ``"<rank>/<logical_path>"``.
+        Not collective: any rank may call it alone, for any saved rank.
 
-        ``obj_out``: a tensor or numpy array to restore into in place.
-        Without one, a tensor is placed on ``device`` (default ``"cuda"``).
-        ``memory_budget_bytes`` bounds the read buffers (large tensors read
-        in tiles under it)."""
+        ``obj_out``: a tensor, DTensor or numpy array to restore into in
+        place.  Without one, a tensor (a sharded one assembled whole) is
+        placed on ``device`` (default ``"cuda"``).  ``memory_budget_bytes``
+        bounds the read buffers (large dense tensors read in tiles under
+        it)."""
         event_metadata: Dict[str, Any] = {
             "unique_id": uuid.uuid4().hex,
             "rank": self._pg.get_rank(),
@@ -429,7 +508,7 @@ class Snapshot:
             storage = url_to_storage_plugin(self.path)
             try:
                 metadata = self._get_metadata(storage)
-                manifest = _manifest_for_rank(metadata, int(rank_str))
+                manifest, _ = get_manifest_for_rank(metadata, int(rank_str))
                 if logical_path not in manifest:
                     raise RuntimeError(
                         f"Path {path!r} does not exist in the snapshot "
@@ -465,13 +544,20 @@ class Snapshot:
         """A copy of the global manifest."""
         return dict(self.metadata.manifest)
 
-    def get_state_dict_for_key(self, key: str, device: Device = None) -> Dict[str, Any]:
-        """Materialize the state dict saved under an app-state key, without
-        a target stateful; tensors land on ``device`` (default ``"cuda"``)."""
+    def get_state_dict_for_key(
+        self, key: str, device: Device = None, replicate_from_rank0: bool = False
+    ) -> Dict[str, Any]:
+        """Materialize the state dict saved under an app-state key for this
+        rank, without a target stateful; tensors land on ``device`` (default
+        ``"cuda"``).  This rank's view holds its own entries, the replicated
+        ones and every sharded entry whole.  ``replicate_from_rank0`` reads
+        rank 0's view instead (a snapshot taken at a smaller world size,
+        where this rank has no view of its own).  Not collective."""
         storage = url_to_storage_plugin(self.path)
         try:
             metadata = self._get_metadata(storage)
-            local_manifest = _manifest_for_rank(metadata, self._pg.get_rank())
+            rank = 0 if replicate_from_rank0 else self._pg.get_rank()
+            local_manifest, _ = get_manifest_for_rank(metadata, rank)
             sub_manifest = _sub_manifest(local_manifest, key)
             if not sub_manifest:
                 raise RuntimeError(f"Key {key!r} not found in snapshot manifest")
@@ -479,7 +565,7 @@ class Snapshot:
                 sub_manifest,
                 targets={},
                 storage=storage,
-                memory_budget_bytes=get_process_memory_budget_bytes(self._pg),
+                memory_budget_bytes=get_process_memory_budget_bytes(PGWrapper()),
                 rank=self._pg.get_rank(),
                 device=(
                     _resolve_device(device)
@@ -593,12 +679,92 @@ class Snapshot:
         return None
 
     @staticmethod
+    def _gather_keys(app_state: AppState, pg: PGWrapper) -> List[str]:
+        """Sorted union of the app-state keys across ranks, with coverage
+        checked symmetrically: every rank learns (through one reduce and
+        broadcast) which ranks miss which keys, and every rank raises the
+        same error.  A divergence found by one rank inside the per-key
+        barrier loop would instead park its peers in that loop's barrier
+        until the timeout."""
+
+        def _reduce(per_rank: List[List[str]]):
+            union: Set[str] = set().union(*map(set, per_rank))
+            missing = {
+                rank: sorted(union - set(keys))
+                for rank, keys in enumerate(per_rank)
+                if union - set(keys)
+            }
+            return sorted(union), missing
+
+        union, missing = pg.all_reduce_object(sorted(app_state.keys()), _reduce)
+        if missing:
+            raise RuntimeError(
+                "app_state keys diverge across ranks; all ranks must "
+                "snapshot/restore the same keys: "
+                + "; ".join(
+                    f"rank {rank} is missing {keys}"
+                    for rank, keys in sorted(missing.items())
+                )
+            )
+        return union
+
+    @staticmethod
+    def _coalesce_path_and_replicated(
+        path: str, pg: PGWrapper, replicated: List[str]
+    ) -> Tuple[str, List[str]]:
+        """Rank 0's path wins; the ranks' replicated globs are unioned (one
+        reduce-and-broadcast)."""
+
+        def _reduce(per_rank):
+            union: Set[str] = set()
+            for _, patterns in per_rank:
+                union.update(patterns)
+            return per_rank[0][0], sorted(union)
+
+        return pg.all_reduce_object((path, sorted(set(replicated))), _reduce)
+
+    @staticmethod
+    def _calculate_replicated_entries(
+        flattened: Dict[str, Any], replicated_patterns: List[str], pg: PGWrapper
+    ) -> Set[str]:
+        """Paths written once for all ranks: glob matches and fully
+        replicated DTensors, kept only where every rank agrees."""
+        candidates = {
+            path
+            for path in flattened
+            if any(fnmatch.fnmatch(path, pattern) for pattern in replicated_patterns)
+        }
+        for path, obj in flattened.items():
+            if staging.is_fully_replicated(obj):
+                candidates.add(path)
+        if pg.get_world_size() == 1:
+            return candidates
+        verified = set(
+            pg.all_reduce_object(
+                sorted(candidates),
+                lambda per_rank: sorted(set.intersection(*map(set, per_rank))),
+            )
+        )
+        dropped = candidates - verified
+        if dropped:
+            logger.warning(
+                "Paths marked replicated on this rank but not all ranks "
+                "(flag dropped): %s",
+                sorted(dropped)[:10],
+            )
+        return verified
+
+    @staticmethod
     def _gather_manifest(entries: Manifest, pg: PGWrapper) -> Manifest:
-        """The rank-prefixed global manifest (rank 0 gathers; the identity
-        gather at world size 1)."""
-        gathered = pg.gather_object_root(entries)
-        assert gathered is not None
-        return _rank_prefixed(gathered)
+        """Rank 0 gathers every rank's entries, consolidates the replicated
+        ones into its own, builds the rank-prefixed global manifest and
+        broadcasts it (O(world) store traffic)."""
+        gathered: Optional[List[Manifest]] = pg.gather_object_root(entries)
+        obj_list: List[Manifest] = [{}]
+        if gathered is not None:
+            obj_list[0] = _rank_prefixed(consolidate_replicated_entries(gathered))
+        pg.broadcast_object_list(obj_list, src=0)
+        return obj_list[0]
 
 
 class _TakeInFlight:
@@ -622,11 +788,10 @@ class _ManifestFinalizer:
 
     The cross-rank exchange goes through storage, since the background
     thread issues no collectives: each rank other than 0 writes its entries
-    as a sidecar payload; rank 0 reads and merges them, commits, and removes
-    the sidecars.  At world size 1 (the only world this package runs yet)
-    there is no sidecar, and the global manifest is this rank's entries
-    under the ``0/`` prefix.  (The JAX package also merges replicated
-    entries here; no entry is replicated in this package yet.)
+    as a sidecar payload before it arrives at the commit barrier; rank 0,
+    which the barrier's arrive holds until every sidecar is durable, reads
+    them, consolidates the replicated entries, commits, and removes the
+    sidecars.
     """
 
     SIDECAR_FMT = ".manifest_rank_{rank}"
@@ -647,7 +812,7 @@ class _ManifestFinalizer:
 
     def write_sidecar(self, storage: StoragePlugin) -> None:
         """Ranks other than 0: persist this rank's digest-annotated entries
-        for rank 0 to merge."""
+        for rank 0 to merge.  Runs before the commit barrier's arrive."""
         if self._rank == 0 or self._world_size == 1:
             return
         payload = SnapshotMetadata(
@@ -663,8 +828,8 @@ class _ManifestFinalizer:
         )
 
     def build_global(self, storage: StoragePlugin) -> SnapshotMetadata:
-        """Rank 0: merge the sidecars into the rank-prefixed global
-        manifest."""
+        """Rank 0, after every rank arrived: merge the sidecars into the
+        rank-prefixed global manifest (the sync take's consolidation)."""
         gathered: List[Manifest] = [self._entries]
         for r in range(1, self._world_size):
             read_io = ReadIO(path=self.SIDECAR_FMT.format(rank=r))
@@ -672,7 +837,7 @@ class _ManifestFinalizer:
             gathered.append(
                 SnapshotMetadata.from_json(bytes(read_io.buf).decode("utf-8")).manifest
             )
-        global_manifest = _rank_prefixed(gathered)
+        global_manifest = _rank_prefixed(consolidate_replicated_entries(gathered))
         return SnapshotMetadata(
             version=manifest_version_for(global_manifest),
             world_size=self._world_size,
@@ -693,9 +858,13 @@ class PendingSnapshot:
     """Handle of an in-flight async take.  A background thread completes
     the storage I/O (and, for device-staged takes, the whole write
     pipeline), builds the manifest and commits ``.snapshot_metadata``; a
-    failure before the commit removes the partial snapshot.  Without a
-    distributed process group there is no commit barrier and no liveness
-    lease."""
+    failure before the commit removes the partial snapshot.
+
+    The background thread issues no collectives: across ranks the commit
+    goes through a store-based :class:`LinearBarrier` (every rank arrives
+    once its payloads and sidecar are durable, rank 0 commits, then
+    departs), and a failure on any rank, or a peer whose liveness lease
+    expired, wakes every waiter with :class:`StorePeerError`."""
 
     def __init__(
         self,
@@ -706,9 +875,13 @@ class PendingSnapshot:
         storage: StoragePlugin,
         unique_id: str,
         stall_s: float = 0.0,
+        lease: Optional[Any] = None,
     ) -> None:
         self.path = path
         self.pg = pg
+        self._lease = lease
+        self._barrier: Optional[LinearBarrier] = None
+        self._retired = False
         self._finalizer = finalizer
         self.stall_s = stall_s
         self._metadata: Optional[SnapshotMetadata] = None
@@ -730,16 +903,32 @@ class PendingSnapshot:
         self._thread.start()
 
     def _complete_snapshot(self, pending_io_work: Any) -> None:
+        barrier = None
+        store = self.pg.store
+        if store is not None and self.pg.get_world_size() > 1:
+            barrier = LinearBarrier(
+                prefix=f"pending_snapshot/{self._unique_id}",
+                store=store,
+                rank=self.pg.get_rank(),
+                world_size=self.pg.get_world_size(),
+            )
+            self._barrier = barrier
         try:
             pending_io_work.sync_complete()
             self._bytes_total = pending_io_work.bytes_total
             # Payloads durable: exchange the digest-annotated manifests
-            # through storage (no collectives on this thread).
+            # through storage (no collectives on this thread); the arrive
+            # orders rank 0's merge after every sidecar landed.
             self._finalizer.write_sidecar(self._storage)
+            barrier_timeout_s = knobs.get_barrier_timeout_s()
+            if barrier is not None:
+                barrier.arrive(timeout_s=barrier_timeout_s)
             if self.pg.get_rank() == 0:
                 self._metadata = self._finalizer.build_global(self._storage)
                 Snapshot._write_snapshot_metadata(self._metadata, self._storage)
                 self._finalizer.cleanup_sidecars(self._storage)
+            if barrier is not None:
+                barrier.depart(timeout_s=barrier_timeout_s)
             self._storage.sync_close()
             log_event(
                 Event(
@@ -749,6 +938,13 @@ class PendingSnapshot:
             )
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             self.exception = e
+            if barrier is not None and not isinstance(e, StorePeerError):
+                try:
+                    barrier.report_error(repr(e))
+                except Exception:  # noqa: BLE001 — the take's error is what raises
+                    logger.warning("reporting an async take's failure to peers failed", exc_info=True)
+            # A peer's StorePeerError lands here too, so rank 0 removes the
+            # partial snapshot whichever rank failed first.
             Snapshot._cleanup_failed_take(self._storage, self.pg, action="async_take")
             try:
                 self._storage.sync_close()
@@ -761,6 +957,9 @@ class PendingSnapshot:
                 )
             )
         finally:
+            # Terminal either way: stop refreshing the liveness lease.
+            release_op_lease(self._lease)
+            self._lease = None
             with self._callbacks_lock:
                 self._done_event.set()
                 callbacks = list(self._done_callbacks)
@@ -791,10 +990,22 @@ class PendingSnapshot:
         return metadata
 
     def wait(self) -> Snapshot:
-        """Blocks until the commit; raises the background failure, if any."""
+        """Blocks until the commit; raises the background failure, if any
+        (a failure on any rank fails every rank's ``wait``)."""
         self._thread.join()
         if self.exception is not None:
             raise self.exception
+        # On the caller's thread, so the process group may be used: the
+        # commit barrier's keys are swept at a later pg barrier, once every
+        # rank's background thread is through depart (its `done` counter
+        # reached the world size).  Retired once: a second guard probe would
+        # recreate the swept counter.
+        if self._barrier is not None and not self._retired:
+            self._retired = True
+            guard_key, guard_target = self._barrier.done_guard()
+            self.pg.retire_prefix(
+                self._barrier.prefix, guard_key=guard_key, guard_target=guard_target
+            )
         snapshot = Snapshot(path=self.path, pg=self.pg)
         snapshot._metadata = self._metadata
         return snapshot
@@ -848,22 +1059,6 @@ def _rank_prefixed(gathered: List[Manifest]) -> Manifest:
     }
 
 
-def _manifest_for_rank(metadata: SnapshotMetadata, rank: int) -> Manifest:
-    """This rank's view of the global manifest."""
-    if metadata.world_size != 1:
-        raise UnsupportedSnapshotError(
-            f"the snapshot was taken by {metadata.world_size} ranks; "
-            "multi-rank snapshots are not supported by torchsnapshot_tpu_torch "
-            "yet"
-        )
-    prefix = f"{rank}/"
-    return {
-        path[len(prefix) :]: entry
-        for path, entry in metadata.manifest.items()
-        if path.startswith(prefix)
-    }
-
-
 def _sub_manifest(manifest: Manifest, key: str) -> Manifest:
     prefix = key + "/"
     return {
@@ -874,7 +1069,7 @@ def _sub_manifest(manifest: Manifest, key: str) -> Manifest:
 
 
 def _is_tensor_entry(entry: Entry) -> bool:
-    return isinstance(entry, (TensorEntry, ChunkedTensorEntry))
+    return isinstance(entry, (TensorEntry, ChunkedTensorEntry, ShardedArrayEntry))
 
 
 def _resolve_device(device: Device) -> torch.device:
@@ -964,3 +1159,10 @@ def _accepts_strict(stateful: Stateful) -> bool:
     if "strict" in params:
         return True
     return any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
+def _gen_unique_id(pg: PGWrapper) -> str:
+    """An operation id shared by every rank (rank 0's, broadcast)."""
+    obj_list = [uuid.uuid4().hex]
+    pg.broadcast_object_list(obj_list, src=0)
+    return obj_list[0]

@@ -22,9 +22,12 @@ nothing retries on the CPU.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, List, Optional, Sequence, Tuple
+
+from itertools import product as itertools_product
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ def is_array_like(obj: Any) -> bool:
 
 
 def is_dtensor(obj: Any) -> bool:
-    """A DTensor (sharded state) — a later slice of this package."""
+    """A ``torch.distributed.tensor.DTensor``."""
     if not isinstance(obj, torch.Tensor) or type(obj) in (
         torch.Tensor,
         torch.nn.Parameter,
@@ -53,6 +56,133 @@ def is_dtensor(obj: Any) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(obj, DTensor)
+
+
+def check_placements(obj: Any, path: str) -> None:
+    """Refuse a DTensor whose placements have no box layout: ``Partial``
+    (pending reductions: the local values are not the tensor's values) and
+    ``_StridedShard`` (interleaved shards, as FSDP2 over TP makes).  The
+    error names the placement and the path."""
+    from torch.distributed.tensor.placement_types import Partial
+
+    try:
+        from torch.distributed.tensor.placement_types import _StridedShard
+    except ImportError:  # a torch without strided sharding
+        _StridedShard = ()  # type: ignore[assignment,misc]
+    for placement in obj.placements:
+        if isinstance(placement, (Partial, _StridedShard)):
+            raise TypeError(
+                f"{path}: DTensor placement {placement!r} is not supported "
+                f"(placements {tuple(obj.placements)}); redistribute to Shard "
+                "or Replicate before taking a snapshot"
+            )
+
+
+def is_sharded(obj: Any) -> bool:
+    """A DTensor with a ``Shard`` placement: ranks hold different boxes."""
+    if not is_dtensor(obj):
+        return False
+    from torch.distributed.tensor.placement_types import Shard
+
+    return any(isinstance(p, Shard) for p in obj.placements)
+
+
+def is_fully_replicated(obj: Any) -> bool:
+    """A DTensor whose every rank holds the whole tensor, on a mesh of more
+    than one rank."""
+    if not is_dtensor(obj):
+        return False
+    from torch.distributed.tensor.placement_types import Replicate
+
+    return obj.device_mesh.size() > 1 and all(
+        isinstance(p, Replicate) for p in obj.placements
+    )
+
+
+def local_box(obj: Any) -> Tuple[List[int], List[int]]:
+    """(global offsets, sizes) of this rank's box of a DTensor, from
+    torch's own layout function."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    sizes, offsets = compute_local_shape_and_global_offset(
+        obj.shape, obj.device_mesh, obj.placements
+    )
+    return list(offsets), list(sizes)
+
+
+def local_shards(obj: Any) -> List[Tuple[Tuple[int, ...], torch.Tensor]]:
+    """This rank's (global offsets, local tensor) pairs of a DTensor: one
+    box, or none when it is empty (uneven ``torch.chunk`` sharding gives
+    empty shards, e.g. three rows over four ranks)."""
+    offsets, sizes = local_box(obj)
+    if any(size == 0 for size in sizes):
+        return []
+    local = obj.to_local()
+    if list(local.shape) != sizes:
+        raise ValueError(
+            f"DTensor local tensor of shape {list(local.shape)} does not match "
+            f"its box {sizes} at {offsets}"
+        )
+    return [(tuple(offsets), local)]
+
+
+def _chunk(size: int, n: int, index: int) -> Tuple[int, int]:
+    """(start, length) of chunk ``index`` of ``n`` of a dim of ``size``,
+    with ``torch.chunk`` semantics (trailing chunks may be short or
+    empty)."""
+    step = math.ceil(size / n) if n else size
+    start = min(index * step, size)
+    return start, max(0, min(size, start + step) - start)
+
+
+def box_at(
+    shape: Sequence[int], mesh_shape: Sequence[int], coordinate: Sequence[int], placements: Sequence[Any]
+) -> Tuple[List[int], List[int]]:
+    """(offsets, sizes) of the box at one mesh coordinate: each ``Shard(d)``
+    in mesh-dim order cuts the current extent of dim ``d``."""
+    from torch.distributed.tensor.placement_types import Shard
+
+    offsets = [0] * len(shape)
+    sizes = list(shape)
+    for mesh_dim, placement in enumerate(placements):
+        if isinstance(placement, Shard):
+            d = placement.dim % len(shape)
+            start, length = _chunk(sizes[d], mesh_shape[mesh_dim], coordinate[mesh_dim])
+            offsets[d] += start
+            sizes[d] = length
+    return offsets, sizes
+
+
+def global_shard_layout(obj: Any) -> List[Tuple[Tuple[int, ...], Tuple[int, ...], int]]:
+    """(offsets, sizes, owner rank) of every distinct non-empty box of a
+    DTensor, the first rank holding it as owner."""
+    mesh = obj.device_mesh
+    ranks = mesh.mesh
+    seen = {}
+    for coordinate in itertools_product(*(range(n) for n in mesh.shape)):
+        offsets, sizes = box_at(obj.shape, mesh.shape, coordinate, obj.placements)
+        if any(size == 0 for size in sizes) or tuple(offsets) in seen:
+            continue
+        seen[tuple(offsets)] = (tuple(offsets), tuple(sizes), int(ranks[coordinate]))
+    return list(seen.values())
+
+
+def partition_spec_of(obj: Any) -> Optional[Tuple[List[int], List[str], List[List[str]]]]:
+    """(mesh_shape, axis_names, per-dim sharding mesh axes) of a DTensor, as
+    the JAX package records a NamedSharding: ``Shard(d)`` on mesh dim ``i``
+    puts axis ``i``'s name in ``partition_spec[d]``.  Axis names are the
+    mesh's ``mesh_dim_names``, or ``dim0``, ``dim1``, ... without them."""
+    if not is_dtensor(obj):
+        return None
+    from torch.distributed.tensor.placement_types import Shard
+
+    mesh = obj.device_mesh
+    names = list(mesh.mesh_dim_names or [f"dim{i}" for i in range(mesh.ndim)])
+    per_dim: List[List[str]] = [[] for _ in range(obj.ndim)]
+    for mesh_dim, placement in enumerate(obj.placements):
+        if isinstance(placement, Shard):
+            per_dim[placement.dim % obj.ndim].append(str(names[mesh_dim]))
+    return [int(n) for n in mesh.shape], [str(n) for n in names], per_dim
 
 
 def pinned_empty(nbytes: int) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """URL → storage plugin resolver (counterpart of
 ``torchsnapshot_tpu/storage_plugin.py``).  This slice has ``fs`` (the
-default when the URL has no scheme) and ``memory`` (a test fake); cloud
-backends, fault injection and entry-point plugins are later slices."""
+default when the URL has no scheme) and ``memory`` (a test fake), each
+wrapped by the fault injector when ``TPUSNAP_FAULTS`` is set (faults.py);
+cloud backends and entry-point plugins are later slices."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
+from . import knobs
 from .io_types import StoragePlugin
 
 
@@ -19,6 +21,16 @@ def parse_url(url_path: str) -> Tuple[str, str]:
 
 
 def url_to_storage_plugin(url_path: str) -> StoragePlugin:
+    plugin = _resolve_plugin(url_path)
+    faults_spec = knobs.get_faults_spec()
+    if faults_spec:
+        from .faults import maybe_wrap_faults
+
+        plugin = maybe_wrap_faults(plugin, faults_spec)
+    return plugin
+
+
+def _resolve_plugin(url_path: str) -> StoragePlugin:
     protocol, path = parse_url(url_path)
     if protocol == "fs":
         from .storage_plugins.fs import FSStoragePlugin
