@@ -264,6 +264,44 @@ def test_staging_mode_and_stage_stats(tmp_path, cpu_as_device, mode):
     assert phase_stats.snapshot()["device_stage"]["bytes"] == nbytes
 
 
+def test_device_staging_copies_each_chunked_leaf_once(tmp_path, cpu_as_device):
+    """A leaf cut into chunks is staged with one copy that its chunks view;
+    a view that does not tile its storage is copied alone.  The restore
+    holds the values at the take."""
+    from torchsnapshot_tpu_torch import phase_stats
+
+    state = {
+        "w": torch.arange(4096, dtype=torch.float32),
+        "v": torch.arange(64, dtype=torch.float32).reshape(8, 8)[:, :4],
+    }
+    expected = {k: _bits(v) for k, v in state.items()}
+    staged = []
+    real_stage = device_staging.stage_app_state
+
+    def stage(flattened, mode):
+        out, stats = real_stage(flattened, mode)
+        staged.append(out)
+        return out, stats
+
+    phase_stats.reset()
+    with knobs.override_max_chunk_size_bytes(4096), knobs.override_async_staging("device"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(device_staging, "stage_app_state", stage)
+            pending = Snapshot.async_take(str(tmp_path / "snap"), {"m": StateDict(state)})
+    for t in state.values():
+        t.fill_(-1)
+    snapshot = pending.wait()
+    stats = phase_stats.snapshot()
+    assert stats["stage_alloc"]["n"] == 2
+    assert stats["stage_alloc"]["bytes"] == stats["device_stage"]["bytes"] == 4096 * 4 + 32 * 4
+    (copies,) = staged
+    assert len(copies) == 5  # four chunks of w and v
+    assert len({c.untyped_storage().data_ptr() for c in copies.values()}) == 2
+    dst = {"w": torch.zeros(4096), "v": torch.zeros(8, 4)}
+    snapshot.restore({"m": StateDict(dst)})
+    assert {k: _bits(v) for k, v in dst.items()} == expected
+
+
 def test_host_mutation_after_async_take(tmp_path):
     """Host mode (the only mode without a card): CPU tensors and numpy
     arrays are copied when staged, before async_take returns."""

@@ -334,6 +334,7 @@ from test_torch_sharded import (  # noqa: E402
     PARITY_SHAPES,
     parity_restore_jax_snapshot_2,
     parity_restore_jax_snapshot_4,
+    parity_async_take_for_jax,
     parity_restore_raises_checksum_error,
     parity_take_for_jax,
     parity_take_hsdp_layout,
@@ -466,3 +467,77 @@ def test_flipped_shard_byte_raises_checksum_error_in_both(tmp_path, monkeypatch,
     with pytest.raises(JaxChecksumError):
         JaxSnapshot(str(snap)).read_object("0/m/w_f32")
     parity_restore_raises_checksum_error()
+
+
+@pytest.mark.parametrize("mode", ASYNC_MODES)
+def test_port_multi_rank_async_take_matches_sync_and_jax(tmp_path, monkeypatch, mode):
+    """4 gloo ranks async_take HSDP, fully Replicate and uneven Shard(1)
+    DTensors and a ``replicated=`` step in each staging mode, mutating
+    them right after the return.  The manifest equals that of a sync take
+    on the same ranks, entry by entry; the sharded and replicated entries
+    equal those of the JAX package's take of the same layouts; and the
+    JAX package restores the snapshot into other NamedShardings with the
+    values of the take."""
+    from torchsnapshot_tpu.manifest import _entry_to_dict as jax_entry_dict
+    from torchsnapshot_tpu.manifest_ops import get_manifest_for_rank as jax_view
+    from torchsnapshot_tpu_torch.manifest import _entry_to_dict as port_entry_dict
+    from torchsnapshot_tpu_torch.manifest_ops import get_manifest_for_rank as port_view
+
+    # Unbatched everywhere: the single-process JAX take would pack small
+    # pieces into one slab (test_sharded_entry_fields_match_across_packages).
+    monkeypatch.setenv(ts.knobs.DISABLE_BATCHING_ENV_VAR, "1")
+    monkeypatch.setenv(ts.knobs.ASYNC_STAGING_ENV_VAR, mode)
+    monkeypatch.setenv("TPUSNAP_TEST_CPU_AS_DEVICE", "1")
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(tmp_path))
+    parity_async_take_for_jax()
+
+    jax_state = {
+        "w_f32": jax.device_put(
+            jnp.asarray(_parity_np("w_f32")),
+            NamedSharding(_jax_mesh((2, 2), ("replicate", "shard")), P("shard", None)),
+        ),
+        "w_bf16": jax.device_put(jnp.asarray(_parity_np("w_bf16")), NamedSharding(_jax_mesh((4,), ("x",)), P())),
+        "step": 7,
+    }
+    jax_snap = JaxSnapshot.take(str(tmp_path / "jax"), {"m": JaxStateDict(jax_state)}, replicated=["m/step"])
+
+    docs = {name: json.loads((tmp_path / name / ".snapshot_metadata").read_text()) for name in ("sync", "async")}
+    assert docs["async"]["world_size"] == 4
+    assert sorted(docs["async"]["manifest"]) == sorted(docs["sync"]["manifest"])
+    for key, entry in docs["sync"]["manifest"].items():
+        assert docs["async"]["manifest"][key] == entry, key
+
+    def as_dict(entry, to_dict):
+        d = to_dict(entry)
+        if "shards" in d:
+            d["shards"] = sorted(d["shards"], key=lambda s: (s["offsets"], s["sizes"]))
+        return d
+
+    def entries(view):
+        local, merged = view
+        return {path: merged[path] if path in merged else local.get(path) for path in ("m/w_f32", "m/w_bf16", "m/step", "m/w_i32")}
+
+    port_snap = ts.Snapshot(str(tmp_path / "async"))
+    jax_entries = entries(jax_view(jax_snap.metadata, 0))
+    for rank in range(4):
+        port_entries = entries(port_view(port_snap.metadata, rank))
+        for path in ("m/w_f32", "m/w_bf16", "m/step"):
+            got, want = as_dict(port_entries[path], port_entry_dict), as_dict(jax_entries[path], jax_entry_dict)
+            assert got == want, (rank, path)
+        # The uneven layout JAX cannot express: each non-empty box once.
+        boxes = sorted((s.offsets, s.sizes) for s in port_entries["m/w_i32"].shards)
+        assert boxes == [([0, 0], [8, 2]), ([0, 2], [8, 2]), ([0, 4], [8, 2])]
+        assert port_entries["m/w_f32"].partition_spec == [["shard"], []]
+        assert port_entries["m/w_bf16"].replicated and port_entries["m/step"].replicated
+
+    targets = {
+        name: jax.device_put(jnp.zeros(shape, _parity_np(name).dtype), JAX_TARGET_SHARDINGS[name]())
+        for name, (shape, _) in PARITY_SHAPES.items()
+    }
+    dst = {"m": JaxStateDict(dict(targets, step=-1))}
+    JaxSnapshot(str(tmp_path / "async")).restore(dst)
+    assert dst["m"]["step"] == 7
+    for name in PARITY_SHAPES:
+        got = dst["m"][name]
+        assert got.sharding == targets[name].sharding
+        assert _raw(np.asarray(got)) == _raw(_parity_np(name)), name

@@ -677,3 +677,57 @@ def parity_restore_raises_checksum_error():
     with knobs.override_partial_reads(False):
         with pytest.raises(ChecksumError):
             Snapshot(os.environ["TPUSNAP_TEST_SNAPSHOT"], pg=pg).restore(dst)
+
+
+ASYNC_PARITY_LAYOUTS = {
+    # name -> (mesh shape, mesh names, placements)
+    "w_f32": ((2, 2), ("replicate", "shard"), "R S0"),  # HSDP
+    "w_bf16": ((4,), ("x",), "R"),  # fully replicated
+    "w_i32": ((4,), ("x",), "S1"),  # 6 columns over 4: 2, 2, 2, 0
+}
+
+
+def _parity_dt(name, mesh_shape, names, spec):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from torchsnapshot_tpu_torch import staging
+
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
+    full = parity_value(name)
+    placements = _placements(spec)
+    offsets, sizes = staging.box_at(full.shape, mesh.shape, mesh.get_coordinate(), placements)
+    local = full[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))].clone()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape, stride=full.stride())
+
+
+@run_with_procs(nproc=4, gloo=True)
+def parity_async_take_for_jax():
+    """4 ranks take HSDP, fully Replicate and uneven Shard(1) DTensors and
+    a ``replicated=`` step twice: into ``sync`` with take, and into
+    ``async`` with async_take in the environment's staging mode, mutating
+    every local tensor and the step right after it returns."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, device_staging
+
+    if os.environ.get("TPUSNAP_TEST_CPU_AS_DEVICE"):
+        # The device modes on CPU tensors, as tests/test_torch_async.py's
+        # cpu_as_device fixture drives them.
+        from torchsnapshot_tpu_torch import staging
+
+        device_staging._is_device_resident = lambda obj: isinstance(obj, torch.Tensor)
+        staging.pinned_empty = lambda n: torch.empty(n, dtype=torch.uint8)
+    pg = make_test_pg()
+    root = os.environ["TPUSNAP_TEST_SNAPSHOT"]
+
+    def state():
+        values = {name: _parity_dt(name, *layout) for name, layout in ASYNC_PARITY_LAYOUTS.items()}
+        return {"m": StateDict(dict(values, step=7))}
+
+    Snapshot.take(os.path.join(root, "sync"), state(), pg=pg, replicated=["m/step"])
+    app = state()
+    pending = Snapshot.async_take(os.path.join(root, "async"), app, pg=pg, replicated=["m/step"])
+    for name in ASYNC_PARITY_LAYOUTS:
+        app["m"][name].to_local().view(torch.uint8).fill_(0x55)
+    app["m"]["step"] = -1
+    assert pending.staging_mode == device_staging.configured_mode()
+    pending.wait()

@@ -7,8 +7,9 @@ the moment it returns.  Host staging (stage everything to host RAM before
 returning) bounds the training stall below by D2H bandwidth and the disk;
 on the card the same contract is met by copying the state:
 
-- ``device``: one D2D copy of each CUDA tensor into fresh device memory,
-  at HBM bandwidth, on a side stream (``_device_copy_batch``); the D2H and
+- ``device``: one D2D copy of each CUDA tensor into fresh device memory
+  (the write pieces of one leaf share one copy of it), at HBM bandwidth,
+  on a side stream (``_device_copy_batch``); the D2H and
   storage drain run on the background thread;
 - ``pinned_host``: one non-blocking D2H copy of each CUDA tensor into a
   page-locked host buffer, on a side stream (``_pinned_host_copy_batch``);
@@ -242,9 +243,11 @@ def _contiguous_copy(t: torch.Tensor) -> torch.Tensor:
     """A fresh contiguous tensor with ``t``'s values, on ``t``'s device and
     current stream.  Contiguous sources copy their bytes through uint8
     views, which every dtype of the registry supports (``copy_`` has no
-    kernel for the sub-byte ``int4``/``uint4``)."""
+    kernel for the sub-byte ``int4``/``uint4``).  The allocation is timed
+    as phase ``stage_alloc``."""
     src = t.detach().resolve_conj().resolve_neg()
-    out = torch.empty_like(src, memory_format=torch.contiguous_format)
+    with phase_stats.timed("stage_alloc", _nbytes(src)):
+        out = torch.empty_like(src, memory_format=torch.contiguous_format)
     if src.is_contiguous():
         tensor_u8(out).copy_(tensor_u8(src))
     else:
@@ -252,11 +255,60 @@ def _contiguous_copy(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _byte_offset(t: torch.Tensor) -> int:
+    return t.data_ptr() - t.untyped_storage().data_ptr()
+
+
+def _whole_storage_groups(tensors: List[torch.Tensor], idxs: List[int]) -> List[List[int]]:
+    """Groups of two or more of ``idxs`` whose tensors are contiguous views
+    that tile one storage exactly: the chunks or pieces of a leaf that
+    this rank writes in full (always so at world size 1)."""
+    by_storage: Dict[int, List[int]] = {}
+    for i in idxs:
+        t = tensors[i]
+        if t.numel() and t.is_contiguous() and not (t.is_conj() or t.is_neg()):
+            by_storage.setdefault(t.untyped_storage().data_ptr(), []).append(i)
+    groups = []
+    for members in by_storage.values():
+        if len(members) < 2:
+            continue
+        end = 0
+        for start, nbytes in sorted((_byte_offset(tensors[i]), _nbytes(tensors[i])) for i in members):
+            if start != end:
+                break
+            end += nbytes
+        else:
+            if end == tensors[members[0]].untyped_storage().nbytes():
+                groups.append(members)
+    return groups
+
+
+def _copy_views(tensors: List[torch.Tensor], idxs: List[int], out: List[Any]) -> None:
+    """Fill ``out[i]`` for ``idxs`` on the current stream: one copy of each
+    storage that a group of views tiles (each view then a view of that
+    copy), one copy of every other tensor."""
+    grouped = set()
+    for members in _whole_storage_groups(tensors, idxs):
+        first = tensors[members[0]]
+        storage = torch.empty(0, dtype=torch.uint8, device=first.device).set_(first.untyped_storage())
+        staged = _contiguous_copy(storage)
+        for i in members:
+            t = tensors[i]
+            begin = _byte_offset(t)
+            out[i] = staged[begin : begin + _nbytes(t)].view(t.dtype).view(t.shape)
+        grouped.update(members)
+    for i in idxs:
+        if i not in grouped:
+            out[i] = _contiguous_copy(tensors[i])
+
+
 def _device_copy_batch(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """Fresh contiguous copies in the same device memory: one side stream
     per CUDA device, an event per device, every event synchronized before
-    return.  Each copy is allocated under its side stream, so the caching
-    allocator ties its block to that stream."""
+    return.  Views that tile one storage share one copy of it, so a leaf
+    cut into chunks or pieces costs one allocation.  Each copy is
+    allocated under its side stream, so the caching allocator ties its
+    block to that stream."""
     out: List[Any] = [None] * len(tensors)
     groups: Dict[torch.device, List[int]] = {}
     for i, t in enumerate(tensors):
@@ -264,14 +316,12 @@ def _device_copy_batch(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     events = []
     for device, idxs in groups.items():
         if device.type != "cuda":
-            for i in idxs:
-                out[i] = _contiguous_copy(tensors[i])
+            _copy_views(tensors, idxs, out)
             continue
         with torch.cuda.device(device):
             stream = _side_stream(device)
             with torch.cuda.stream(stream):
-                for i in idxs:
-                    out[i] = _contiguous_copy(tensors[i])
+                _copy_views(tensors, idxs, out)
                 event = torch.cuda.Event()
                 event.record(stream)
         events.append(event)

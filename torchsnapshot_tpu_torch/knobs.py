@@ -30,9 +30,6 @@ ASYNC_STAGING_ENV_VAR = _ENV_PREFIX + "ASYNC_STAGING"
 PINNED_HOST_RETRY_S_ENV_VAR = _ENV_PREFIX + "PINNED_HOST_RETRY_S"
 SAVE_DEADLINE_S_ENV_VAR = _ENV_PREFIX + "SAVE_DEADLINE_S"
 MAX_SHARD_SIZE_ENV_VAR = _ENV_PREFIX + "MAX_SHARD_SIZE_BYTES"
-ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR = (
-    _ENV_PREFIX + "ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY"
-)
 PARTIAL_READS_ENV_VAR = _ENV_PREFIX + "PARTIAL_READS"
 PARTIAL_READ_MIN_SAVED_ENV_VAR = _ENV_PREFIX + "PARTIAL_READ_MIN_SAVED_BYTES"
 STORE_ADDR_ENV_VAR = _ENV_PREFIX + "STORE_ADDR"
@@ -158,10 +155,6 @@ def get_save_deadline_s() -> float:
 
 def get_max_shard_size_bytes() -> int:
     return _get_int_env(MAX_SHARD_SIZE_ENV_VAR, _DEFAULT_MAX_SHARD_SIZE_BYTES)
-
-
-def is_sharded_elasticity_root_only_enabled() -> bool:
-    return _get_flag_env(ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR, "0")
 
 
 def partial_reads_enabled() -> bool:
