@@ -22,7 +22,12 @@ calls, in phases that each print one JSON line:
                 ``dist_restore`` (zeroed, restored in place: bit-exact,
                 ``data_ptr()`` unchanged), ``dist_async_take`` (mutated
                 after the return; one commit through the LinearBarrier;
-                the restore equals the state before the mutation); then
+                the restore equals the state before the mutation),
+                ``dist_cas_take`` (two ``TPUSNAP_CAS`` takes into
+                ``<root>/step_0`` and ``step_1`` with every box of ``wk``
+                refilled between them: step 1's bytes written, summed over
+                the ranks, must equal ``wk``'s; step 1 restores bit-exact
+                in place); then
                 two fresh ranks on a 1-D mesh restore every tensor
                 ``Shard(-1)`` (``dist_elastic_restore``, bit-exact), and
                 this process reads the largest sharded entry whole onto
@@ -53,6 +58,28 @@ calls, in phases that each print one JSON line:
                 the state's bytes, the forced mode, and no
                 ``async_take.staging_downgrade`` event; it reports the RSS
                 high-water mark and pinned host bytes
+   storage depth — each phase removes its directories before the next:
+   compress_take / compress_restore — ``TPUSNAP_COMPRESSION=zstd``
+                (native libzstd; zlib, said so, where the machine has no
+                libzstd): every model entry above the size floor framed
+                with the codec asked for; bytes on disk over state bytes;
+                then a bit-exact in-place restore
+   cas_take   — ``TPUSNAP_CAS=1`` takes into ``<root>/step_0`` and, after
+                flipping every bit of ``wk`` and of a contiguous 1% row
+                range of ``w_gate``, ``step_1``: the bytes step 1 wrote
+                must be its new chunks, at most ``wk`` plus the ``w_gate``
+                chunks the rows touch; step 1 restores bit-exact in place,
+                and ``read_object`` of an unchanged tensor reads step 0's
+                chunks
+   async_cas  — ``async_take`` in pinned_host mode with CAS into
+                ``step_2`` (step 1's state): its model entries equal the
+                sync take's (leaves of identical bytes may reference each
+                other's equal range), restore bit-exact
+   cdc_take   — cas_take with ``TPUSNAP_CDC=1``: step 1's new bytes are
+                bounded by the changed bytes plus two maximum-size chunks
+                per changed region
+   incremental_take — step 1 with ``incremental_from=step_0``, CAS off:
+                hard links made, bytes written, bit-exact restore
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -345,6 +372,267 @@ def fsync_write_gbps(np, path: str, nbytes: int) -> float:
 
 
 
+# ----------------------------------------------------- storage-depth phases
+#
+# Compression, content addressing (CAS), content-defined chunking (CDC) and
+# incremental takes of the full state.  Every phase removes its directories
+# before the next starts (the disk holds about four copies of the state).
+
+CHANGED_ROW_FRACTION = 0.01
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for dirpath, _, files in os.walk(path):
+        for name in files:
+            if name != ".snapshot_metadata":
+                total += os.path.getsize(os.path.join(dirpath, name))
+    return total
+
+
+def mutate_step(torch, model, ref):
+    """The change between step 0 and step 1, an involution applied to the
+    state and to its reference alike: every bit of ``wk`` flipped, and a
+    contiguous 1% row range of ``w_gate`` (rows of its last dim).  Returns
+    (changed bytes, number of changed regions)."""
+    wk = get_leaf(model, "layers/attn/wk")
+    gate = get_leaf(model, "layers/mlp/w_gate")
+    rows = gate.numel() // gate.shape[-1]
+    n_rows = max(1, int(rows * CHANGED_ROW_FRACTION))
+    r0 = rows // 3
+    for t in (wk, ref["layers/attn/wk"]):
+        t.view(torch.int16).bitwise_not_()
+    for t in (gate, ref["layers/mlp/w_gate"]):
+        t.view(-1, t.shape[-1])[r0 : r0 + n_rows].view(torch.int16).bitwise_not_()
+    return wk.numel() * 2 + n_rows * gate.shape[-1] * 2, 2
+
+
+def restore_check(torch, ts, path, app_state, ref, phase_stats):
+    """Zero the model, restore ``path`` in place: (seconds, mismatched
+    paths, moved paths, phase stats)."""
+    model = app_state["model"].state_dict()
+    ptrs = {p: get_leaf(model, p).data_ptr() for p in ref}
+    for p in ref:
+        get_leaf(model, p).zero_()
+    device_sync(torch)
+    phase_stats.reset()
+    begin = time.monotonic()
+    ts.Snapshot(path).restore(app_state)
+    device_sync(torch)
+    seconds = time.monotonic() - begin
+    model = app_state["model"].state_dict()
+    mismatched = [p for p in ref if not bit_equal(torch, get_leaf(model, p), ref[p])]
+    moved = [p for p in ref if get_leaf(model, p).data_ptr() != ptrs[p]]
+    return seconds, mismatched, moved, phase_stats.snapshot()
+
+
+def compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir):
+    """compress_take / compress_restore: zstd (native libzstd) framing of
+    every payload above the size floor, then an in-place restore."""
+    from torchsnapshot_tpu_torch import compression, serialization
+    from torchsnapshot_tpu_torch.manifest import iter_payload_entries
+
+    codec, why = "zstd", "asked for zstd"
+    if compression.resolve("zstd") != "zstd":
+        codec, why = "zlib", "this machine has no libzstd.so.1, so the phase asks for zlib"
+    path = os.path.join(workdir, "compress", "snap")
+    device_sync(torch)
+    phase_stats.reset()
+    with knobs.override_compression(codec):
+        begin = time.monotonic()
+        snapshot = ts.Snapshot.take(path, app_state)
+        take_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    floor = knobs.get_compression_min_bytes()
+    above = [e for k, e in iter_payload_entries(snapshot.get_manifest())
+             if "/model/" in k and e.serializer == "buffer_protocol" and
+             serialization.array_nbytes(e.shape, e.dtype) >= floor]
+    codecs = sorted({str(e.codec) for e in above})
+    on_disk = dir_bytes(path)
+    take_ok = bool(above) and codecs == [codec] and snapshot.metadata.version == "0.2.0"
+    emit({"phase": "compress_take", "ok": take_ok, "codec_asked": codec, "why": why, "codecs_found": codecs,
+          "entries_above_floor": len(above), "floor_bytes": floor, "seconds": round(take_s, 3),
+          "gbps": round(nbytes / GB / take_s, 3), "state_bytes": nbytes, "bytes_on_disk": on_disk,
+          "disk_over_state": round(on_disk / nbytes, 4), "version": snapshot.metadata.version,
+          "phases": phase_summary(stats)})
+    if not take_ok:
+        raise RuntimeError(f"compress_take: entries above the floor are framed {codecs}, not [{codec!r}]")
+    seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
+    h2d = int(stats.get("h2d_land", {}).get("bytes", 0))
+    ok = not mismatched and not moved and (h2d == nbytes or DEV != "cuda")
+    emit({"phase": "compress_restore", "ok": ok, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "h2d_land_bytes": h2d,
+          "mismatched": mismatched[:5], "phases": phase_summary(stats)})
+    shutil.rmtree(os.path.dirname(path))
+    if not ok:
+        raise RuntimeError("compress_restore: not bit-exact in place, or h2d bytes differ")
+
+
+def cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, label, cdc):
+    """Two CAS takes into <root>/step_0 and <root>/step_1 with the step
+    change between them; the chunks step 1 added must be what it wrote,
+    within the bound; step 1 restores bit-exact in place, and an unchanged
+    tensor reads from step 0's chunks.  Returns the root, the state left
+    at step 1."""
+    from torchsnapshot_tpu_torch import cas
+
+    root = os.path.join(workdir, label)
+    model = app_state["model"].state_dict()
+    max_chunk = knobs.get_cdc_params()[2]
+    with knobs.override_cas(True), knobs.override_cdc(cdc):
+        device_sync(torch)
+        phase_stats.reset()
+        begin = time.monotonic()
+        ts.Snapshot.take(os.path.join(root, "step_0"), app_state)
+        step0_s = time.monotonic() - begin
+        step0_stats = phase_stats.snapshot()
+        changed_bytes, regions = mutate_step(torch, model, ref)
+        device_sync(torch)
+        n_events = len(events)
+        phase_stats.reset()
+        begin = time.monotonic()
+        snap1 = ts.Snapshot.take(os.path.join(root, "step_1"), app_state)
+        step1_s = time.monotonic() - begin
+        step1_stats = phase_stats.snapshot()
+    end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    stats = end["cas"]
+    refs = {s: cas.referenced_chunk_relpaths(ts.Snapshot(os.path.join(root, s)).metadata.manifest)
+            for s in ("step_0", "step_1")}
+    new_chunks = refs["step_1"] - refs["step_0"]
+    new_bytes = sum(os.path.getsize(os.path.join(root, rel)) for rel in new_chunks)
+    if cdc:
+        bound = changed_bytes + regions * 2 * max_chunk
+    else:
+        # Whole chunks: wk, and the chunks of w_gate the changed rows touch.
+        entry = snap1.get_manifest()["0/model/layers/mlp/w_gate"]
+        gate = model["layers"]["mlp"]["w_gate"]
+        row_bytes = gate.numel() * 2 // gate.shape[0]
+        rows = gate.numel() // gate.shape[-1]
+        r0, n_rows = rows // 3, max(1, int(rows * CHANGED_ROW_FRACTION))
+        lo = r0 * gate.shape[-1] * 2
+        hi = (r0 + n_rows) * gate.shape[-1] * 2
+        touched = sum(c.sizes[0] * row_bytes for c in entry.chunks
+                      if c.offsets[0] * row_bytes < hi and (c.offsets[0] + c.sizes[0]) * row_bytes > lo)
+        bound = ref["layers/attn/wk"].numel() * 2 + touched
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, os.path.join(root, "step_1"), app_state, ref,
+                                                       phase_stats)
+    unchanged = "layers/attn/wq"
+
+    def locations(snap):
+        entry = snap.get_manifest()[f"0/model/{unchanged}"]
+        return [c.tensor.location for c in entry.chunks] if hasattr(entry, "chunks") else [entry.location]
+
+    same_chunks = locations(ts.Snapshot(os.path.join(root, "step_0"))) == locations(snap1)
+    read = ts.Snapshot(os.path.join(root, "step_1")).read_object(f"0/model/{unchanged}")
+    device_sync(torch)
+    read_ok = read.device.type == DEV and bit_equal(torch, read, ref[unchanged]) and same_chunks
+    del read
+    ok = (not mismatched and not moved and read_ok and stats["physical_bytes_written"] == new_bytes
+          and 0 < new_bytes <= bound)
+    emit({"phase": label, "ok": ok, "cdc": cdc, "version": snap1.metadata.version,
+          "step0_s": round(step0_s, 3), "step0_gbps": round(nbytes / GB / step0_s, 3),
+          "step1_s": round(step1_s, 3), "changed_bytes": changed_bytes, "step1_bytes_written":
+          stats["physical_bytes_written"], "step1_new_chunk_bytes": new_bytes, "step1_new_chunks": len(new_chunks),
+          "bound_bytes": bound, "prestage": {k: stats[f"prestage_{k}"] for k in ("probed", "hits", "bytes")},
+          "dedup_hits": stats["dedup_hits"], "cdc_chunks": stats["cdc_chunks"],
+          "chunks_in_root": len(refs["step_0"] | refs["step_1"]),
+          "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "read_object_unchanged_from_step0_chunks": read_ok, "mismatched": mismatched[:5],
+          "step0_phases": phase_summary(step0_stats), "step1_phases": phase_summary(step1_stats),
+          "restore_phases": phase_summary(rstats)})
+    if not ok:
+        raise RuntimeError(f"{label}: step 1 wrote other bytes than its new chunks, past the bound, "
+                           "or did not restore bit-exact")
+    return root
+
+
+def async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root):
+    """async_take in pinned_host mode with CAS into <root>/step_2 (the state
+    of step_1): its manifest equals the sync take's entry by entry."""
+    from torchsnapshot_tpu_torch.manifest import _entry_to_dict
+
+    device_sync(torch)
+    phase_stats.reset()
+    with knobs.override_cas(True), knobs.override_async_staging("pinned_host"):
+        begin = time.monotonic()
+        pending = ts.Snapshot.async_take(os.path.join(root, "step_2"), app_state)
+        stall_s = time.monotonic() - begin
+        pending.wait()
+        total_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    sync_m = ts.Snapshot(os.path.join(root, "step_1")).get_manifest()
+    async_m = ts.Snapshot(os.path.join(root, "step_2")).get_manifest()
+    model_keys = sorted(k for k in sync_m if "/model/" in k)
+    # Leaves with identical bytes (the norms are all ones) share one digest,
+    # so the sync take's prestage may point one at the other's equal bytes:
+    # such entries must agree in everything but location and byte range.
+    aliased, differ = [], []
+    for k in model_keys:
+        a, b = (_entry_to_dict(async_m[k]) if k in async_m else None), _entry_to_dict(sync_m[k])
+        if a == b:
+            continue
+        strip = lambda d: {f: v for f, v in d.items() if f not in ("location", "byte_range")}  # noqa: E731
+        if a is not None and a.get("checksum") and strip(a) == strip(b):
+            aliased.append(k)
+        else:
+            differ.append(k)
+    seconds, mismatched, moved, _ = restore_check(torch, ts, os.path.join(root, "step_2"), app_state, ref,
+                                                  phase_stats)
+    ok = pending.staging_mode == "pinned_host" and not differ and not mismatched and not moved
+    emit({"phase": "async_cas", "ok": ok, "staging_mode": pending.staging_mode, "stall_s": round(stall_s, 4),
+          "total_s": round(total_s, 3), "model_entries_compared": len(model_keys), "entries_differ": differ[:5],
+          "entries_aliasing_equal_bytes": aliased,
+          "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("async_cas: manifest differs from the sync take's, wrong mode, or not bit-exact")
+
+
+def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+    """incremental_take: step 1 with incremental_from=step_0 and CAS off;
+    unchanged payloads are hard links, only changed ones are written."""
+    from torchsnapshot_tpu_torch import faults
+
+    root = os.path.join(workdir, "incremental")
+    model = app_state["model"].state_dict()
+    ts.Snapshot.take(os.path.join(root, "step_0"), app_state)
+    changed_bytes, _ = mutate_step(torch, model, ref)
+    device_sync(torch)
+    n_events = len(events)
+    phase_stats.reset()
+    faults.reset_write_counters()
+    with knobs.override_faults("none"):
+        begin = time.monotonic()
+        ts.Snapshot.take(os.path.join(root, "step_1"), app_state, incremental_from=os.path.join(root, "step_0"))
+        step1_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    written = sum(n for p, n in faults.write_counters().items() if not p.rsplit("/", 1)[-1].startswith("."))
+    end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    seconds, mismatched, moved, _ = restore_check(torch, ts, os.path.join(root, "step_1"), app_state, ref,
+                                                  phase_stats)
+    mutate_step(torch, app_state["model"].state_dict(), ref)  # back to step 0's state
+    ok = not mismatched and not moved and end["incremental_links"] > 0 and written < nbytes // 2
+    emit({"phase": "incremental_take", "ok": ok, "step1_s": round(step1_s, 3), "hard_links": end["incremental_links"],
+          "bytes_written": written, "changed_bytes": changed_bytes, "state_bytes": nbytes,
+          "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "phases": phase_summary(stats)})
+    shutil.rmtree(root)
+    if not ok:
+        raise RuntimeError("incremental_take: nothing linked, too many bytes written, or not bit-exact")
+
+
+def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+    compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir)
+    root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cas_take", False)
+    async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
+    mutate_step(torch, app_state["model"].state_dict(), ref)  # back to step 0's state
+    shutil.rmtree(root)
+    root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cdc_take", True)
+    mutate_step(torch, app_state["model"].state_dict(), ref)
+    shutil.rmtree(root)
+    incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
+
+
 # ------------------------------------------------------ distributed phases
 #
 # Several ranks share the one card: spawned processes (CUDA cannot be
@@ -445,8 +733,9 @@ def dist_state(torch, ts, mesh, placements_of, seed: int, zero: bool = False):
     return params
 
 
-def dist_check(torch, params, seed: int):
-    """Paths whose local box differs from the seeded values."""
+def dist_check(torch, params, seed: int, seeds=None):
+    """Paths whose local box differs from the seeded values (``seeds``:
+    per-path seeds that replace the default)."""
     from torchsnapshot_tpu_torch import staging
 
     bad = []
@@ -455,7 +744,8 @@ def dist_check(torch, params, seed: int):
         for key in path:
             node = node[key]
         offsets, _ = staging.local_box(node)
-        if not seeded_fill(torch, node.to_local(), tensor_seed(seed, path), shape, offsets, check=True):
+        path_seed = (seeds or {}).get(path, tensor_seed(seed, path))
+        if not seeded_fill(torch, node.to_local(), path_seed, shape, offsets, check=True):
             bad.append("/".join(path))
     return bad
 
@@ -474,11 +764,12 @@ def host_memory(torch):
 def dist_job_hsdp(torch, ts, rank, world, seed, workdir):
     """Four ranks, a 2x2 ("replicate", "shard") mesh: weights HSDP
     [Replicate(), Shard(0)], the norms fully Replicate.  dist_take,
-    dist_restore (zero, restore in place), dist_async_take (mutate after
+    dist_restore (zero, restore in place), dist_cas_take (two CAS takes
+    with wk changed between them, restore), dist_async_take (mutate after
     return, wait, restore)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from torchsnapshot_tpu_torch import event_handlers, faults, knobs, phase_stats
+    from torchsnapshot_tpu_torch import event_handlers, faults, knobs, phase_stats, staging
     from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
     from torchsnapshot_tpu_torch.scheduler import get_process_memory_budget_bytes
 
@@ -525,6 +816,50 @@ def dist_job_hsdp(torch, ts, rank, world, seed, workdir):
                            "h2d_bytes": int(stats.get("h2d_dispatch", {}).get("bytes", 0)),
                            "local_bytes": local_bytes, "mem_at_start": mem, "phases": phase_summary(stats)}
 
+    # dist_cas_take: two CAS takes into <root>/step_0 and step_1, with every
+    # box of wk refilled from another seed between them; then step 1
+    # restores in place, and wk is refilled with its own values again.
+    # Rank 0 removes the root before the async take: the machine's disk
+    # holds about two copies of the state at a time.
+    root = os.path.join(workdir, "dist_cas")
+    wk_path = ("layers", "attn", "wk")
+    wk = params["layers"]["attn"]["wk"]
+    wk_seed = tensor_seed(seed, wk_path) + 7
+    with knobs.override_cas(True):
+        device_sync(torch)
+        pg.barrier()
+        begin = time.monotonic()
+        ts.Snapshot.take(os.path.join(root, "step_0"), app_state, pg=pg, replicated=["train/step"])
+        step0_s = time.monotonic() - begin
+        offsets, _ = staging.local_box(wk)
+        seeded_fill(torch, wk.to_local(), wk_seed, tuple(wk.shape), offsets)
+        device_sync(torch)
+        pg.barrier()
+        n_events = len(events)
+        phase_stats.reset()
+        begin = time.monotonic()
+        ts.Snapshot.take(os.path.join(root, "step_1"), app_state, pg=pg, replicated=["train/step"])
+        step1_s = time.monotonic() - begin
+        stats = phase_stats.snapshot()
+    cas_stats = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]["cas"]
+    for t in dist_locals(params):
+        t.zero_()
+    ptrs = [t.data_ptr() for t in dist_locals(params)]
+    device_sync(torch)
+    ts.Snapshot(os.path.join(root, "step_1"), pg=pg).restore(app_state)
+    device_sync(torch)
+    out["dist_cas_take"] = {"step0_s": step0_s, "step1_s": step1_s, "bytes_written": cas_stats["physical_bytes_written"],
+                            "prestage": {k: cas_stats[f"prestage_{k}"] for k in ("probed", "hits", "bytes")},
+                            "mismatched": dist_check(torch, params, seed, {wk_path: wk_seed}),
+                            "data_ptr_moved": sum(a != t.data_ptr() for a, t in zip(ptrs, dist_locals(params))),
+                            "phases": phase_summary(stats)}
+    seeded_fill(torch, wk.to_local(), tensor_seed(seed, wk_path), tuple(wk.shape), offsets)
+    device_sync(torch)
+    pg.barrier()
+    if rank == 0:
+        shutil.rmtree(root)
+    pg.barrier()
+
     # dist_async_take (auto → pinned_host); the fault wrapper's byte meter
     # (a spec of "none") counts the commits.
     faults.reset_write_counters()
@@ -554,6 +889,7 @@ def dist_job_hsdp(torch, ts, rank, world, seed, workdir):
                               "bytes_written": ends[-1]["bytes"], "commit_bytes_written": commit_bytes,
                               "mismatched": dist_check(torch, params, seed), "mem_at_start": mem,
                               "phases": phase_summary(stats)}
+
     event_handlers.unregister_event_handler(events.append)
     pg.barrier()
     return out
@@ -748,6 +1084,22 @@ def dist_phases(torch, ts, args) -> None:
     if not async_ok:
         raise RuntimeError("dist_async_take: not bit-exact, wrong mode, not one commit, or bytes differ")
     shutil.rmtree(async_snap)
+
+    cas_ = [r["dist_cas_take"] for r in ranks]
+    wk_shape = next(s for p, s, _ in llama_shapes(N_LAYERS) if p == ("layers", "attn", "wk"))
+    changed = 2
+    for x in wk_shape:
+        changed *= x
+    written = [r["bytes_written"] for r in cas_]
+    cas_ok = all(not r["mismatched"] and r["data_ptr_moved"] == 0 for r in cas_) and sum(written) == changed
+    emit({"phase": "dist_cas_take", "ok": cas_ok, "ranks": 4, "changed": "layers/attn/wk, every box",
+          "changed_bytes": changed, "step1_bytes_written_sum": sum(written), "step1_bytes_written_per_rank": written,
+          "max_step0_s": round(max(r["step0_s"] for r in cas_), 3),
+          "max_step1_s": round(max(r["step1_s"] for r in cas_), 3),
+          "per_rank": [{k: r[k] for k in ("step0_s", "step1_s", "bytes_written", "prestage", "mismatched",
+                                          "data_ptr_moved", "phases")} for r in cas_]})
+    if not cas_ok:
+        raise RuntimeError("dist_cas_take: step 1 wrote other bytes than the changed boxes, or not bit-exact")
 
     elastic = [r["dist_elastic_restore"] for r in dist_launch(torch, "elastic", 2, args)]
     seconds = max(r["seconds"] for r in elastic)
@@ -958,8 +1310,9 @@ def run(args) -> int:
           "second_stall_s": round(stalls[1], 4)})
     async_phase(*common, "async_device", "device", "device")
     async_phase(*common, "async_host", "host", "host")
-    event_handlers.unregister_event_handler(events.append)
     del mats
+    storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
+    event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.
     n = 1 << 30
@@ -1000,6 +1353,18 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(args.workdir, ignore_errors=True)
+        stop_resource_tracker()
+
+
+def stop_resource_tracker() -> None:
+    """Stop the resource-tracker process that spawning the ranks started,
+    so that the script leaves no process behind."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    stop = getattr(tracker, "_stop", None)
+    if stop is not None and getattr(tracker, "_pid", None) is not None:
+        stop()
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ import sys
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO_ROOT, "torchsnapshot_tpu_torch")
-FORBIDDEN = ("jax", "ml_dtypes", "psutil", "aiofiles", "torchsnapshot_tpu")
+FORBIDDEN = ("jax", "ml_dtypes", "psutil", "aiofiles", "zstandard", "lz4", "torchsnapshot_tpu")
 
 
 def test_import_leaves_forbidden_modules_unloaded():
@@ -30,6 +30,16 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch.io_preparers.sharded_array\n"
         "import torchsnapshot_tpu_torch.test_utils\n"
         "import torchsnapshot_tpu_torch.faults\n"
+        "import torchsnapshot_tpu_torch.compression\n"
+        "import torchsnapshot_tpu_torch.memoryview_stream\n"
+        "import torchsnapshot_tpu_torch.chunker\n"
+        "import torchsnapshot_tpu_torch.cas\n"
+        "import torchsnapshot_tpu_torch.incremental\n"
+        "from torchsnapshot_tpu_torch import compression\n"
+        "assert compression.resolve('zstd') == 'zstd'  # the native backend\n"
+        "compression.decode(compression.encode(bytes(1 << 21), 'zstd')[0])\n"
+        "compression.decode(compression.encode(bytes(1 << 16), 'zlib')[0])\n"
+        "assert compression.resolve('lz4') == 'raw'\n"
         f"print(json.dumps([m for m in {FORBIDDEN!r} if m in sys.modules]))\n"
     )
     out = subprocess.run(

@@ -541,3 +541,215 @@ def test_port_multi_rank_async_take_matches_sync_and_jax(tmp_path, monkeypatch, 
         got = dst["m"][name]
         assert got.sharding == targets[name].sharding
         assert _raw(np.asarray(got)) == _raw(_parity_np(name)), name
+
+
+# ------------------------------------------------ storage depth (0.2/0.4/0.6)
+#
+# Compression (manifest 0.2.0), content addressing (0.4.0) and
+# content-defined chunking (0.6.0): either package takes, the other
+# restores bit-exact, and the manifests are equal entry by entry (codec,
+# location, byte range, checksum): the same bytes give the same frames,
+# the same cas:// digests and the same casx:// boundaries.
+
+import glob  # noqa: E402
+import os  # noqa: E402
+
+from test_torch_sharded import STORAGE_DEPTH_VARIANTS, changed_parity_value, parity_storage_depth_4  # noqa: E402
+
+DEPTH_ENVS = {
+    "zstd": {"TPUSNAP_COMPRESSION": "zstd", "TPUSNAP_COMPRESSION_MIN_BYTES": "0"},
+    "zlib": {"TPUSNAP_COMPRESSION": "zlib", "TPUSNAP_COMPRESSION_MIN_BYTES": "0"},
+    "cas": {"TPUSNAP_CAS": "1"},
+    "cdc": dict(STORAGE_DEPTH_VARIANTS["cdc"], TPUSNAP_CDC_MIN_BYTES="256", TPUSNAP_CDC_AVG_BYTES="1024", TPUSNAP_CDC_MAX_BYTES="4096"),
+    "cas_zstd": {"TPUSNAP_CAS": "1", "TPUSNAP_COMPRESSION": "zstd", "TPUSNAP_COMPRESSION_MIN_BYTES": "1024"},
+}
+DEPTH_VERSIONS = {"zstd": "0.2.0", "zlib": "0.2.0", "cas": "0.4.0", "cdc": "0.6.0", "cas_zstd": "0.4.0"}
+
+
+def _set_env(monkeypatch, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+
+
+def _chunk_files(root):
+    return set(glob.glob(os.path.join(str(root), "cas", "*", "*", "*")))
+
+
+@pytest.mark.parametrize("variant", sorted(DEPTH_ENVS))
+def test_storage_depth_crosses_both_ways_with_equal_manifests(tmp_path, monkeypatch, variant):
+    state = _numpy_state()
+    _set_env(monkeypatch, DEPTH_ENVS[variant])
+    with ts.knobs.override_max_chunk_size_bytes(4096):
+        JaxSnapshot.take(str(tmp_path / "jax" / "step_0"), {"m": JaxStateDict(state)})
+        ts.Snapshot.take(str(tmp_path / "port" / "step_0"), {"m": ts.StateDict(state_from_numpy(state))})
+    docs = {pkg: json.loads((tmp_path / pkg / "step_0" / ".snapshot_metadata").read_text()) for pkg in ("jax", "port")}
+    assert docs["port"]["version"] == docs["jax"]["version"] == DEPTH_VERSIONS[variant]
+    assert sorted(docs["port"]["manifest"]) == sorted(docs["jax"]["manifest"])
+    for key, entry in docs["jax"]["manifest"].items():
+        assert docs["port"]["manifest"][key] == entry, key
+    if variant.startswith("cas") or variant == "cdc":
+        assert _chunk_files(tmp_path / "jax") and {
+            os.path.relpath(p, tmp_path / "jax") for p in _chunk_files(tmp_path / "jax")
+        } == {os.path.relpath(p, tmp_path / "port") for p in _chunk_files(tmp_path / "port")}
+
+    # Restores run with the knobs unset: reading needs none of them.
+    for key in DEPTH_ENVS[variant]:
+        monkeypatch.delenv(key)
+    targets = state_from_numpy(_zeros_numpy(state))
+    ptrs = {k: v.data_ptr() for k, v in targets.items() if isinstance(v, torch.Tensor)}
+    dst = {"m": ts.StateDict(targets)}
+    ts.Snapshot(str(tmp_path / "jax" / "step_0")).restore(dst)
+    _assert_same_bytes(state, dst["m"].state_dict())
+    for k, ptr in ptrs.items():
+        assert dst["m"][k].data_ptr() == ptr, k
+    jax_dst = {"m": JaxStateDict(_zeros_numpy(state))}
+    JaxSnapshot(str(tmp_path / "port" / "step_0")).restore(jax_dst)
+    _assert_same_bytes(state, jax_dst["m"].state_dict())
+
+
+def _mixed_state(seed):
+    rng = np.random.RandomState(seed)
+    return {
+        "frozen": rng.standard_normal((128, 64)).astype(np.float32),
+        "hot": rng.standard_normal((64, 64)).astype(np.float32),
+        "small": rng.standard_normal(16).astype(np.float32),
+        "step": 3,
+    }
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+@pytest.mark.parametrize("variant", ["cas", "cdc"])
+def test_mixed_root_writes_no_chunk_the_root_holds(tmp_path, monkeypatch, first, variant):
+    """One package takes step_0 into a root, the other takes step_1 with
+    ``hot`` changed: step_1 writes only chunks of the changed bytes, and
+    each package restores the other's step bit-exact."""
+    _set_env(monkeypatch, DEPTH_ENVS[variant])
+    take = {
+        "jax": lambda path, st: JaxSnapshot.take(path, {"m": JaxStateDict(st)}),
+        "port": lambda path, st: ts.Snapshot.take(path, {"m": ts.StateDict(state_from_numpy(st))}),
+    }
+    second = "port" if first == "jax" else "jax"
+    root = tmp_path / "root"
+    state0 = _mixed_state(0)
+    take[first](str(root / "step_0"), state0)
+    before = _chunk_files(root)
+    state1 = dict(state0, hot=state0["hot"] + 1.0)
+    take[second](str(root / "step_1"), state1)
+    new = _chunk_files(root) - before
+    hot_bytes = state1["hot"].nbytes
+    assert new, "the changed tensor wrote nothing"
+    assert sum(os.path.getsize(p) for p in new) <= hot_bytes + 2 * 4096
+
+    port_dst = {"m": ts.StateDict(state_from_numpy(_zeros_numpy(state1)))}
+    ts.Snapshot(str(root / "step_1")).restore(port_dst)
+    _assert_same_bytes(state1, port_dst["m"].state_dict())
+    jax_dst = {"m": JaxStateDict(_zeros_numpy(state1))}
+    JaxSnapshot(str(root / "step_1")).restore(jax_dst)
+    _assert_same_bytes(state1, jax_dst["m"].state_dict())
+
+
+@pytest.mark.parametrize("base_pkg", ["jax", "port"])
+def test_incremental_from_base_of_the_other_package(tmp_path, monkeypatch, base_pkg):
+    """``incremental_from`` a base the other package wrote hard-links the
+    unchanged payloads (same inode) and rewrites the changed one."""
+    monkeypatch.setenv(ts.knobs.DISABLE_BATCHING_ENV_VAR, "1")
+    state0 = _mixed_state(1)
+    state1 = dict(state0, hot=state0["hot"] * 2.0)
+    base, new = tmp_path / "base", tmp_path / "new"
+    if base_pkg == "jax":
+        JaxSnapshot.take(str(base), {"m": JaxStateDict(state0)})
+        ts.Snapshot.take(str(new), {"m": ts.StateDict(state_from_numpy(state1))}, incremental_from=str(base))
+    else:
+        ts.Snapshot.take(str(base), {"m": ts.StateDict(state_from_numpy(state0))})
+        JaxSnapshot.take(str(new), {"m": JaxStateDict(state1)}, incremental_from=str(base))
+    for name, linked in (("frozen", True), ("small", True), ("hot", False)):
+        loc = f"0/m/{name}"
+        same = os.stat(base / loc).st_ino == os.stat(new / loc).st_ino
+        assert same == linked, name
+    jax_dst = {"m": JaxStateDict(_zeros_numpy(state1))}
+    JaxSnapshot(str(new)).restore(jax_dst)
+    _assert_same_bytes(state1, jax_dst["m"].state_dict())
+    port_dst = {"m": ts.StateDict(state_from_numpy(_zeros_numpy(state1)))}
+    ts.Snapshot(str(new)).restore(port_dst)
+    _assert_same_bytes(state1, port_dst["m"].state_dict())
+
+
+def test_jax_manager_sidecar_seeds_the_port_index(tmp_path, monkeypatch):
+    """The JAX manager's digest-index sidecar is read as is (the manifests
+    are not re-read), and a port take of the same state into the root
+    writes no chunk."""
+    from torchsnapshot_tpu.manager import SnapshotManager
+    from torchsnapshot_tpu_torch import cas
+
+    monkeypatch.setenv("TPUSNAP_CAS", "1")
+    root = tmp_path / "root"
+    state = _mixed_state(2)
+    SnapshotManager(str(root)).save(1, {"m": JaxStateDict(state)})
+    assert (root / cas.INDEX_SIDECAR_FNAME).exists()
+    doc = json.loads((root / cas.INDEX_SIDECAR_FNAME).read_text())
+
+    def _no_seed(storage):
+        raise AssertionError("seeded from manifests although the sidecar is current")
+
+    monkeypatch.setattr(cas, "seed_digest_index", _no_seed)
+    storage = ts.storage_plugin.url_to_storage_plugin(str(root))
+    try:
+        index = cas.load_or_seed_index(str(root), storage, "xxh64")
+    finally:
+        storage.sync_close()
+    assert index.snapshot_keys() == set(doc["keys"]) and index.payload_count() == len(doc["payloads"])
+    before = _chunk_files(root)
+    ts.Snapshot.take(str(root / "step_2"), {"m": ts.StateDict(state_from_numpy(state))})
+    assert _chunk_files(root) == before
+    port_dst = {"m": ts.StateDict(state_from_numpy(_zeros_numpy(state)))}
+    ts.Snapshot(str(root / "step_2")).restore(port_dst)
+    _assert_same_bytes(state, port_dst["m"].state_dict())
+
+
+def test_multi_rank_storage_depth_both_directions(tmp_path, monkeypatch):
+    """4 gloo ranks and the JAX package's 8-device mesh, under compression,
+    CAS and CDC: the ranks restore the JAX package's sharded snapshots in
+    place into DTensors, and take HSDP, fully Replicate and uneven Shard(1)
+    DTensors that the JAX package restores into other NamedShardings; a
+    second CAS take with one tensor changed adds only that tensor's
+    chunks."""
+    for variant, env in STORAGE_DEPTH_VARIANTS.items():
+        _set_env(monkeypatch, env)
+        JaxSnapshot.take(str(tmp_path / f"jax_{variant}" / "step_0"), {"m": JaxStateDict(_jax_sharded_state())})
+        for key in env:
+            monkeypatch.delenv(key)
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(tmp_path))
+    parity_storage_depth_4()
+
+    versions = {"zstd": "0.2.0", "cas": "0.4.0", "cdc": "0.6.0"}
+    for variant in STORAGE_DEPTH_VARIANTS:
+        steps = ["step_0"] if variant == "zstd" else ["step_0", "step_1"]
+        for step in steps:
+            path = tmp_path / f"port_{variant}" / step
+            doc = json.loads((path / ".snapshot_metadata").read_text())
+            assert doc["world_size"] == 4
+            assert doc["version"] == versions[variant]
+            targets = {
+                name: jax.device_put(jnp.zeros(shape, _parity_np(name).dtype), JAX_TARGET_SHARDINGS[name]())
+                for name, (shape, _) in PARITY_SHAPES.items()
+            }
+            dst = {"m": JaxStateDict(targets)}
+            JaxSnapshot(str(path)).restore(dst)
+            for name in PARITY_SHAPES:
+                want = changed_parity_value(name) if (step == "step_1" and name == "w_bf16") else parity_value(name)
+                got = dst["m"][name]
+                assert got.sharding == targets[name].sharding
+                assert _raw(np.asarray(got)) == want.view(torch.uint8).numpy().tobytes(), (variant, step, name)
+        if variant == "zstd":
+            continue
+        from torchsnapshot_tpu_torch import cas
+
+        refs = {
+            step: cas.referenced_chunk_relpaths(ts.Snapshot(str(tmp_path / f"port_{variant}" / step)).metadata.manifest)
+            for step in ("step_0", "step_1")
+        }
+        on_disk = {os.path.relpath(p, tmp_path / f"port_{variant}") for p in _chunk_files(tmp_path / f"port_{variant}")}
+        assert on_disk == refs["step_0"] | refs["step_1"]
+        new_bytes = sum(os.path.getsize(tmp_path / f"port_{variant}" / rel) for rel in refs["step_1"] - refs["step_0"])
+        changed = changed_parity_value("w_bf16").numel() * 2
+        assert 0 < new_bytes <= changed + 2 * 256

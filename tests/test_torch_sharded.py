@@ -604,13 +604,18 @@ def _parity_targets(world):
 
 
 def _parity_restore_jax_snapshot(world):
+    _restore_parity_into_dtensors(os.environ["TPUSNAP_TEST_SNAPSHOT"], make_test_pg(), world)
+
+
+def _restore_parity_into_dtensors(path, pg, world):
+    """Restore the parity tensors at ``path`` in place into DTensors of the
+    world's target layouts; every rank's box must be bit-exact."""
     from torchsnapshot_tpu_torch import Snapshot, StateDict
 
-    pg = make_test_pg()
     targets = _parity_targets(world)
     ptrs = {k: v.to_local().data_ptr() for k, v in targets.items()}
     dst = {"m": StateDict(targets)}
-    Snapshot(os.environ["TPUSNAP_TEST_SNAPSHOT"], pg=pg).restore(dst)
+    Snapshot(path, pg=pg).restore(dst)
     for name in PARITY_SHAPES:
         got = dst["m"][name]
         assert got.to_local().data_ptr() == ptrs[name]
@@ -731,3 +736,51 @@ def parity_async_take_for_jax():
     app["m"]["step"] = -1
     assert pending.staging_mode == device_staging.configured_mode()
     pending.wait()
+
+
+# Storage-depth variants of the multi-rank parity case (knob environment of
+# each); the CDC sizes are small enough to split the KB-sized slabs.
+STORAGE_DEPTH_VARIANTS = {
+    "zstd": {"TPUSNAP_COMPRESSION": "zstd", "TPUSNAP_COMPRESSION_MIN_BYTES": "0"},
+    "cas": {"TPUSNAP_CAS": "1"},
+    "cdc": {
+        "TPUSNAP_CAS": "1",
+        "TPUSNAP_CDC": "1",
+        "TPUSNAP_CDC_MIN_BYTES": "64",
+        "TPUSNAP_CDC_AVG_BYTES": "128",
+        "TPUSNAP_CDC_MAX_BYTES": "256",
+    },
+}
+
+
+def changed_parity_value(name):
+    """The value a second CAS take writes for ``name``: every byte + 1."""
+    value = parity_value(name).clone()
+    value.view(torch.uint8).add_(1)
+    return value
+
+
+@run_with_procs(nproc=4, gloo=True)
+def parity_storage_depth_4():
+    """Under each storage-depth variant, 4 ranks restore the JAX package's
+    ``<root>/jax_<variant>/step_0`` in place into DTensors, then take the
+    HSDP, fully Replicate and uneven Shard(1) layouts into
+    ``<root>/port_<variant>/step_0``; the CAS variants take again into
+    ``step_1`` with only ``w_bf16`` changed."""
+    import contextlib
+
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    pg = make_test_pg()
+    root = os.environ["TPUSNAP_TEST_SNAPSHOT"]
+    for variant, env in STORAGE_DEPTH_VARIANTS.items():
+        with contextlib.ExitStack() as stack:
+            for key, value in env.items():
+                stack.enter_context(knobs.override_env(key, value))
+            _restore_parity_into_dtensors(os.path.join(root, f"jax_{variant}", "step_0"), pg, 4)
+            state = {name: _parity_dt(name, *layout) for name, layout in ASYNC_PARITY_LAYOUTS.items()}
+            Snapshot.take(os.path.join(root, f"port_{variant}", "step_0"), {"m": StateDict(state)}, pg=pg)
+            if variant == "zstd":
+                continue
+            state["w_bf16"].to_local().view(torch.uint8).add_(1)
+            Snapshot.take(os.path.join(root, f"port_{variant}", "step_1"), {"m": StateDict(state)}, pg=pg)

@@ -357,15 +357,15 @@ def test_memory_storage_roundtrip(toggle_batching):
 
 
 def test_later_manifest_versions_name_the_missing_feature():
-    for version, feature in (
-        ("0.2.0", "compression"),
-        ("0.4.0", "content-addressed"),
-        ("0.5.0", "journal"),
-        ("0.6.0", "content-defined"),
-    ):
+    """Compression (0.2.0), content addressing (0.4.0) and content-defined
+    chunking (0.6.0) are read; journal delta segments (0.5.0) are refused,
+    naming the feature."""
+    for version in ("0.2.0", "0.4.0", "0.6.0"):
         doc = SnapshotMetadata(version=version, world_size=1).to_json()
-        with pytest.raises(UnsupportedSnapshotError, match=feature):
-            SnapshotMetadata.from_json(doc)
+        assert SnapshotMetadata.from_json(doc).version == version
+    doc = SnapshotMetadata(version="0.5.0", world_size=1).to_json()
+    with pytest.raises(UnsupportedSnapshotError, match="journal"):
+        SnapshotMetadata.from_json(doc)
 
 
 def test_float8_e4m3b11fnuz_from_jax_snapshot(tmp_path):

@@ -145,15 +145,21 @@ def test_delete_prefix(server_client):
 
 def test_native_library_abi_and_exports():
     """The store lives in the same library as the file I/O, whose ABI
-    generation went to 2 with the store's exports."""
+    generation went to 2 with the store's exports and to 3 with the zstd
+    and content-defined chunking exports."""
     import ctypes
 
     from torchsnapshot_tpu_torch._native.build import get_native_lib_path
     from torchsnapshot_tpu_torch.native_io import NATIVE_ABI_VERSION
 
     lib = ctypes.CDLL(get_native_lib_path())
-    assert lib.tpusnap_abi_version() == NATIVE_ABI_VERSION == 2
+    assert lib.tpusnap_abi_version() == NATIVE_ABI_VERSION == 3
     for name in (
+        "tpusnap_cdc_boundaries",
+        "tpusnap_has_zstd",
+        "tpusnap_zstd_encode",
+        "tpusnap_zstd_encode2",
+        "tpusnap_zstd_decode",
         "tpustore_server_start",
         "tpustore_server_port",
         "tpustore_server_stop",

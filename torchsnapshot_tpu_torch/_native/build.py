@@ -6,6 +6,12 @@ source (listed in ``.gitignore``) and rebuilt whenever the source is newer
 than the library.  Unlike the JAX package there is no degraded mode: no
 stale library is served and nothing falls back to pure Python — a build
 failure raises, naming the compiler's error.
+
+zstd, as in the JAX build: the first attempt compiles against ``zstd.h``
+and links ``-lzstd`` (``-DTPUSNAP_WITH_ZSTD``); where the headers are
+missing the second attempt builds the dlopen shim over the runtime
+``libzstd.so.1``, and ``tpusnap_has_zstd()`` reports what the running
+process found.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ _LIB = os.path.join(_BUILD_DIR, "libtpusnap_torch.so")
 _LOCK = threading.Lock()
 
 _CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+# Extra flags per attempt, in order: linked zstd, then the dlopen shim.
+_ATTEMPTS = (["-DTPUSNAP_WITH_ZSTD", "-lzstd", "-ldl"], ["-ldl"])
 
 
 class NativeBuildError(RuntimeError):
@@ -41,16 +49,23 @@ def _build() -> None:
     # Unique temp name per process, then an atomic rename: concurrent
     # first users (test workers) never load a half-written library.
     tmp = f"{_LIB}.tmp.{os.getpid()}"
-    try:
-        proc = subprocess.run(
-            _CMD + [_SRC, "-o", tmp],
-            capture_output=True,
-            text=True,
-            timeout=300,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise NativeBuildError(f"g++ could not run: {e}") from e
+    proc = None
+    for extra in _ATTEMPTS:
+        try:
+            proc = subprocess.run(
+                _CMD + [_SRC, "-o", tmp] + extra,
+                capture_output=True,
+                text=True,
+                timeout=300,
+            )
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise NativeBuildError(f"g++ could not run: {e}") from e
+        if proc.returncode == 0:
+            break
+    assert proc is not None
     if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         raise NativeBuildError(
             f"g++ failed (rc {proc.returncode}): {proc.stderr.strip()[-2000:]}"
         )

@@ -8,6 +8,9 @@
 //   tpusnap_xxhash64 / tpusnap_xxhash64_striped
 //   tpusnap_write_file_parts / tpusnap_write_parts_hash
 //   tpusnap_read_ranges_hash / tpusnap_file_size
+//   tpusnap_cdc_boundaries (content-defined chunk edges)
+//   tpusnap_has_zstd / tpusnap_zstd_encode / tpusnap_zstd_encode2 /
+//   tpusnap_zstd_decode (the compression frame's zstd codec)
 // and the coordination store's TCP server and client (tpustore_server_*,
 // tpustore_client_*; see the "TCP store" section at the end).
 // The digest values ("xxh64" and the striped "xxh64s") are bit-identical to
@@ -20,6 +23,7 @@
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <dlfcn.h>
 #include <fcntl.h>
 #include <functional>
 #include <mutex>
@@ -30,6 +34,10 @@
 #include <thread>
 #include <unistd.h>
 #include <vector>
+
+#ifdef TPUSNAP_WITH_ZSTD
+#include <zstd.h>
+#endif
 
 extern "C" {
 
@@ -369,11 +377,139 @@ int write_one_file(const char* path, const void* const* bufs,
   return 0;
 }
 
+
+// ------------------------------------------------------------ zstd codec
+// The ZSTD_* C API, resolved once per process: linked at build time when
+// zstd.h exists (build.py defines TPUSNAP_WITH_ZSTD and links -lzstd), else
+// through dlopen of the runtime libzstd.so.1 that most images ship without
+// the -dev package.  ok = the one-shot API resolved; ok2 = the advanced
+// cctx API too.  The cctx parameter ids are part of zstd's stable public
+// ABI (ZSTD_c_compressionLevel=100, ZSTD_c_windowLog=101,
+// ZSTD_c_enableLongDistanceMatching=160), so the shim passes the integers.
+struct ZstdApi {
+  size_t (*compress)(void*, size_t, const void*, size_t, int) = nullptr;
+  size_t (*decompress)(void*, size_t, const void*, size_t) = nullptr;
+  unsigned (*is_error)(size_t) = nullptr;
+  size_t (*compress_bound)(size_t) = nullptr;
+  void* (*cctx_create)() = nullptr;
+  size_t (*cctx_free)(void*) = nullptr;
+  size_t (*cctx_set_param)(void*, int, int) = nullptr;
+  size_t (*compress2)(void*, void*, size_t, const void*, size_t) = nullptr;
+  bool ok = false;
+  bool ok2 = false;
+};
+
+const ZstdApi& zstd_api() {
+  static const ZstdApi api = [] {
+    ZstdApi a;
+#ifdef TPUSNAP_WITH_ZSTD
+    a.compress = &ZSTD_compress;
+    a.decompress = &ZSTD_decompress;
+    a.is_error = &ZSTD_isError;
+    a.compress_bound = &ZSTD_compressBound;
+    a.cctx_create = reinterpret_cast<void* (*)()>(&ZSTD_createCCtx);
+    a.cctx_free = reinterpret_cast<size_t (*)(void*)>(&ZSTD_freeCCtx);
+    a.cctx_set_param = reinterpret_cast<size_t (*)(void*, int, int)>(
+        &ZSTD_CCtx_setParameter);
+    a.compress2 =
+        reinterpret_cast<size_t (*)(void*, void*, size_t, const void*,
+                                    size_t)>(&ZSTD_compress2);
+    a.ok = true;
+    a.ok2 = true;
+#else
+    void* h = dlopen("libzstd.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (h == nullptr) h = dlopen("libzstd.so", RTLD_NOW | RTLD_LOCAL);
+    if (h != nullptr) {
+      a.compress = reinterpret_cast<size_t (*)(void*, size_t, const void*,
+                                               size_t, int)>(
+          dlsym(h, "ZSTD_compress"));
+      a.decompress = reinterpret_cast<size_t (*)(void*, size_t, const void*,
+                                                 size_t)>(
+          dlsym(h, "ZSTD_decompress"));
+      a.is_error =
+          reinterpret_cast<unsigned (*)(size_t)>(dlsym(h, "ZSTD_isError"));
+      a.compress_bound =
+          reinterpret_cast<size_t (*)(size_t)>(dlsym(h, "ZSTD_compressBound"));
+      a.ok = a.compress && a.decompress && a.is_error && a.compress_bound;
+      a.cctx_create =
+          reinterpret_cast<void* (*)()>(dlsym(h, "ZSTD_createCCtx"));
+      a.cctx_free =
+          reinterpret_cast<size_t (*)(void*)>(dlsym(h, "ZSTD_freeCCtx"));
+      a.cctx_set_param = reinterpret_cast<size_t (*)(void*, int, int)>(
+          dlsym(h, "ZSTD_CCtx_setParameter"));
+      a.compress2 = reinterpret_cast<size_t (*)(void*, void*, size_t,
+                                                const void*, size_t)>(
+          dlsym(h, "ZSTD_compress2"));
+      a.ok2 = a.ok && a.cctx_create && a.cctx_free && a.cctx_set_param &&
+              a.compress2;
+      // The handle is kept for the life of the process.
+    }
+#endif
+    return a;
+  }();
+  return api;
+}
+
+// ------------------------------------------- content-defined chunking
+// FastCDC-style gear-hash chunking, byte-identical to chunker.boundaries_py
+// and to torchsnapshot_tpu's native and Python implementations: the same
+// gear table (splitmix64 from one frozen seed) and the same normalized
+// selection walk.  Boundaries name CAS chunks, so a divergence would fork
+// the dedup namespace.
+//
+// The rolling hash h_i = (h_{i-1} << 1) + GEAR[b_i] (mod 2^64), computed
+// from the buffer start, depends only on the trailing 64 bytes, which is
+// what makes edges content-local and lets the candidate scan stripe across
+// the worker pool with a 63-byte warm-up per stripe.
+
+constexpr uint64_t CDC_GEAR_SEED = 0x747075736E617031ULL;  // "tpusnap1"
+
+const uint64_t* cdc_gear_table() {
+  static const uint64_t* table = [] {
+    static uint64_t t[256];
+    uint64_t x = CDC_GEAR_SEED;
+    for (int i = 0; i < 256; ++i) {
+      x += 0x9E3779B97F4A7C15ULL;
+      uint64_t z = x;
+      z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+      z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+      t[i] = z ^ (z >> 31);
+    }
+    return t;
+  }();
+  return table;
+}
+
+struct CdcCandidate {
+  int64_t idx;
+  bool strict;  // also satisfies mask_s
+};
+
+// Candidates in [begin, end): mask_l hits, flagged when they also hit
+// mask_s.  The hash state is rebuilt from up to 63 bytes before `begin`,
+// which reproduces the computed-from-buffer-start value exactly.
+void cdc_scan(const uint8_t* data, int64_t begin, int64_t end,
+              uint64_t mask_s, uint64_t mask_l,
+              std::vector<CdcCandidate>* out) {
+  const uint64_t* gear = cdc_gear_table();
+  int64_t warm = begin >= 63 ? begin - 63 : 0;
+  uint64_t h = 0;
+  for (int64_t i = warm; i < begin; ++i) {
+    h = (h << 1) + gear[data[i]];
+  }
+  for (int64_t i = begin; i < end; ++i) {
+    h = (h << 1) + gear[data[i]];
+    if ((h & mask_l) == 0) {
+      out->push_back({i, (h & mask_s) == 0});
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-int tpusnap_abi_version() { return 2; }
+int tpusnap_abi_version() { return 3; }
 
 // Sizes the worker pool BEFORE its lazy creation (TPUSNAP_NATIVE_THREADS);
 // once threads exist the request is ignored.  n <= 0 selects auto
@@ -384,6 +520,168 @@ void tpusnap_pool_configure(int n) {
 }
 
 int tpusnap_pool_size() { return static_cast<int>(get_pool()->threads.size()); }
+
+// Content-defined chunk END offsets of data[0, len) into out (ascending,
+// last == len).  Returns the count, -EINVAL for parameters outside
+// 64 <= min < avg <= max, or -ENOMEM when out_cap is too small (callers
+// size it len/min + 2, the upper bound).  The candidate scan stripes
+// across the worker pool (63-byte warm-up per stripe keeps values exact);
+// the selection walk is sequential over the candidates.
+int64_t tpusnap_cdc_boundaries(const void* data, int64_t len,
+                               int64_t min_size, int64_t avg_size,
+                               int64_t max_size, int64_t* out,
+                               int64_t out_cap) {
+  if (min_size < 64 || min_size >= avg_size || avg_size > max_size) {
+    return -EINVAL;
+  }
+  const uint8_t* p = static_cast<const uint8_t*>(data);
+  if (len <= 0) return 0;
+  if (len <= min_size) {
+    if (out_cap < 1) return -ENOMEM;
+    out[0] = len;
+    return 1;
+  }
+  int bits = 0;
+  while ((int64_t{1} << (bits + 1)) <= avg_size) ++bits;
+  int sbits = bits + 2 > 62 ? 62 : bits + 2;
+  int lbits = bits - 2 < 1 ? 1 : bits - 2;
+  uint64_t mask_s = (uint64_t{1} << sbits) - 1;
+  uint64_t mask_l = (uint64_t{1} << lbits) - 1;
+
+  const int64_t STRIPE = 8 << 20;
+  int64_t n_stripes = (len + STRIPE - 1) / STRIPE;
+  std::vector<std::vector<CdcCandidate>> per_stripe(
+      static_cast<size_t>(n_stripes));
+  TaskSet ts;
+  ts.tasks.reserve(static_cast<size_t>(n_stripes));
+  for (int64_t s = 0; s < n_stripes; ++s) {
+    int64_t begin = s * STRIPE;
+    int64_t end = begin + STRIPE < len ? begin + STRIPE : len;
+    std::vector<CdcCandidate>* dst = &per_stripe[static_cast<size_t>(s)];
+    ts.tasks.emplace_back([=] {
+      cdc_scan(p, begin, end, mask_s, mask_l, dst);
+    });
+  }
+  ts.run_all();
+  std::vector<CdcCandidate> cand;
+  for (auto& v : per_stripe) {
+    cand.insert(cand.end(), v.begin(), v.end());
+  }
+
+  // Selection walk — the same spec as chunker._walk: a candidate at index
+  // i cuts a chunk end at i + 1; the strict mask applies through the
+  // average point, the loose one through the max; a chunk is forced at
+  // max size, and a candidate-less tail becomes one final chunk.
+  int64_t n_out = 0;
+  int64_t last = 0;
+  size_t ci = 0;
+  while (len - last > min_size) {
+    int64_t window_end = last + max_size < len ? last + max_size : len;
+    int64_t norm_end = last + avg_size < window_end ? last + avg_size
+                                                    : window_end;
+    while (ci < cand.size() && cand[ci].idx < last + min_size - 1) ++ci;
+    int64_t cut = 0;
+    size_t k = ci;
+    for (; k < cand.size() && cand[k].idx <= norm_end - 1; ++k) {
+      if (cand[k].strict) {
+        cut = cand[k].idx + 1;
+        break;
+      }
+    }
+    if (cut == 0) {
+      // k sits at the first candidate past norm_end - 1 (or the strict
+      // hit loop's stop); rescan from there for any loose candidate.
+      while (k < cand.size() && cand[k].idx <= norm_end - 1) ++k;
+      if (k < cand.size() && cand[k].idx <= window_end - 1) {
+        cut = cand[k].idx + 1;
+      }
+    }
+    if (cut == 0) {
+      cut = window_end < len ? window_end : len;
+    }
+    if (n_out >= out_cap) return -ENOMEM;
+    out[n_out++] = cut;
+    last = cut;
+  }
+  if (last < len) {
+    if (n_out >= out_cap) return -ENOMEM;
+    out[n_out++] = len;
+  }
+  return n_out;
+}
+
+// zstd straight into and out of the compression frame's payload region.
+// Frames are standard single-segment zstd frames; at the same level and
+// library they are byte-identical to torchsnapshot_tpu's native encode.
+int tpusnap_has_zstd() { return zstd_api().ok ? 1 : 0; }
+
+// Returns the encoded size, -1 when the output does not fit dst_cap (the
+// incompressible case callers turn into a raw frame), -2 on any other
+// zstd error or when the backend is unavailable.
+int64_t tpusnap_zstd_encode(const void* src, int64_t src_len, void* dst,
+                            int64_t dst_cap, int level) {
+  const ZstdApi& z = zstd_api();
+  if (!z.ok) return -2;
+  size_t rc = z.compress(dst, static_cast<size_t>(dst_cap), src,
+                         static_cast<size_t>(src_len), level);
+  if (z.is_error(rc)) {
+    // Below the bound the expected failure is dstSize_tooSmall — the
+    // didn't-shrink signal; at/above it any failure is a real error
+    // (conflating them would silently store compressible payloads raw).
+    return static_cast<size_t>(dst_cap) <
+                   z.compress_bound(static_cast<size_t>(src_len))
+               ? -1
+               : -2;
+  }
+  return static_cast<int64_t>(rc);
+}
+
+// Advanced-parameter zstd encode: window log + long-distance matching for
+// the many-similar-chunks fleet case (hundreds of fine-tunes sharing a
+// frozen backbone — LDM finds the repeats a 1 MB window cannot see).
+// Output is a standard zstd frame any backend decodes.  Returns the
+// encoded size, -1 when the output does not fit dst_cap (incompressible —
+// same contract as tpusnap_zstd_encode), -2 on codec error, or -3 when
+// the advanced cctx API is unavailable in the resolved backend (ancient
+// libzstd) — callers then fall back to the plain encode with a one-time
+// warning.  window_log <= 0 leaves the level's default; enable_ldm != 0
+// turns LDM on.
+int64_t tpusnap_zstd_encode2(const void* src, int64_t src_len, void* dst,
+                             int64_t dst_cap, int level, int window_log,
+                             int enable_ldm) {
+  const ZstdApi& z = zstd_api();
+  if (!z.ok) return -2;
+  if (!z.ok2) return -3;
+  void* cctx = z.cctx_create();
+  if (cctx == nullptr) return -2;
+  // Stable public parameter ids: compressionLevel=100, windowLog=101,
+  // enableLongDistanceMatching=160.
+  z.cctx_set_param(cctx, 100, level);
+  if (window_log > 0) z.cctx_set_param(cctx, 101, window_log);
+  if (enable_ldm) z.cctx_set_param(cctx, 160, 1);
+  size_t rc = z.compress2(cctx, dst, static_cast<size_t>(dst_cap), src,
+                          static_cast<size_t>(src_len));
+  z.cctx_free(cctx);
+  if (z.is_error(rc)) {
+    return static_cast<size_t>(dst_cap) <
+                   z.compress_bound(static_cast<size_t>(src_len))
+               ? -1
+               : -2;
+  }
+  return static_cast<int64_t>(rc);
+}
+
+// Returns the decoded size (callers compare it against the frame header's
+// recorded uncompressed length), or -2 on any decode error.
+int64_t tpusnap_zstd_decode(const void* src, int64_t src_len, void* dst,
+                            int64_t dst_cap) {
+  const ZstdApi& z = zstd_api();
+  if (!z.ok) return -2;
+  size_t rc = z.decompress(dst, static_cast<size_t>(dst_cap), src,
+                           static_cast<size_t>(src_len));
+  if (z.is_error(rc)) return -2;
+  return static_cast<int64_t>(rc);
+}
 
 // Scatter-gather file write: the member buffers of a slab are written
 // sequentially from their own memory, skipping the pack memcpy.

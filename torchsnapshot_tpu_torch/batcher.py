@@ -23,7 +23,8 @@ from collections import defaultdict
 from concurrent.futures import Executor
 from typing import Dict, List, Optional, Tuple
 
-from . import knobs, serialization
+from . import chunker, knobs, serialization
+from .compression import is_framed
 from .io_preparers.array import ArrayBufferStager
 from .io_types import (
     BufferConsumer,
@@ -63,28 +64,12 @@ def is_batchable(write_req: WriteReq, entry_index: Dict[str, TensorEntry]) -> bo
     if not isinstance(stager, ArrayBufferStager):
         return False
     entry = entry_index.get(write_req.path)
-    return entry is not None and entry.serializer == Serializer.BUFFER_PROTOCOL.value
-
-
-def plan_slabs(items: List[Tuple[WriteReq, TensorEntry, int]], threshold: int):
-    """Greedy plan-order packing of ``(req, entry, nbytes)`` items into
-    slabs capped at ``threshold`` bytes (torchsnapshot_tpu's
-    ``chunker.plan_slabs``): the same grouping gives the same slab names in
-    both packages."""
-    groups = []
-    group: List[Tuple[WriteReq, TensorEntry, int]] = []
-    group_bytes = 0
-    for item in items:
-        nbytes = item[2]
-        if group and group_bytes + nbytes > threshold:
-            groups.append(group)
-            group = []
-            group_bytes = 0
-        group.append(item)
-        group_bytes += nbytes
-    if group:
-        groups.append(group)
-    return groups
+    if entry is None or entry.serializer != Serializer.BUFFER_PROTOCOL.value:
+        return False
+    # A framed payload's stored size is known only once staged, and slab
+    # offsets are assigned now: it is never batched.  The compression size
+    # floor keeps the small payloads slabs exist for raw and batchable.
+    return not is_framed(entry)
 
 
 def batch_write_requests(
@@ -143,7 +128,12 @@ def batch_write_requests(
             )
         )
 
-    for group in plan_slabs(batchable, slab_threshold):
+    # Structural slab edges (plan-order packing); with content-defined
+    # chunking on, the CAS writer cuts the physical chunk edges inside each
+    # slab at write time (chunker.py).
+    for group, _ in chunker.plan_slabs(
+        batchable, [nbytes for _, _, nbytes in batchable], slab_threshold
+    ):
         _emit(group)
     logger.debug(
         "Batcher: %d small writes coalesced into %d slabs (%d passthrough)",

@@ -439,6 +439,17 @@ class FaultyStoragePlugin(StoragePlugin):
         await self._raise_or_delay(self._fire("exists", path), "exists", path)
         return await self._inner.exists(path)
 
+    async def list_dir(self, path: str) -> List[str]:
+        await self._raise_or_delay(self._fire("list", path), "list", path)
+        return await self._inner.list_dir(path)
+
+    async def copy_from_sibling(self, src_root: str, path: str) -> bool:
+        return await self._inner.copy_from_sibling(src_root, path)
+
+    def _get_executor(self):
+        getter = getattr(self._inner, "_get_executor", None)
+        return getter() if getter is not None else None
+
     async def close(self) -> None:
         await self._inner.close()
 

@@ -76,6 +76,18 @@ def digest(buf) -> str:
     return f"{algo}:{h:016x}"
 
 
+def digest_as(buf, expected: Optional[str]) -> str:
+    """The digest of ``buf`` under the algorithm an existing recorded
+    digest used (the size policy when its tag is absent or unknown): dedup
+    compares against a base's digests the base's way."""
+    algo = hash_algo_of(expected)
+    if algo is None:
+        return digest(buf)
+    with phase_stats.timed("checksum", memoryview(buf).nbytes):
+        h = _hash64(buf, algo)
+    return f"{algo}:{h:016x}"
+
+
 async def compute_on(buf, executor) -> Optional[str]:
     """A recording digest (None when saves record none), hashed on the
     executor for large buffers — the native hashers release the GIL."""

@@ -17,6 +17,15 @@ design:
   target of another dtype, or a non-contiguous one, receives the bytes in a
   device temporary first and then ``target.copy_(temp)`` on the same
   stream, which converts like ``np.copyto``.
+
+Compression (``TPUSNAP_COMPRESSION``): the codec is chosen at plan time
+from the payload's size (:func:`plan_codec`), the stager frames the staged
+bytes on the pipeline's executor (compression.py) and the frame is what
+storage writes and what the checksum covers.  A framed payload is read
+whole (byte offsets inside a frame mean nothing, so no tiles and no
+read-into-place), verified, then decoded straight into its destination:
+the CPU target's own bytes, or a pinned buffer of the piece's size that
+is then uploaded like any other piece.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import integrity, phase_stats, serialization
+from .. import compression, integrity, knobs, phase_stats, serialization
 from ..io_types import (
     BufferConsumer,
     BufferStager,
@@ -50,6 +59,19 @@ from ..staging import begin_d2h, finish_d2h, is_cuda_tensor, pinned_empty
 _INTO_PLACE_MIN_BYTES = 1 << 20
 # Pieces above this verify/copy on the executor instead of the event loop.
 _EXECUTOR_MIN_BYTES = 1 << 20
+
+
+def plan_codec(nbytes: int) -> Optional[str]:
+    """The codec a payload of ``nbytes`` will be framed with, decided at
+    plan time (the batcher must know which payloads keep their
+    dtype×shape size), or None for bare bytes: below the size floor, or
+    when the configured codec has no backend here (the save then stays in
+    the bare format)."""
+    codec, _ = knobs.get_compression()
+    if codec == "raw" or nbytes < knobs.get_compression_min_bytes():
+        return None
+    resolved = compression.resolve(codec)
+    return None if resolved == "raw" else resolved
 
 
 def _dtype_of(obj: Any) -> Any:
@@ -75,6 +97,9 @@ class ArrayIOPreparer:
             else list(obj.shape),
             replicated=False,
         )
+        # The stager frames at stage time and may record "raw" (framed,
+        # not compressed) when the payload does not shrink.
+        entry.codec = plan_codec(serialization.array_nbytes(entry.shape, entry.dtype))
         stager = ArrayBufferStager(
             obj=obj, entry=entry, is_async_snapshot=is_async_snapshot
         )
@@ -121,7 +146,8 @@ class ArrayIOPreparer:
         )
         total = serialization.array_nbytes(entry.shape, entry.dtype)
         if (
-            buffer_size_limit_bytes is None
+            compression.is_framed(entry)
+            or buffer_size_limit_bytes is None
             or buffer_size_limit_bytes <= 0
             or total <= buffer_size_limit_bytes
         ):
@@ -132,6 +158,7 @@ class ArrayIOPreparer:
                     flat_offset=0,
                     nbytes=total,
                     checksum=entry.checksum,
+                    frame_entry=entry,
                 )
             ]
         else:
@@ -190,14 +217,30 @@ class ArrayBufferStager(BufferStager):
                 # one was already copied by host_bytes.
                 host = host.copy()
         self._obj = None
+        mv = serialization.array_as_memoryview(host)
+        entry = self._entry
+        if compression.is_framed(entry):
+            # Frame on the executor, so one payload's codec pass overlaps
+            # other stagers' D2H and the writes in flight.  The digest
+            # covers the frame: the bytes storage writes.
+            level = knobs.get_compression()[1]
+            if executor is not None and mv.nbytes > _EXECUTOR_MIN_BYTES:
+                frame, inner = await asyncio.get_running_loop().run_in_executor(
+                    executor, compression.encode, mv, entry.codec, level
+                )
+            else:
+                frame, inner = compression.encode(mv, entry.codec, level)
+            del mv, host  # the staged copy (a pinned buffer) goes back now
+            entry.codec = inner
+            entry.compressed_nbytes = memoryview(frame).nbytes
+            mv = memoryview(frame).cast("B")
         if integrity.save_checksums_enabled():
-            entry = self._entry
 
             def _set(digest_str) -> None:
                 entry.checksum = digest_str
 
             self.hash_sinks = [_set]
-        return serialization.array_as_memoryview(host)
+        return mv
 
     @property
     def source(self) -> Any:
@@ -213,13 +256,19 @@ class ArrayBufferStager(BufferStager):
     def get_staging_cost_bytes(self) -> int:
         """A CUDA tensor costs its pinned host buffer (plus its contiguous
         device copy when it is not contiguous); a contiguous CPU value is
-        viewed in place and costs nothing, unless an async take copies it."""
+        viewed in place and costs nothing, unless an async take copies it.
+        A framed payload adds its frame (at most the payload's size: the
+        raw-in-frame fallback bounds it), since the staged bytes and the
+        frame coexist while the codec runs; the scheduler credits back
+        down to the frame's size once staged, which is where a good ratio
+        hands budget to the next stager."""
         nbytes = serialization.array_nbytes(self._entry.shape, self._entry.dtype)
+        frame = nbytes if compression.is_framed(self._entry) else 0
         obj = self._obj
         contiguous = _is_contiguous(obj)
         if is_cuda_tensor(obj):
-            return nbytes if contiguous else 2 * nbytes
-        return 0 if contiguous and not self._is_async_snapshot else nbytes
+            return (nbytes if contiguous else 2 * nbytes) + frame
+        return (0 if contiguous and not self._is_async_snapshot else nbytes) + frame
 
 
 class H2DBatcher:
@@ -403,22 +452,27 @@ class ArrayAssembly:
         nbytes: int,
         checksum: Optional[str] = None,
         no_merge: bool = False,
+        frame_entry: Optional[TensorEntry] = None,
     ) -> ReadReq:
         """The read request for bytes ``[flat_offset, flat_offset+nbytes)``
         of this tensor — the single policy point for the dense, tiled and
         chunked paths: pieces of 1 MiB and more read straight into their
         destination (the CPU target's memory, or a pinned buffer allocated
-        at admission for a CUDA target); smaller ones merge."""
+        at admission for a CUDA target); smaller ones merge.  A framed
+        ``frame_entry`` reads its whole frame and decodes on consume."""
+        framed = frame_entry is not None and compression.is_framed(frame_entry)
         consumer = ArrayBufferConsumer(
             assembly=self,
             flat_offset=flat_offset,
             nbytes=nbytes,
             checksum=checksum,
             location=location,
+            frame_nbytes=frame_entry.compressed_nbytes if framed else None,
+            framed=framed,
         )
         into = None
         into_factory = None
-        if nbytes >= _INTO_PLACE_MIN_BYTES:
+        if nbytes >= _INTO_PLACE_MIN_BYTES and not framed:
             if self.is_cuda:
                 into_factory = consumer.alloc_pinned
             else:
@@ -444,10 +498,24 @@ class ArrayAssembly:
         buf: BufferType,
         in_place: bool,
         pinned: Optional[torch.Tensor],
+        framed: bool = False,
+        nbytes: int = 0,
+        location: str = "",
     ) -> Optional[torch.Tensor]:
         """Put one piece's bytes where they belong (executor-safe).  Host
         destinations get the bytes copied in (unless the read landed in
-        place); CUDA destinations get back the pinned source to upload."""
+        place); CUDA destinations get back the pinned source to upload.  A
+        frame is decoded straight into the destination: the host bytes, or
+        a pinned buffer of the piece's size."""
+        if framed:
+            if self.is_cuda:
+                src = pinned_empty(nbytes)
+                if nbytes:
+                    compression.decode(buf, nbytes, location, out=memoryview(src.numpy()))
+                return src
+            dst = self.host_u8[flat_offset : flat_offset + nbytes]
+            compression.decode(buf, nbytes, location, out=memoryview(dst) if nbytes else None)
+            return None
         view = np.frombuffer(memoryview(buf).cast("B"), dtype=np.uint8)
         if self.is_cuda:
             if in_place:
@@ -507,12 +575,16 @@ class ArrayBufferConsumer(BufferConsumer):
         nbytes: int,
         checksum: Optional[str] = None,
         location: str = "",
+        frame_nbytes: Optional[int] = None,
+        framed: bool = False,
     ) -> None:
         self._assembly = assembly
         self._flat_offset = flat_offset
         self._nbytes = nbytes
         self._checksum = checksum
         self._location = location
+        self._frame_nbytes = frame_nbytes
+        self.framed = framed
         # The read-into-place destination (CPU), or the pinned buffer
         # alloc_pinned handed the storage (CUDA).
         self.into: Optional[memoryview] = None
@@ -541,7 +613,13 @@ class ArrayBufferConsumer(BufferConsumer):
                 precomputed=self.precomputed_hash64,
             )
             return self._assembly.stage_piece(
-                self._flat_offset, buf, in_place, self.pinned
+                self._flat_offset,
+                buf,
+                in_place,
+                self.pinned,
+                framed=self.framed,
+                nbytes=self._nbytes,
+                location=self._location,
             )
 
         if executor is not None and self._nbytes > _EXECUTOR_MIN_BYTES:
@@ -555,4 +633,7 @@ class ArrayBufferConsumer(BufferConsumer):
         self._assembly.piece_done()
 
     def get_consuming_cost_bytes(self) -> int:
+        if self.framed:
+            # The read frame and the decoded payload coexist while decoding.
+            return self._nbytes + (self._frame_nbytes or self._nbytes)
         return self._nbytes

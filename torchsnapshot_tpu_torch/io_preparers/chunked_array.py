@@ -10,7 +10,8 @@ D2H copy is one ``view(torch.uint8)`` of it.
 
 Restore reads every chunk into its byte range of the one target
 (:class:`ArrayAssembly`): in place for CPU targets, through a pinned buffer
-and an H2D copy per chunk for CUDA targets.
+and an H2D copy per chunk for CUDA targets.  A compressed chunk is read
+whole and decoded into that byte range (or its pinned buffer).
 """
 
 from __future__ import annotations
@@ -125,6 +126,7 @@ class ChunkedArrayIOPreparer:
                     flat_offset=flat_offset,
                     nbytes=serialization.array_nbytes(chunk.sizes, entry.dtype),
                     checksum=tensor_entry.checksum,
+                    frame_entry=tensor_entry,
                 )
             )
         assembly.expect(len(read_reqs))

@@ -32,6 +32,10 @@ Targets, restored in place:
   the same way;
 - nothing (``read_object``): a fresh tensor on the requested device.
 
+A compressed piece (compression.py) is always read whole, never as a
+partial row span, and decoded before its scatter: on CUDA straight into
+the pinned buffer it is uploaded from.
+
 The JAX package instead assembles host buffers and builds new arrays with
 ``device_put`` and ``make_array_from_single_device_arrays``, since JAX
 arrays are immutable.
@@ -47,9 +51,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import integrity, knobs, phase_stats, serialization, staging
+from .. import compression, integrity, knobs, phase_stats, serialization, staging
 from ..io_types import BufferConsumer, BufferType, Future, ReadReq, WriteReq
-from ..manifest import Shard, ShardedArrayEntry, TensorEntry, is_framed
+from ..compression import is_framed
+from ..manifest import Shard, ShardedArrayEntry, TensorEntry
 from ..serialization import Serializer
 from .array import _EXECUTOR_MIN_BYTES, _INTO_PLACE_MIN_BYTES, ArrayIOPreparer, H2DBatcher
 
@@ -479,14 +484,22 @@ class _ShardedArrayBufferConsumer(BufferConsumer):
         if self.nbytes == 0:
             return None
         restore = self._restore
+        location = self._piece_entry.location
         if staging.is_cuda_tensor(restore.box(self.scatter[0][0])):
             if self.pinned is not None and in_place:
                 return self.pinned
             src = staging.pinned_empty(self.nbytes)
-            src.numpy()[:] = np.frombuffer(memoryview(buf).cast("B"), dtype=np.uint8)
+            if self.framed:
+                # The frame (verified above) decodes straight into the
+                # pinned buffer the upload reads from.
+                compression.decode(buf, self.nbytes, location, out=memoryview(src.numpy()))
+            else:
+                src.numpy()[:] = np.frombuffer(memoryview(buf).cast("B"), dtype=np.uint8)
             return src
         if in_place:
             return None  # storage read the bytes into the target
+        if self.framed:
+            buf = compression.decode(buf, self.nbytes, location)
         piece = _piece_tensor(buf, restore.saved_dtype, self.piece_sizes)
         with phase_stats.timed("scatter_copy", self.nbytes), torch.no_grad():
             for t_off, src_view, dst_view in self.scatter:
@@ -506,4 +519,7 @@ class _ShardedArrayBufferConsumer(BufferConsumer):
         self._restore.piece_done()
 
     def get_consuming_cost_bytes(self) -> int:
+        if self.framed:
+            # The read frame and the decoded piece coexist while decoding.
+            return self.nbytes + (self._piece_entry.compressed_nbytes or self.nbytes)
         return self.nbytes

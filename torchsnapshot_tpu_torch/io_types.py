@@ -171,6 +171,18 @@ class StoragePlugin(abc.ABC):
     async def close(self) -> None:
         ...
 
+    async def list_dir(self, path: str) -> List[str]:
+        """Immediate child names under ``path`` (files and directory-like
+        prefixes); raises NotImplementedError where the backend cannot list."""
+        raise NotImplementedError(f"{type(self).__name__} cannot list")
+
+    async def copy_from_sibling(self, src_root: str, path: str) -> bool:
+        """Duplicate ``src_root``'s ``path`` (a sibling snapshot on the same
+        backend) into this plugin's ``path`` without moving the bytes
+        through this host.  False when the backend cannot (the caller then
+        writes normally): incremental takes use it for unchanged payloads."""
+        return False
+
     def sync_write(self, write_io: WriteIO) -> None:
         run_coro(lambda: self.write(write_io))
 
@@ -179,6 +191,9 @@ class StoragePlugin(abc.ABC):
 
     def sync_exists(self, path: str) -> bool:
         return run_coro(lambda: self.exists(path))
+
+    def sync_list_dir(self, path: str) -> List[str]:
+        return run_coro(lambda: self.list_dir(path))
 
     def sync_delete(self, path: str) -> None:
         run_coro(lambda: self.delete(path))

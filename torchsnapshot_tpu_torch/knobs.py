@@ -1,7 +1,8 @@
 """Environment-variable configuration knobs.
 
 Counterpart of ``torchsnapshot_tpu/knobs.py``, holding only the knobs the
-take/restore, async-take and distributed paths read.  The environment variable names are
+take/restore, async-take, distributed and storage-depth (compression,
+content addressing, content-defined chunking) paths read.  The environment variable names are
 the JAX package's own, so one setting (and one test override) drives both
 packages.  Defaults are storage-side numbers and match the JAX package:
 512 MB chunks, 128 MB slabs, 16 concurrent I/O operations per process.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import os
 from contextlib import contextmanager
-from typing import Generator, Optional
+from typing import Generator, Optional, Tuple
 
 _ENV_PREFIX = "TPUSNAP_"
 
@@ -40,6 +41,18 @@ LEASE_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "LEASE_INTERVAL_S"
 LEASE_GRACE_S_ENV_VAR = _ENV_PREFIX + "LEASE_GRACE_S"
 BARRIER_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "BARRIER_TIMEOUT_S"
 FAULTS_ENV_VAR = _ENV_PREFIX + "FAULTS"
+COMPRESSION_ENV_VAR = _ENV_PREFIX + "COMPRESSION"
+COMPRESSION_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "COMPRESSION_MIN_BYTES"
+ZSTD_WINDOW_LOG_ENV_VAR = _ENV_PREFIX + "ZSTD_WINDOW_LOG"
+ZSTD_LDM_ENV_VAR = _ENV_PREFIX + "ZSTD_LDM"
+STAGING_THREADS_ENV_VAR = _ENV_PREFIX + "STAGING_THREADS"
+CAS_ENV_VAR = _ENV_PREFIX + "CAS"
+CAS_ALGO_ENV_VAR = _ENV_PREFIX + "CAS_ALGO"
+CDC_ENV_VAR = _ENV_PREFIX + "CDC"
+CDC_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MIN_BYTES"
+CDC_AVG_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_AVG_BYTES"
+CDC_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MAX_BYTES"
+STORE_ENV_VAR = _ENV_PREFIX + "STORE"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
@@ -64,6 +77,13 @@ _DEFAULT_BARRIER_TIMEOUT_S = 1800.0
 # grace.
 _DEFAULT_LEASE_INTERVAL_S = 2.0
 _DEFAULT_LEASE_GRACE_S = 10.0
+# Payloads below this stay raw (and slab-batchable) under a codec.
+_DEFAULT_COMPRESSION_MIN_BYTES = 64 * 1024
+_SUPPORTED_CAS_ALGOS = ("xxh64",)
+# Content-defined chunk sizes (min, average, max).
+_DEFAULT_CDC_MIN_BYTES = 256 * 1024
+_DEFAULT_CDC_AVG_BYTES = 1024 * 1024
+_DEFAULT_CDC_MAX_BYTES = 4 * 1024 * 1024
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -225,6 +245,97 @@ def get_faults_spec() -> Optional[str]:
     return val or None
 
 
+def get_compression() -> Tuple[str, Optional[int]]:
+    """``(codec_name, level_or_None)`` from ``TPUSNAP_COMPRESSION``:
+    ``<codec>`` or ``<codec>:<level>`` (``zstd``, ``zstd:6``, ``zlib:1``).
+    Unset, empty, ``raw``, ``none``, ``off``, ``0`` and ``false`` mean no
+    compression.  The name is resolved against the codecs this host can
+    run at the point of use (compression.resolve), not here."""
+    val = os.environ.get(COMPRESSION_ENV_VAR, "").strip()
+    if not val or val.lower() in ("raw", "none", "off", "0", "false"):
+        return "raw", None
+    codec, _, level = val.partition(":")
+    try:
+        parsed_level = int(level) if level else None
+    except ValueError:
+        raise ValueError(
+            f"{COMPRESSION_ENV_VAR}={val!r}: level {level!r} is not an "
+            "integer (expected <codec> or <codec>:<int level>, e.g. zstd:6)"
+        ) from None
+    return codec.strip().lower(), parsed_level
+
+
+def get_compression_min_bytes() -> int:
+    """Smallest payload the configured codec applies to."""
+    return _get_int_env(COMPRESSION_MIN_BYTES_ENV_VAR, _DEFAULT_COMPRESSION_MIN_BYTES)
+
+
+def get_zstd_window_log() -> int:
+    """zstd window log (``TPUSNAP_ZSTD_WINDOW_LOG``), clamped to [10, 27];
+    0 keeps the level's own."""
+    val = _get_int_env(ZSTD_WINDOW_LOG_ENV_VAR, 0)
+    if val <= 0:
+        return 0
+    return min(max(val, 10), 27)
+
+
+def zstd_ldm_enabled() -> bool:
+    """zstd long-distance matching (``TPUSNAP_ZSTD_LDM``)."""
+    return _get_flag_env(ZSTD_LDM_ENV_VAR, "0")
+
+
+def get_staging_threads() -> int:
+    """Pinned size of the pipelines' executors (``TPUSNAP_STAGING_THREADS``),
+    or 0 for automatic sizing (scheduler.py)."""
+    return max(0, _get_int_env(STAGING_THREADS_ENV_VAR, 0))
+
+
+def cas_enabled() -> bool:
+    """Whether takes write payloads into the root's content-addressed
+    chunk store (``TPUSNAP_CAS``, cas.py)."""
+    return _get_flag_env(CAS_ENV_VAR, "0")
+
+
+def get_cas_algo() -> str:
+    """Digest algorithm naming CAS chunks (``TPUSNAP_CAS_ALGO``); only
+    ``xxh64`` exists, and another value raises."""
+    val = os.environ.get(CAS_ALGO_ENV_VAR, "").strip().lower() or "xxh64"
+    if val not in _SUPPORTED_CAS_ALGOS:
+        raise ValueError(
+            f"{CAS_ALGO_ENV_VAR}={val!r}: unsupported digest algorithm "
+            f"(supported: {', '.join(_SUPPORTED_CAS_ALGOS)})"
+        )
+    return val
+
+
+def cdc_enabled() -> bool:
+    """Whether the CAS writer splits large payloads on content-defined
+    chunk edges (``TPUSNAP_CDC``; needs ``TPUSNAP_CAS=1``)."""
+    return _get_flag_env(CDC_ENV_VAR, "0")
+
+
+def get_cdc_params() -> Tuple[int, int, int]:
+    """(min, avg, max) content-defined chunk sizes from
+    ``TPUSNAP_CDC_{MIN,AVG,MAX}_BYTES``, which must satisfy
+    64 <= min < avg <= max (chunk edges name CAS chunks)."""
+    min_b = _get_int_env(CDC_MIN_BYTES_ENV_VAR, _DEFAULT_CDC_MIN_BYTES)
+    avg_b = _get_int_env(CDC_AVG_BYTES_ENV_VAR, _DEFAULT_CDC_AVG_BYTES)
+    max_b = _get_int_env(CDC_MAX_BYTES_ENV_VAR, _DEFAULT_CDC_MAX_BYTES)
+    if not (64 <= min_b < avg_b <= max_b):
+        raise ValueError(
+            f"TPUSNAP_CDC_*_BYTES must satisfy 64 <= min < avg <= max, "
+            f"got min={min_b} avg={avg_b} max={max_b}"
+        )
+    return min_b, avg_b, max_b
+
+
+def get_store_url() -> Optional[str]:
+    """The shared chunk store (``TPUSNAP_STORE``), or None.  Not ported:
+    CAS takes refuse it (cas.py)."""
+    val = os.environ.get(STORE_ENV_VAR, "").strip()
+    return val or None
+
+
 @contextmanager
 def override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     """Set (or, with ``value=None``, unset) one variable for the block and
@@ -320,4 +431,57 @@ def override_lease_grace_s(value: float) -> Generator[None, None, None]:
 @contextmanager
 def override_faults(spec: Optional[str]) -> Generator[None, None, None]:
     with override_env(FAULTS_ENV_VAR, spec):
+        yield
+
+
+@contextmanager
+def override_compression(value: Optional[str]) -> Generator[None, None, None]:
+    """``codec[:level]`` (``"zstd"``, ``"zlib:6"``) or None to disable."""
+    with override_env(COMPRESSION_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_compression_min_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(COMPRESSION_MIN_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_cas(enabled: bool) -> Generator[None, None, None]:
+    with override_env(CAS_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_cdc(enabled: bool) -> Generator[None, None, None]:
+    with override_env(CDC_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_cdc_params(
+    min_bytes: int, avg_bytes: int, max_bytes: int
+) -> Generator[None, None, None]:
+    with override_env(CDC_MIN_BYTES_ENV_VAR, str(min_bytes)), override_env(
+        CDC_AVG_BYTES_ENV_VAR, str(avg_bytes)
+    ), override_env(CDC_MAX_BYTES_ENV_VAR, str(max_bytes)):
+        yield
+
+
+@contextmanager
+def override_cas_algo(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(CAS_ALGO_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_slab_size_threshold_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(SLAB_SIZE_THRESHOLD_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_staging_threads(value: int) -> Generator[None, None, None]:
+    with override_env(STAGING_THREADS_ENV_VAR, str(value)):
         yield

@@ -498,13 +498,16 @@ JOURNAL_MANIFEST_VERSION = "0.5.0"
 # ``cas://`` reference and fail confusingly.  0.1–0.5 readers reject 0.6.0
 # cleanly via the from_json version validation below.
 CDC_MANIFEST_VERSION = "0.6.0"
+SUPPORTED_MANIFEST_VERSIONS = (
+    MANIFEST_VERSION,
+    FRAMED_MANIFEST_VERSION,
+    CAS_MANIFEST_VERSION,
+    CDC_MANIFEST_VERSION,
+)
 # Versions this package recognises but cannot read, by the feature each
 # needs.
 _FEATURE_OF_VERSION = {
-    FRAMED_MANIFEST_VERSION: "compression (framed payloads)",
-    CAS_MANIFEST_VERSION: "content-addressed storage (cas:// locations)",
     JOURNAL_MANIFEST_VERSION: "journal delta segments",
-    CDC_MANIFEST_VERSION: "content-defined chunking (casx:// locations)",
 }
 
 
@@ -532,31 +535,15 @@ def iter_payload_entries(manifest: "Manifest"):
                 yield key, chunk.tensor
 
 
-# Location and framing predicates of the features later manifest versions
-# carry (torchsnapshot_tpu's cas.py and compression.py own them there).
-CAS_SCHEME = "cas://"
-CASX_SCHEME = "casx://"
-
-
-def is_cas_location(location: Any) -> bool:
-    return isinstance(location, str) and location.startswith(CAS_SCHEME)
-
-
-def is_casx_location(location: Any) -> bool:
-    return isinstance(location, str) and location.startswith(CASX_SCHEME)
-
-
-def is_framed(entry: Any) -> bool:
-    """Whether a payload is a compression frame (its ``codec`` is set)."""
-    return getattr(entry, "codec", None) is not None
-
-
 def manifest_version_for(manifest: "Manifest") -> str:
     """The version a manifest must declare: ``CDC_MANIFEST_VERSION`` when
     any payload is a multi-chunk (content-defined sub-slab) reference,
     ``CAS_MANIFEST_VERSION`` when any payload is a whole-chunk digest
     reference into the content-addressed store, ``FRAMED_MANIFEST_VERSION``
     when any payload is frame-encoded, else the base ``MANIFEST_VERSION``."""
+    from .cas import is_cas_location, is_casx_location
+    from .compression import is_framed
+
     framed = False
     cas = False
     for _, entry in iter_payload_entries(manifest):
@@ -601,20 +588,24 @@ class SnapshotMetadata:
         return json.dumps(doc, sort_keys=True)
 
     @classmethod
-    def from_json(cls, s: str) -> "SnapshotMetadata":
+    def from_json(cls, s: str, accept_journal: bool = False) -> "SnapshotMetadata":
+        """Parse a ``.snapshot_metadata`` document.  Journal delta segments
+        (0.5.0) are refused, naming the feature, unless ``accept_journal``
+        (the CAS digest index reads their chunk references; nothing restores
+        them)."""
         d = json.loads(s)
         version = d["version"]
-        if version in _FEATURE_OF_VERSION:
+        if version in _FEATURE_OF_VERSION and not accept_journal:
             raise UnsupportedSnapshotError(
                 f"Snapshot manifest version {version} needs "
                 f"{_FEATURE_OF_VERSION[version]}, which torchsnapshot_tpu_torch "
-                f"does not support yet (it reads version {MANIFEST_VERSION}); "
-                "restore this snapshot with torchsnapshot_tpu"
+                "does not support yet; restore it with torchsnapshot_tpu's "
+                "SnapshotManager, which replays the journal over its base"
             )
-        if version != MANIFEST_VERSION:
+        if version not in SUPPORTED_MANIFEST_VERSIONS and version not in _FEATURE_OF_VERSION:
             raise UnsupportedSnapshotError(
                 f"Snapshot manifest version {version!r} is newer than this "
-                f"reader supports ({MANIFEST_VERSION})"
+                f"reader supports ({', '.join(SUPPORTED_MANIFEST_VERSIONS)})"
             )
         return cls(
             version=version,

@@ -9,7 +9,13 @@ the synchronous take/restore path calls:
 - ``write_file_parts`` — the same write without digests (checksums off);
 - ``xxhash64`` / ``xxhash64_striped`` — the "xxh64" and "xxh64s" digests;
 - ``read_ranges_into`` — parallel pread into caller-owned buffers, with
-  optional fused per-range digests.
+  optional fused per-range digests;
+- ``cdc_boundaries`` — content-defined chunk edges (chunker.py), the
+  candidate scan striped over the worker pool;
+- ``zstd_encode_into`` / ``zstd_encode2_into`` / ``zstd_decode_into`` — the
+  compression frame's zstd codec (compression.py), straight into and out of
+  caller-owned buffers.  ``has_zstd`` says whether the library found a zstd
+  backend (linked at build time, or ``libzstd.so.1`` at run time).
 
 The library is required: :meth:`NativeFileIO.get` builds and loads it, and
 raises if it cannot.  The GIL is released for every call (ctypes).
@@ -32,7 +38,7 @@ STRIPED_MIN_BYTES = 32 << 20
 
 # ABI generation of the library; a mismatch (a library built from another
 # source) is refused at load.
-NATIVE_ABI_VERSION = 2
+NATIVE_ABI_VERSION = 3
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -56,6 +62,11 @@ def _ptrs(arrs: Sequence[np.ndarray]):
     bufs = (_P * n)(*(a.ctypes.data if a.nbytes else None for a in arrs))
     sizes = (_I64 * n)(*(a.nbytes for a in arrs))
     return bufs, sizes
+
+
+class NativeZstdError(RuntimeError):
+    """Native zstd could not run: no backend, a real codec failure, or (for
+    the advanced encode) a libzstd without the cctx API."""
 
 
 def _check(rc: int, path: str) -> None:
@@ -116,6 +127,17 @@ class NativeFileIO:
                 ],
             ),
             "tpusnap_file_size": (_I64, [ctypes.c_char_p]),
+            "tpusnap_cdc_boundaries": (
+                _I64,
+                [_P, _I64, _I64, _I64, _I64, ctypes.POINTER(_I64), _I64],
+            ),
+            "tpusnap_has_zstd": (ctypes.c_int, []),
+            "tpusnap_zstd_encode": (_I64, [_P, _I64, _P, _I64, ctypes.c_int]),
+            "tpusnap_zstd_encode2": (
+                _I64,
+                [_P, _I64, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+            ),
+            "tpusnap_zstd_decode": (_I64, [_P, _I64, _P, _I64]),
         }
         for name, (restype, argtypes) in sigs.items():
             fn = getattr(lib, name)
@@ -124,6 +146,7 @@ class NativeFileIO:
         lib.tpusnap_pool_configure(knobs.get_native_threads())
         self._lib = lib
         self.path = path
+        self.has_zstd = bool(lib.tpusnap_has_zstd())
 
     @classmethod
     def get(cls) -> "NativeFileIO":
@@ -231,3 +254,81 @@ class NativeFileIO:
         )
         _check(rc, path)
         return [int(out[i]) for i in range(n)] if want_hash else None
+
+    def cdc_boundaries(
+        self, buf: Any, min_size: int, avg_size: int, max_size: int
+    ) -> List[int]:
+        """Content-defined chunk END offsets of ``buf`` (ascending, the last
+        one its length), byte-identical to ``chunker.boundaries_py``."""
+        arr = _u8(buf)
+        n = arr.nbytes
+        if n == 0:
+            return []
+        cap = n // min_size + 2
+        out = (_I64 * cap)()
+        rc = self._lib.tpusnap_cdc_boundaries(
+            arr.ctypes.data, n, min_size, avg_size, max_size, out, cap
+        )
+        if rc < 0:
+            raise ValueError(
+                f"tpusnap_cdc_boundaries failed (rc {int(rc)}) for "
+                f"min={min_size} avg={avg_size} max={max_size}"
+            )
+        return list(out[: int(rc)])
+
+    def _zstd_args(self, src: Any, dst: Any) -> Tuple[np.ndarray, np.ndarray]:
+        if not self.has_zstd:
+            raise NativeZstdError("no zstd backend (libzstd.so.1 not found)")
+        src_arr = _u8(src)
+        dst_arr = np.frombuffer(memoryview(dst).cast("B"), np.uint8)
+        return src_arr, dst_arr
+
+    def zstd_encode_into(self, src: Any, dst: Any, level: int) -> Optional[int]:
+        """zstd of ``src`` written into the writable ``dst``.  Returns the
+        encoded length, or None when it does not fit ``dst`` (the caller
+        stores the payload raw); a real failure raises NativeZstdError."""
+        src_arr, dst_arr = self._zstd_args(src, dst)
+        if src_arr.nbytes == 0:
+            raise NativeZstdError("empty input")
+        n = self._lib.tpusnap_zstd_encode(
+            src_arr.ctypes.data, src_arr.nbytes, dst_arr.ctypes.data, dst_arr.nbytes, int(level)
+        )
+        if n > 0:
+            return int(n)
+        if n == -1:
+            return None
+        raise NativeZstdError(f"ZSTD_compress failed (rc {int(n)})")
+
+    def zstd_encode2_into(
+        self, src: Any, dst: Any, level: int, window_log: int, enable_ldm: bool
+    ) -> Optional[int]:
+        """:meth:`zstd_encode_into` with a window log and long-distance
+        matching; raises NativeZstdError when the advanced API is missing."""
+        src_arr, dst_arr = self._zstd_args(src, dst)
+        if src_arr.nbytes == 0:
+            raise NativeZstdError("empty input")
+        n = self._lib.tpusnap_zstd_encode2(
+            src_arr.ctypes.data,
+            src_arr.nbytes,
+            dst_arr.ctypes.data,
+            dst_arr.nbytes,
+            int(level),
+            int(window_log),
+            1 if enable_ldm else 0,
+        )
+        if n > 0:
+            return int(n)
+        if n == -1:
+            return None
+        raise NativeZstdError(f"ZSTD_compress2 failed (rc {int(n)})")
+
+    def zstd_decode_into(self, src: Any, dst: Any) -> int:
+        """Decode one zstd frame into ``dst`` (sized to the recorded
+        uncompressed length); returns the decoded length."""
+        src_arr, dst_arr = self._zstd_args(src, dst)
+        n = self._lib.tpusnap_zstd_decode(
+            src_arr.ctypes.data, src_arr.nbytes, dst_arr.ctypes.data, dst_arr.nbytes
+        )
+        if n < 0:
+            raise NativeZstdError(f"ZSTD_decompress failed (rc {int(n)})")
+        return int(n)

@@ -21,6 +21,13 @@ A CUDA target's pinned read buffer is allocated at admission
 (``ReadReq.into_factory``), so pinned memory counts against the budget on
 both paths.
 
+Compression: a framed payload's staging cost counts the staged bytes and
+the frame, which coexist while the codec runs; once staged the budget is
+re-credited down to the frame's size, which is where a good ratio hands
+budget back to waiting stagers.  The codecs release the GIL, so a
+pipeline that frames or decodes widens its executor from 4 threads to
+min(16, cores) (``TPUSNAP_STAGING_THREADS`` pins it).
+
 The budget is min(60% of available host memory / local ranks, 32 GB),
 or ``TPUSNAP_PER_RANK_MEMORY_BUDGET_BYTES``.  Available memory comes from
 ``/proc/meminfo`` (no psutil).
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import socket
 import time
 from collections import Counter, deque
@@ -46,6 +54,38 @@ logger = logging.getLogger(__name__)
 _MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024 * 1024 * 1024
 _AVAILABLE_MEMORY_MULTIPLIER = 0.6
 _NUM_EXECUTOR_THREADS = 4
+_MAX_EXECUTOR_THREADS = 16
+
+
+def _wide_executor_workers() -> int:
+    return max(_NUM_EXECUTOR_THREADS, min(_MAX_EXECUTOR_THREADS, os.cpu_count() or 1))
+
+
+def _write_executor_workers() -> int:
+    """4 threads for a raw save (storage-bound: more threads only contend),
+    min(16, cores) when the configured codec resolves to a real one (the
+    save is then bound by the encode)."""
+    override = knobs.get_staging_threads()
+    if override > 0:
+        return override
+    codec, _ = knobs.get_compression()
+    if codec != "raw":
+        from . import compression
+
+        if compression.resolve(codec) != "raw":
+            return _wide_executor_workers()
+    return _NUM_EXECUTOR_THREADS
+
+
+def _read_executor_workers(read_reqs: List[ReadReq]) -> int:
+    """Keyed off the snapshot being read, not the save-side knob: any
+    framed payload makes the restore decode-bound."""
+    override = knobs.get_staging_threads()
+    if override > 0:
+        return override
+    if any(getattr(rr.buffer_consumer, "framed", False) for rr in read_reqs):
+        return _wide_executor_workers()
+    return _NUM_EXECUTOR_THREADS
 
 
 def available_memory_bytes() -> int:
@@ -303,7 +343,7 @@ async def execute_write_reqs(
     storage I/O; return once staging has drained.  The returned
     :class:`PendingIOWork` owns this loop and the writes still running."""
     loop = asyncio.get_running_loop()
-    executor = ThreadPoolExecutor(max_workers=_NUM_EXECUTOR_THREADS)
+    executor = ThreadPoolExecutor(max_workers=_write_executor_workers())
     budget = _BudgetTracker(memory_budget_bytes)
     phases_before = phase_stats.snapshot()
     begin = time.monotonic()
@@ -481,7 +521,7 @@ async def execute_read_reqs(
     rank: int,
 ) -> None:
     """Budget-gated read → consume pipeline."""
-    executor = ThreadPoolExecutor(max_workers=_NUM_EXECUTOR_THREADS)
+    executor = ThreadPoolExecutor(max_workers=_read_executor_workers(read_reqs))
     budget = _BudgetTracker(memory_budget_bytes)
     ready_for_io = deque(
         sorted(

@@ -31,8 +31,14 @@ entries and restore into any world size and placement
 operation lets peers of a rank that dies abort in about
 ``TPUSNAP_LEASE_GRACE_S`` (dist_store.py).
 
-Compression, content addressing, journals, caches and telemetry are later
-slices and are absent here.
+Storage depth: payloads are framed with the ``TPUSNAP_COMPRESSION`` codec
+(compression.py); with ``TPUSNAP_CAS`` they are written once into the
+content-addressed store of the snapshot's parent directory (cas.py), split
+on content-defined edges with ``TPUSNAP_CDC`` (chunker.py), and unchanged
+leaves become references before they are staged; ``incremental_from``
+hard-links unchanged payloads of a base snapshot (incremental.py).  Reads
+resolve chunk references whatever the knobs say.  Journals, the manager,
+caches and telemetry are later slices.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from . import device_staging, io_preparer, knobs, preemption, retry as retry_policy, staging
+from . import cas, device_staging, io_preparer, knobs, preemption, retry as retry_policy, staging
 from .batcher import batch_read_requests, batch_write_requests
 from .dist_store import LinearBarrier, StorePeerError, acquire_op_lease, release_op_lease
 from .event import Event
@@ -91,10 +97,16 @@ Device = Union[str, torch.device, None]
 class Snapshot:
     """A committed snapshot at ``path`` (a directory, or ``memory://``)."""
 
-    def __init__(self, path: str, pg: Optional[PGWrapper] = None) -> None:
+    def __init__(
+        self,
+        path: str,
+        pg: Optional[PGWrapper] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+    ) -> None:
         self.path = path
         self._pg = pg or PGWrapper.from_torch()
         self._metadata: Optional[SnapshotMetadata] = None
+        self._storage_options = storage_options
 
     # ------------------------------------------------------------------ take
 
@@ -105,12 +117,22 @@ class Snapshot:
         app_state: AppState,
         pg: Optional[PGWrapper] = None,
         replicated: Optional[List[str]] = None,
+        incremental_from: Optional[str] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        cas_index: Optional["cas.DigestIndex"] = None,
     ) -> "Snapshot":
         """Collective over ``pg`` (default: ``PGWrapper.from_torch()``).
         ``replicated``: globs of logical paths that hold the same value on
         every rank; each is written once.  DTensors whose placements are all
         ``Replicate`` are replicated without a glob.  Rank 0's ``path``
-        wins."""
+        wins.
+
+        ``incremental_from``: a committed base snapshot on the same
+        backend; payloads whose bytes are unchanged are hard-linked from it
+        instead of written (incremental.py).  ``storage_options``:
+        per-plugin settings overriding the environment.  ``cas_index``: a
+        caller-maintained ``cas.DigestIndex`` for ``TPUSNAP_CAS`` takes,
+        which skips seeding it from the root's manifests."""
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
@@ -131,7 +153,7 @@ class Snapshot:
             path, replicated_patterns = cls._coalesce_path_and_replicated(
                 path, pg, replicated or []
             )
-            storage = url_to_storage_plugin(path)
+            storage = cls._take_storage(path, storage_options, cas_index, incremental_from)
             try:
                 try:
                     pending_io_work, entries, _ = cls._take_impl(
@@ -139,6 +161,10 @@ class Snapshot:
                     )
                     pending_io_work.sync_complete()
                     nbytes = pending_io_work.bytes_total
+                    # Every payload landed: point the entries that went
+                    # into the chunk store at their chunks before the
+                    # manifest is gathered (a no-op without CAS).
+                    cas.apply_relocations(storage, entries)
                     # Stagers annotated their entries with digests during the
                     # pipeline, so the manifest is complete only now.
                     global_manifest = cls._gather_manifest(entries, pg)
@@ -165,10 +191,18 @@ class Snapshot:
         finally:
             in_flight.finish()
             release_op_lease(lease)
-        snapshot = cls(path=path, pg=pg)
+        snapshot = cls(path=path, pg=pg, storage_options=storage_options)
         snapshot._metadata = metadata
         event_metadata["duration_s"] = time.monotonic() - begin
         event_metadata["bytes"] = nbytes
+        cas_stats = cas.writer_stats(storage)
+        if cas_stats is not None:
+            # Logical against physical bytes: what dedup saved this rank.
+            event_metadata["cas"] = cas_stats
+        if incremental_from is not None:
+            from .incremental import linked_payloads
+
+            event_metadata["incremental_links"] = linked_payloads(storage) or 0
         event_metadata["is_success"] = True
         log_event(Event(name="take.end", metadata=event_metadata))
         return snapshot
@@ -180,6 +214,9 @@ class Snapshot:
         app_state: AppState,
         pg: Optional[PGWrapper] = None,
         replicated: Optional[List[str]] = None,
+        incremental_from: Optional[str] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        cas_index: Optional["cas.DigestIndex"] = None,
     ) -> "PendingSnapshot":
         """Returns once the app state is snapshot-stable; storage I/O and the
         metadata commit continue on a background thread.  The caller may
@@ -193,7 +230,9 @@ class Snapshot:
         storage drain then run in the background.  ``host`` stages every
         buffer to host memory before returning.  Only what this rank writes
         after dedup is copied.  Collective like :meth:`take`; the ranks
-        commit once, through a store-based two-phase barrier."""
+        commit once, through a store-based two-phase barrier.
+        ``incremental_from``, ``storage_options`` and ``cas_index`` as in
+        :meth:`take`."""
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
@@ -211,7 +250,7 @@ class Snapshot:
             path, replicated_patterns = cls._coalesce_path_and_replicated(
                 path, pg, replicated or []
             )
-            storage = url_to_storage_plugin(path)
+            storage = cls._take_storage(path, storage_options, cas_index, incremental_from)
             try:
                 pending_io_work, _, finalizer = cls._take_impl(
                     app_state, replicated_patterns, storage, pg, is_async_snapshot=True
@@ -237,7 +276,30 @@ class Snapshot:
             unique_id=unique_id,
             stall_s=time.monotonic() - begin,
             lease=lease,
+            storage_options=storage_options,
         )
+
+    @staticmethod
+    def _take_storage(
+        path: str,
+        storage_options: Optional[Dict[str, Any]],
+        cas_index: Optional["cas.DigestIndex"],
+        incremental_from: Optional[str],
+    ) -> StoragePlugin:
+        """The take's storage stack: CAS first, then incremental, which
+        steps aside for the CAS writer (content addressing dedups against
+        every committed step, the base included)."""
+        storage = url_to_storage_plugin(path, storage_options)
+        try:
+            storage = cas.maybe_wrap_cas_writes(storage, path, storage_options, index=cas_index)
+            if incremental_from is not None:
+                from .incremental import maybe_wrap_incremental
+
+                storage = maybe_wrap_incremental(storage, incremental_from, target_path=path)
+        except BaseException:
+            storage.sync_close()
+            raise
+        return storage
 
     @classmethod
     def _take_impl(
@@ -308,11 +370,20 @@ class Snapshot:
         staging_mode = "host"
         staging_stats: Dict[str, Any] = {}
         if is_async_snapshot:
+            staging_mode = device_staging.resolve_mode(
+                {str(i): wr.buffer_stager.source for i, wr in enumerate(write_reqs)},  # type: ignore[attr-defined]
+                pg=pg if world_size > 1 else None,
+                emit_events=True,
+            )
+        # Streaming delta detection (cas.prestage_delta_skip): unchanged
+        # leaves become chunk references before batching, compression and
+        # the pipeline.  Skipped for device-staged async takes, whose D2H
+        # belongs to the background thread, not to the caller's stall.
+        if not (is_async_snapshot and staging_mode != "host"):
+            write_reqs, _ = cas.prestage_delta_skip(storage, entries, write_reqs)
+        if is_async_snapshot:
             stagers = [wr.buffer_stager for wr in write_reqs]
             sources = {str(i): st.source for i, st in enumerate(stagers)}  # type: ignore[attr-defined]
-            staging_mode = device_staging.resolve_mode(
-                sources, pg=pg if world_size > 1 else None, emit_events=True
-            )
             if staging_mode != "host":
                 try:
                     staged, staging_stats = device_staging.stage_app_state(
@@ -400,9 +471,10 @@ class Snapshot:
         begin = time.monotonic()
         lease = acquire_op_lease(pg.store, rank)
         try:
-            storage = url_to_storage_plugin(self.path)
+            storage = url_to_storage_plugin(self.path, self._storage_options)
             try:
                 metadata = self._get_metadata(storage)
+                storage = self._wrap_reads(storage, metadata)
                 app_state = dict(app_state)
                 rng_state_item = self._pop_rng_state(app_state)
                 global_keys = self._gather_keys(app_state, pg)
@@ -505,9 +577,10 @@ class Snapshot:
         begin = time.monotonic()
         try:
             rank_str, _, logical_path = path.partition("/")
-            storage = url_to_storage_plugin(self.path)
+            storage = url_to_storage_plugin(self.path, self._storage_options)
             try:
                 metadata = self._get_metadata(storage)
+                storage = self._wrap_reads(storage, metadata)
                 manifest, _ = get_manifest_for_rank(metadata, int(rank_str))
                 if logical_path not in manifest:
                     raise RuntimeError(
@@ -553,9 +626,10 @@ class Snapshot:
         ones and every sharded entry whole.  ``replicate_from_rank0`` reads
         rank 0's view instead (a snapshot taken at a smaller world size,
         where this rank has no view of its own).  Not collective."""
-        storage = url_to_storage_plugin(self.path)
+        storage = url_to_storage_plugin(self.path, self._storage_options)
         try:
             metadata = self._get_metadata(storage)
+            storage = self._wrap_reads(storage, metadata)
             rank = 0 if replicate_from_rank0 else self._pg.get_rank()
             local_manifest, _ = get_manifest_for_rank(metadata, rank)
             sub_manifest = _sub_manifest(local_manifest, key)
@@ -579,9 +653,25 @@ class Snapshot:
 
     # --------------------------------------------------------------- helpers
 
+    def _wrap_reads(self, storage: StoragePlugin, metadata: SnapshotMetadata) -> StoragePlugin:
+        """Chunk references resolve against the root's store.  A journal
+        delta segment holds partial state and is refused, as the JAX
+        package refuses it outside its manager's replay."""
+        if metadata.journal is not None:
+            raise RuntimeError(
+                f"{self.path} is a journal delta segment (manifest version "
+                f"{metadata.version}); restore it with torchsnapshot_tpu's "
+                "SnapshotManager, which replays the journal over its base"
+            )
+        try:
+            return cas.maybe_wrap_cas_reads(storage, self.path, metadata, self._storage_options)
+        except BaseException:
+            storage.sync_close()
+            raise
+
     @property
     def metadata(self) -> SnapshotMetadata:
-        storage = url_to_storage_plugin(self.path)
+        storage = url_to_storage_plugin(self.path, self._storage_options)
         try:
             return self._get_metadata(storage)
         finally:
@@ -804,7 +894,7 @@ class _ManifestFinalizer:
         staging_mode: str,
         staging_stats: Optional[Dict[str, Any]] = None,
     ) -> None:
-        self._entries = entries
+        self.entries = entries
         self._rank = rank
         self._world_size = world_size
         self.staging_mode = staging_mode
@@ -816,9 +906,9 @@ class _ManifestFinalizer:
         if self._rank == 0 or self._world_size == 1:
             return
         payload = SnapshotMetadata(
-            version=manifest_version_for(self._entries),
+            version=manifest_version_for(self.entries),
             world_size=self._world_size,
-            manifest=self._entries,
+            manifest=self.entries,
         ).to_json()
         storage.sync_write(
             WriteIO(
@@ -830,7 +920,7 @@ class _ManifestFinalizer:
     def build_global(self, storage: StoragePlugin) -> SnapshotMetadata:
         """Rank 0, after every rank arrived: merge the sidecars into the
         rank-prefixed global manifest (the sync take's consolidation)."""
-        gathered: List[Manifest] = [self._entries]
+        gathered: List[Manifest] = [self.entries]
         for r in range(1, self._world_size):
             read_io = ReadIO(path=self.SIDECAR_FMT.format(rank=r))
             storage.sync_read(read_io)
@@ -876,8 +966,10 @@ class PendingSnapshot:
         unique_id: str,
         stall_s: float = 0.0,
         lease: Optional[Any] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.path = path
+        self._storage_options = storage_options
         self.pg = pg
         self._lease = lease
         self._barrier: Optional[LinearBarrier] = None
@@ -916,6 +1008,9 @@ class PendingSnapshot:
         try:
             pending_io_work.sync_complete()
             self._bytes_total = pending_io_work.bytes_total
+            # Chunk references before the entries go into the sidecar
+            # exchange (a no-op without CAS).
+            cas.apply_relocations(self._storage, self._finalizer.entries)
             # Payloads durable: exchange the digest-annotated manifests
             # through storage (no collectives on this thread); the arrive
             # orders rank 0's merge after every sidecar landed.
@@ -987,6 +1082,9 @@ class PendingSnapshot:
         if "downgraded_from" in stats:
             metadata["downgraded_from"] = stats["downgraded_from"]
             metadata["downgrade_reason"] = stats["downgrade_reason"]
+        cas_stats = cas.writer_stats(self._storage)
+        if cas_stats is not None:
+            metadata["cas"] = cas_stats
         return metadata
 
     def wait(self) -> Snapshot:
@@ -1006,7 +1104,7 @@ class PendingSnapshot:
             self.pg.retire_prefix(
                 self._barrier.prefix, guard_key=guard_key, guard_target=guard_target
             )
-        snapshot = Snapshot(path=self.path, pg=self.pg)
+        snapshot = Snapshot(path=self.path, pg=self.pg, storage_options=self._storage_options)
         snapshot._metadata = self._metadata
         return snapshot
 

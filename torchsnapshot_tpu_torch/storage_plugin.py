@@ -6,7 +6,7 @@ cloud backends and entry-point plugins are later slices."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from . import knobs
 from .io_types import StoragePlugin
@@ -20,9 +20,14 @@ def parse_url(url_path: str) -> Tuple[str, str]:
     return "fs", url_path
 
 
-def url_to_storage_plugin(url_path: str) -> StoragePlugin:
+def url_to_storage_plugin(
+    url_path: str, storage_options: Optional[Dict[str, Any]] = None
+) -> StoragePlugin:
+    """The plugin for ``url_path``.  ``storage_options``: per-call settings
+    overriding the environment; this slice reads ``"faults"`` (a fault
+    spec, as ``TPUSNAP_FAULTS``)."""
     plugin = _resolve_plugin(url_path)
-    faults_spec = knobs.get_faults_spec()
+    faults_spec = (storage_options or {}).get("faults") or knobs.get_faults_spec()
     if faults_spec:
         from .faults import maybe_wrap_faults
 

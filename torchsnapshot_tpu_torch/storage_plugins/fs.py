@@ -141,6 +141,33 @@ class FSStoragePlugin(StoragePlugin):
             self._executor, self._blocking_read, path, read_io
         )
 
+    def _get_executor(self) -> ThreadPoolExecutor:
+        return self._executor
+
+    async def list_dir(self, path: str) -> List[str]:
+        try:
+            return sorted(os.listdir(os.path.join(self.root, path)))
+        except FileNotFoundError:
+            return []
+
+    async def copy_from_sibling(self, src_root: str, path: str) -> bool:
+        """A hard link from the sibling snapshot: no bytes move, the new
+        snapshot stays self-contained, and removing the base is safe."""
+
+        def _link() -> bool:
+            src = os.path.join(src_root, path)
+            dst = os.path.join(self.root, path)
+            try:
+                self._prepare_parent(dst)
+                if os.path.exists(dst):
+                    os.unlink(dst)
+                os.link(src, dst)
+                return True
+            except OSError:
+                return False
+
+        return await asyncio.get_running_loop().run_in_executor(self._executor, _link)
+
     async def exists(self, path: str) -> bool:
         # os.stat, not os.path.exists: permission/transport errors propagate.
         try:

@@ -7,7 +7,7 @@ write."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .. import phase_stats
 from ..io_types import ReadIO, StoragePlugin, WriteIO, contiguous
@@ -22,16 +22,30 @@ class MemoryStoragePlugin(StoragePlugin):
         with _LOCK:
             self._files = _REGISTRY.setdefault(root, {})
 
+    def _resolve(self, path: str):
+        """(files, key) owning ``path``: the nested registry whose root
+        prefixes it (a root-level plugin addressing
+        ``step_1/.snapshot_metadata`` must reach what the step's own plugin
+        wrote), else this plugin's own files.  Called under ``_LOCK``."""
+        if path not in self._files:
+            full = f"{self.root}/{path}"
+            for reg_root, files in _REGISTRY.items():
+                if reg_root != self.root and full.startswith(reg_root + "/"):
+                    return files, full[len(reg_root) + 1 :]
+        return self._files, path
+
     async def write(self, write_io: WriteIO) -> None:
         data = contiguous(write_io.buf)
         with phase_stats.timed("mem_write", memoryview(data).nbytes):
             data = bytes(data)
             with _LOCK:
-                self._files[write_io.path] = data
+                files, key = self._resolve(write_io.path)
+                files[key] = data
 
     async def read(self, read_io: ReadIO) -> None:
         with _LOCK:
-            data = self._files.get(read_io.path)
+            files, key = self._resolve(read_io.path)
+            data = files.get(key)
         if data is None:
             raise FileNotFoundError(read_io.path)
         if read_io.byte_range is not None:
@@ -42,11 +56,26 @@ class MemoryStoragePlugin(StoragePlugin):
 
     async def exists(self, path: str) -> bool:
         with _LOCK:
-            return path in self._files
+            files, key = self._resolve(path)
+            return key in files
+
+    async def list_dir(self, path: str) -> List[str]:
+        prefix = path.rstrip("/") + "/" if path else ""
+        base = f"{self.root}/{path}".rstrip("/")
+        children = set()
+        with _LOCK:
+            for key in self._files:
+                if key.startswith(prefix):
+                    children.add(key[len(prefix) :].split("/", 1)[0])
+            for reg_root, files in _REGISTRY.items():
+                if reg_root.startswith(base + "/") and files:
+                    children.add(reg_root[len(base) + 1 :].split("/", 1)[0])
+        return sorted(c for c in children if c)
 
     async def delete(self, path: str) -> None:
         with _LOCK:
-            if self._files.pop(path, None) is None:
+            files, key = self._resolve(path)
+            if files.pop(key, None) is None:
                 raise FileNotFoundError(path)
 
     async def delete_dir(self, path: str) -> None:
