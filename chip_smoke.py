@@ -79,7 +79,9 @@ calls, in phases that each print one JSON line:
                 bounded by the changed bytes plus two maximum-size chunks
                 per changed region
    incremental_take — step 1 with ``incremental_from=step_0``, CAS off:
-                hard links made, bytes written, bit-exact restore
+                every payload whose checksum did not change is a hard
+                link, the bytes written are at most ``wk`` plus the
+                ``w_gate`` chunks the rows touch, bit-exact restore
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -468,6 +470,21 @@ def compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workd
         raise RuntimeError("compress_restore: not bit-exact in place, or h2d bytes differ")
 
 
+def whole_chunk_bound(snap1, model, ref):
+    """The bytes a take after ``mutate_step`` must write when payloads are
+    whole chunks: all of wk, and the chunks of w_gate the changed rows touch."""
+    entry = snap1.get_manifest()["0/model/layers/mlp/w_gate"]
+    gate = model["layers"]["mlp"]["w_gate"]
+    row_bytes = gate.numel() * 2 // gate.shape[0]
+    rows = gate.numel() // gate.shape[-1]
+    r0, n_rows = rows // 3, max(1, int(rows * CHANGED_ROW_FRACTION))
+    lo = r0 * gate.shape[-1] * 2
+    hi = (r0 + n_rows) * gate.shape[-1] * 2
+    touched = sum(c.sizes[0] * row_bytes for c in entry.chunks
+                  if c.offsets[0] * row_bytes < hi and (c.offsets[0] + c.sizes[0]) * row_bytes > lo)
+    return ref["layers/attn/wk"].numel() * 2 + touched
+
+
 def cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, label, cdc):
     """Two CAS takes into <root>/step_0 and <root>/step_1 with the step
     change between them; the chunks step 1 added must be what it wrote,
@@ -503,17 +520,7 @@ def cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     if cdc:
         bound = changed_bytes + regions * 2 * max_chunk
     else:
-        # Whole chunks: wk, and the chunks of w_gate the changed rows touch.
-        entry = snap1.get_manifest()["0/model/layers/mlp/w_gate"]
-        gate = model["layers"]["mlp"]["w_gate"]
-        row_bytes = gate.numel() * 2 // gate.shape[0]
-        rows = gate.numel() // gate.shape[-1]
-        r0, n_rows = rows // 3, max(1, int(rows * CHANGED_ROW_FRACTION))
-        lo = r0 * gate.shape[-1] * 2
-        hi = (r0 + n_rows) * gate.shape[-1] * 2
-        touched = sum(c.sizes[0] * row_bytes for c in entry.chunks
-                      if c.offsets[0] * row_bytes < hi and (c.offsets[0] + c.sizes[0]) * row_bytes > lo)
-        bound = ref["layers/attn/wk"].numel() * 2 + touched
+        bound = whole_chunk_bound(snap1, model, ref)
     seconds, mismatched, moved, rstats = restore_check(torch, ts, os.path.join(root, "step_1"), app_state, ref,
                                                        phase_stats)
     unchanged = "layers/attn/wq"
@@ -590,8 +597,10 @@ def async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
 
 def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
     """incremental_take: step 1 with incremental_from=step_0 and CAS off;
-    unchanged payloads are hard links, only changed ones are written."""
+    every payload whose checksum did not change is a hard link, and the
+    bytes written are within the whole-chunk bound of the change."""
     from torchsnapshot_tpu_torch import faults
+    from torchsnapshot_tpu_torch.incremental import checksums_by_location
 
     root = os.path.join(workdir, "incremental")
     model = app_state["model"].state_dict()
@@ -603,22 +612,29 @@ def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, eve
     faults.reset_write_counters()
     with knobs.override_faults("none"):
         begin = time.monotonic()
-        ts.Snapshot.take(os.path.join(root, "step_1"), app_state, incremental_from=os.path.join(root, "step_0"))
+        snap1 = ts.Snapshot.take(os.path.join(root, "step_1"), app_state,
+                                 incremental_from=os.path.join(root, "step_0"))
         step1_s = time.monotonic() - begin
     stats = phase_stats.snapshot()
     written = sum(n for p, n in faults.write_counters().items() if not p.rsplit("/", 1)[-1].startswith("."))
     end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    bound = whole_chunk_bound(snap1, model, ref)
+    base = checksums_by_location(ts.Snapshot(os.path.join(root, "step_0")).metadata)
+    unchanged = sum(1 for loc, c in checksums_by_location(snap1.metadata).items() if base.get(loc) == c)
     seconds, mismatched, moved, _ = restore_check(torch, ts, os.path.join(root, "step_1"), app_state, ref,
                                                   phase_stats)
     mutate_step(torch, app_state["model"].state_dict(), ref)  # back to step 0's state
-    ok = not mismatched and not moved and end["incremental_links"] > 0 and written < nbytes // 2
+    ok = (not mismatched and not moved and end["incremental_links"] == unchanged > 0
+          and 0 < written <= bound)
     emit({"phase": "incremental_take", "ok": ok, "step1_s": round(step1_s, 3), "hard_links": end["incremental_links"],
-          "bytes_written": written, "changed_bytes": changed_bytes, "state_bytes": nbytes,
+          "unchanged_payloads": unchanged, "bytes_written": written, "bound_bytes": bound,
+          "changed_bytes": changed_bytes, "state_bytes": nbytes,
           "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
           "phases": phase_summary(stats)})
     shutil.rmtree(root)
     if not ok:
-        raise RuntimeError("incremental_take: nothing linked, too many bytes written, or not bit-exact")
+        raise RuntimeError("incremental_take: an unchanged payload was not linked, bytes written past the "
+                           "bound, or not bit-exact")
 
 
 def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):

@@ -56,7 +56,7 @@ class _Codec:
         self,
         name: str,
         codec_id: int,
-        compress: Callable[[Any, Optional[int]], Any],
+        compress: Optional[Callable[[Any, Optional[int]], Any]],
         decompress: Callable[[Any, int, Optional[memoryview]], Any],
         default_level: Optional[int] = None,
         available: Optional[Callable[[], bool]] = None,
@@ -69,6 +69,10 @@ class _Codec:
         self._available = available
 
     def compress(self, data: Any, level: Optional[int] = None) -> Any:
+        """The compressed bytes.  zstd has no such step: :func:`encode`
+        runs it natively straight into the frame."""
+        if self._compress is None:
+            raise NotImplementedError(f"{self.name} encodes only through encode()")
         return self._compress(data, level if level is not None else self.default_level)
 
     def decompress(
@@ -135,18 +139,6 @@ def _zstd_encode_into(native: Any, mv: Any, out: memoryview, level: int) -> Opti
     return native.zstd_encode_into(mv, out, level)
 
 
-def _zstd_compress(data: Any, level: Optional[int]) -> Any:
-    mv = memoryview(data).cast("B")
-    if mv.nbytes == 0:
-        return b""
-    # srcSize + srcSize/256 + 1 KiB covers ZSTD_compressBound.
-    out = np.empty(mv.nbytes + (mv.nbytes >> 8) + 1024, dtype=np.uint8)
-    n = _zstd_encode_into(_native(), mv, memoryview(out), int(level or 1))
-    if n is None:
-        raise RuntimeError("zstd output exceeded its bound")
-    return memoryview(out)[:n]
-
-
 def _zstd_decompress(data: Any, uncompressed_len: int, out: Optional[memoryview]) -> Any:
     dst = out if out is not None else memoryview(np.empty(uncompressed_len, dtype=np.uint8))
     n = _native().zstd_decode_into(data, dst)
@@ -171,7 +163,7 @@ RAW = _Codec("raw", 0, _raw_compress, _raw_decompress)
 # wants throughput; ratio-hungry callers pass ``zstd:3`` or ``zlib:6``.
 _FACTORIES: Dict[str, Callable[[], Optional[_Codec]]] = {
     "zstd": lambda: _Codec(
-        "zstd", 1, _zstd_compress, _zstd_decompress, default_level=1, available=_zstd_available
+        "zstd", 1, None, _zstd_decompress, default_level=1, available=_zstd_available
     ),
     # No lz4 backend in this package: the codec resolves to raw.
     "lz4": lambda: None,
@@ -230,30 +222,20 @@ def available_codecs() -> Tuple[str, ...]:
     return tuple(out)
 
 
-# Below this the native encode-into-frame saves less than its setup costs.
-_NATIVE_ENCODE_MIN_BYTES = 1 << 20
-
-
 def _native_codec_frame(mv: memoryview, usize: int, codec: _Codec, level: Optional[int]):
     """zstd straight into the frame's payload region: one allocation, no
-    copy of the compressed bytes.  Returns the frame, ``None`` when the
-    payload does not shrink (the caller frames it raw), or ``False`` when
-    the native encode failed (the caller runs the plain codec path)."""
+    copy of the compressed bytes.  Returns the frame, or ``None`` when the
+    payload does not shrink (the caller frames it raw); a failed native
+    encode raises :class:`NativeZstdError`."""
     from . import phase_stats
-    from .native_io import NativeZstdError
 
-    native = _native()
-    if codec.name != "zstd" or not native.has_zstd:
-        return False
-    # np.empty, not bytearray: no zero-fill pass under the GIL.
+    # np.empty, not bytearray: no zero-fill pass under the GIL.  The
+    # payload region holds usize - 1 bytes, so a fit means it shrank.
     arr = np.empty(HEADER_BYTES + usize - 1, dtype=np.uint8)
     frame = memoryview(arr)
     eff_level = level if level is not None else codec.default_level
-    try:
-        with phase_stats.timed("compress", usize):
-            elen = _zstd_encode_into(native, mv, frame[HEADER_BYTES:], eff_level)
-    except NativeZstdError:
-        return False
+    with phase_stats.timed("compress", usize):
+        elen = _zstd_encode_into(_native(), mv, frame[HEADER_BYTES:], eff_level)
     if elen is None:
         return None
     _HEADER.pack_into(arr, 0, MAGIC, codec.codec_id, 0, 0, usize)
@@ -278,25 +260,22 @@ def encode(buf: Any, codec_name: str, level: Optional[int] = None) -> Tuple[Any,
     codec = None if preemption.deadline_active() else get_codec(codec_name)
     payload: Any = mv
     inner = RAW
-    if codec is not None and codec.codec_id != 0:
-        tried_native = False
-        if codec.name == "zstd" and usize >= _NATIVE_ENCODE_MIN_BYTES:
-            native_frame = _native_codec_frame(mv, usize, codec, level)
-            if native_frame is not False:
-                tried_native = True
+    if codec is not None and codec.codec_id != 0 and usize > 0:
+        try:
+            if codec.name == "zstd":
+                native_frame = _native_codec_frame(mv, usize, codec, level)
                 if native_frame is not None:
                     return native_frame, codec.name
-        if not tried_native:
-            try:
+            else:
                 with phase_stats.timed("compress", usize):
                     candidate = codec.compress(mv, level)
                 if memoryview(candidate).nbytes < usize:
                     payload = candidate
                     inner = codec
-            except Exception:
-                logger.warning(
-                    "Compression with %r failed; storing chunk raw", codec_name, exc_info=True
-                )
+        except Exception:
+            logger.warning(
+                "Compression with %r failed; storing chunk raw", codec_name, exc_info=True
+            )
     frame = bytearray(HEADER_BYTES + memoryview(payload).nbytes)
     _HEADER.pack_into(frame, 0, MAGIC, inner.codec_id, 0, 0, usize)
     frame[HEADER_BYTES:] = payload
