@@ -27,7 +27,11 @@ calls, in phases that each print one JSON line:
                 ``<root>/step_0`` and ``step_1`` with every box of ``wk``
                 refilled between them: step 1's bytes written, summed over
                 the ranks, must equal ``wk``'s; step 1 restores bit-exact
-                in place); then
+                in place), ``dist_manager_journal`` (a journal
+                ``SnapshotManager`` saves step 0, then a segment with
+                ``wk`` refilled: the segment's bytes written, summed over
+                the ranks, must equal ``wk``'s; ``restore_latest`` replays
+                it bit-exact in place on every rank); then
                 two fresh ranks on a 1-D mesh restore every tensor
                 ``Shard(-1)`` (``dist_elastic_restore``, bit-exact), and
                 this process reads the largest sharded entry whole onto
@@ -82,6 +86,23 @@ calls, in phases that each print one JSON line:
                 every payload whose checksum did not change is a hard
                 link, the bytes written are at most ``wk`` plus the
                 ``w_gate`` chunks the rows touch, bit-exact restore
+   manager_journal — ``SnapshotManager(root, max_to_keep=1, journal=True)``
+                with ``TPUSNAP_JOURNAL_MAX_SEGMENTS=3``: step 0 (the base),
+                steps 1-3 (segments of the step change; the third folds
+                into ``step_3`` and retention prunes step 0), step 4 (a
+                segment over the fold).  Per save: wall, bytes written
+                against the whole-chunk bound, the ``prestage_delta`` wall,
+                ``entries_delta``/``entries_total``.  The fold writes no
+                payload byte; fold and prune reclaim exactly the chunks
+                ``step_3`` does not reference; ``restore_latest`` (seg 4)
+                and ``restore_at(3)`` are bit-exact in place; a corrupt
+                seg 4 falls back to step 3 with the ``restore_latest`` and
+                ``journal`` fallback events; with it removed, ``gc_detail``
+                reclaims exactly its chunks, bytes as its manifest states
+   manager_async_journal — a segment saved with ``async_=True`` in
+                pinned_host mode (every tensor mutated after the return):
+                stall and total; its manifest equals the sync segment of
+                the same change entry by entry; bit-exact replayed restore
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -383,35 +404,44 @@ def fsync_write_gbps(np, path: str, nbytes: int) -> float:
 CHANGED_ROW_FRACTION = 0.01
 
 
+def payload_file(relpath: str) -> bool:
+    """Whether a snapshot-relative file holds payload: not the commit marker
+    or another dot-file, and not a telemetry sidecar."""
+    return not (relpath.rsplit("/", 1)[-1].startswith(".") or relpath.startswith("telemetry/"))
+
+
 def dir_bytes(path: str) -> int:
     total = 0
     for dirpath, _, files in os.walk(path):
         for name in files:
-            if name != ".snapshot_metadata":
-                total += os.path.getsize(os.path.join(dirpath, name))
+            full = os.path.join(dirpath, name)
+            if payload_file(os.path.relpath(full, path)):
+                total += os.path.getsize(full)
     return total
 
 
-def mutate_step(torch, model, ref):
-    """The change between step 0 and step 1, an involution applied to the
-    state and to its reference alike: every bit of ``wk`` flipped, and a
-    contiguous 1% row range of ``w_gate`` (rows of its last dim).  Returns
-    (changed bytes, number of changed regions)."""
+def mutate_step(torch, model, ref, pattern: int = -1):
+    """A step's change, applied to the state and to its reference alike:
+    every bit of ``wk`` and of a contiguous 1% row range of ``w_gate`` (rows
+    of its last dim) XORed with the int16 ``pattern`` (the default flips
+    them, an involution).  Returns (changed bytes, number of changed
+    regions)."""
     wk = get_leaf(model, "layers/attn/wk")
     gate = get_leaf(model, "layers/mlp/w_gate")
     rows = gate.numel() // gate.shape[-1]
     n_rows = max(1, int(rows * CHANGED_ROW_FRACTION))
     r0 = rows // 3
     for t in (wk, ref["layers/attn/wk"]):
-        t.view(torch.int16).bitwise_not_()
+        t.view(torch.int16).bitwise_xor_(pattern)
     for t in (gate, ref["layers/mlp/w_gate"]):
-        t.view(-1, t.shape[-1])[r0 : r0 + n_rows].view(torch.int16).bitwise_not_()
+        t.view(-1, t.shape[-1])[r0 : r0 + n_rows].view(torch.int16).bitwise_xor_(pattern)
     return wk.numel() * 2 + n_rows * gate.shape[-1] * 2, 2
 
 
-def restore_check(torch, ts, path, app_state, ref, phase_stats):
-    """Zero the model, restore ``path`` in place: (seconds, mismatched
-    paths, moved paths, phase stats)."""
+def restore_check(torch, ts, path, app_state, ref, phase_stats, restore_fn=None):
+    """Zero the model, restore ``path`` in place (or call
+    ``restore_fn(app_state)``): (seconds, mismatched paths, moved paths,
+    phase stats)."""
     model = app_state["model"].state_dict()
     ptrs = {p: get_leaf(model, p).data_ptr() for p in ref}
     for p in ref:
@@ -419,7 +449,7 @@ def restore_check(torch, ts, path, app_state, ref, phase_stats):
     device_sync(torch)
     phase_stats.reset()
     begin = time.monotonic()
-    ts.Snapshot(path).restore(app_state)
+    (restore_fn or ts.Snapshot(path).restore)(app_state)
     device_sync(torch)
     seconds = time.monotonic() - begin
     model = app_state["model"].state_dict()
@@ -553,11 +583,33 @@ def cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     return root
 
 
+def compare_model_entries(sync_m, other_m):
+    """(model keys compared, keys aliasing equal bytes, keys that differ)
+    between a sync take's manifest and another of the same state.  Leaves
+    with identical bytes (the norms are all ones) share one digest, so the
+    sync take's prestage may point one at the other's equal bytes: such
+    entries must agree in everything but location and byte range."""
+    from torchsnapshot_tpu_torch.manifest import _entry_to_dict
+
+    def strip(d):
+        return {f: v for f, v in d.items() if f not in ("location", "byte_range")}
+
+    model_keys = sorted(k for k in sync_m if "/model/" in k)
+    aliased, differ = [], []
+    for k in model_keys:
+        a, b = (_entry_to_dict(other_m[k]) if k in other_m else None), _entry_to_dict(sync_m[k])
+        if a == b:
+            continue
+        if a is not None and a.get("checksum") and strip(a) == strip(b):
+            aliased.append(k)
+        else:
+            differ.append(k)
+    return model_keys, aliased, differ
+
+
 def async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root):
     """async_take in pinned_host mode with CAS into <root>/step_2 (the state
     of step_1): its manifest equals the sync take's entry by entry."""
-    from torchsnapshot_tpu_torch.manifest import _entry_to_dict
-
     device_sync(torch)
     phase_stats.reset()
     with knobs.override_cas(True), knobs.override_async_staging("pinned_host"):
@@ -569,20 +621,7 @@ def async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
     stats = phase_stats.snapshot()
     sync_m = ts.Snapshot(os.path.join(root, "step_1")).get_manifest()
     async_m = ts.Snapshot(os.path.join(root, "step_2")).get_manifest()
-    model_keys = sorted(k for k in sync_m if "/model/" in k)
-    # Leaves with identical bytes (the norms are all ones) share one digest,
-    # so the sync take's prestage may point one at the other's equal bytes:
-    # such entries must agree in everything but location and byte range.
-    aliased, differ = [], []
-    for k in model_keys:
-        a, b = (_entry_to_dict(async_m[k]) if k in async_m else None), _entry_to_dict(sync_m[k])
-        if a == b:
-            continue
-        strip = lambda d: {f: v for f, v in d.items() if f not in ("location", "byte_range")}  # noqa: E731
-        if a is not None and a.get("checksum") and strip(a) == strip(b):
-            aliased.append(k)
-        else:
-            differ.append(k)
+    model_keys, aliased, differ = compare_model_entries(sync_m, async_m)
     seconds, mismatched, moved, _ = restore_check(torch, ts, os.path.join(root, "step_2"), app_state, ref,
                                                   phase_stats)
     ok = pending.staging_mode == "pinned_host" and not differ and not mismatched and not moved
@@ -616,7 +655,7 @@ def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, eve
                                  incremental_from=os.path.join(root, "step_0"))
         step1_s = time.monotonic() - begin
     stats = phase_stats.snapshot()
-    written = sum(n for p, n in faults.write_counters().items() if not p.rsplit("/", 1)[-1].startswith("."))
+    written = sum(n for p, n in faults.write_counters().items() if payload_file(p))
     end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
     bound = whole_chunk_bound(snap1, model, ref)
     base = checksums_by_location(ts.Snapshot(os.path.join(root, "step_0")).metadata)
@@ -647,6 +686,256 @@ def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     mutate_step(torch, app_state["model"].state_dict(), ref)
     shutil.rmtree(root)
     incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
+
+
+# ---------------------------------------------------------- manager phases
+#
+# SnapshotManager in journal mode over the full state, in one root that the
+# two phases share and the second removes: a base, segments of the step
+# change, a fold, replayed restores, last-good fallback, gc, and an async
+# segment.  Each step XORs the changed regions with its own pattern, so no
+# two steps hold the same state.
+
+JOURNAL_PATTERNS = (-1, 0x5555, 0x3333, 0x0F0F, 0x00FF)
+
+
+def committed_refs(ts, root):
+    """{root-relative marker: referenced chunk paths} of every committed
+    step and segment under ``root``, and each chunk's size as the manifests
+    state it (whole-chunk tensor entries and casx parts; slab members do not
+    state their chunk's size)."""
+    from torchsnapshot_tpu_torch import cas, journal
+    from torchsnapshot_tpu_torch.manifest import SnapshotMetadata, iter_payload_entries
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    storage = url_to_storage_plugin(root)
+    refs, sizes = {}, {}
+    try:
+        for marker in cas.committed_marker_relpaths(storage):
+            with open(os.path.join(root, marker)) as f:
+                manifest = SnapshotMetadata.from_json(f.read()).manifest
+            refs[marker] = cas.referenced_chunk_relpaths(manifest)
+            for _, entry in iter_payload_entries(manifest):
+                if cas.is_casx_location(entry.location):
+                    for algo, hexdigest, n in cas.parse_casx_location(entry.location):
+                        sizes[cas.chunk_relpath(algo, hexdigest)] = n
+                elif cas.is_cas_location(entry.location) and getattr(entry, "byte_range", None) is None:
+                    sizes[cas.relpath_for_location(entry.location)] = journal.entry_logical_bytes(entry)
+    finally:
+        storage.sync_close()
+    return refs, sizes
+
+
+def chunks_on_disk(root):
+    out = {}
+    for dirpath, _, files in os.walk(os.path.join(root, "cas")):
+        for name in files:
+            full = os.path.join(dirpath, name)
+            out[os.path.relpath(full, root)] = os.path.getsize(full)
+    return out
+
+
+def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+    """SnapshotManager(root, max_to_keep=1, journal=True) with
+    TPUSNAP_JOURNAL_MAX_SEGMENTS=3: step 0 (the base), steps 1-3 (segments;
+    the third trips the fold into step_3, and retention prunes step_0),
+    step 4 (a segment over the folded base).  Checks: each segment wrote
+    its new chunks within the whole-chunk bound; the fold wrote no payload
+    byte; the fold and the prune reclaimed exactly the chunks step_3 does
+    not reference; restore_latest (seg 4) and restore_at(3) are bit-exact
+    in place; a corrupt seg 4 falls back to step 3 with the fallback
+    events; with seg 4 removed, gc_detail reclaims exactly its own chunks.
+    Returns the root, the state left at step 3."""
+    from torchsnapshot_tpu_torch import faults
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
+    root = os.path.join(workdir, "manager")
+    model = app_state["model"].state_dict()
+    saves, folds = [], []
+    with knobs.override_journal_max_segments(3), knobs.override_faults("none"):
+        mgr = SnapshotManager(root, max_to_keep=1, journal=True)
+        compact = mgr._compact_journal_locked
+
+        def timed_compact(st):
+            # The fold's seconds and the files it wrote, from the byte meter.
+            before = dict(faults.write_counters())
+            begin = time.monotonic()
+            try:
+                return compact(st)
+            finally:
+                seconds = time.monotonic() - begin
+                wrote = {p: n - before.get(p, 0) for p, n in faults.write_counters().items() if n != before.get(p)}
+                folds.append({"seconds": seconds, "files_written": wrote,
+                              "payload_bytes": sum(n for p, n in wrote.items() if payload_file(p))})
+
+        mgr._compact_journal_locked = timed_compact
+        for step in range(5):
+            if step == 3:
+                refs_before, sizes_before = committed_refs(ts, root)
+                disk_before = chunks_on_disk(root)
+            changed = mutate_step(torch, model, ref, JOURNAL_PATTERNS[step - 1]) if step else (0, 0)
+            device_sync(torch)
+            n_events = len(events)
+            faults.reset_write_counters()
+            phase_stats.reset()
+            begin = time.monotonic()
+            snap = mgr.save(step, app_state)
+            wall = time.monotonic() - begin
+            stats = phase_stats.snapshot()
+            new_events = events[n_events:]
+            cas_stats = [e.metadata for e in new_events if e.name == "take.end"][-1]["cas"]
+            commit = [e.metadata for e in new_events if e.name == "journal.commit"]
+            saves.append({
+                "step": step, "kind": "seg" if step else "base", "wall_s": round(wall, 3),
+                "bytes_written": cas_stats["physical_bytes_written"],
+                "payload_bytes_metered": sum(n for p, n in faults.write_counters().items() if payload_file(p)),
+                "changed_bytes": changed[0],
+                "bound_bytes": whole_chunk_bound(snap, model, ref) if step else None,
+                "prestage_delta_wall_s": round(stats.get("prestage_delta", {}).get("wall", 0.0), 4),
+                "prestage": {k: cas_stats[f"prestage_{k}"] for k in ("probed", "hits", "bytes")},
+                "entries_delta": commit[-1]["entries_delta"] if commit else None,
+                "entries_total": commit[-1]["entries_total"] if commit else None,
+                "delta_bytes": commit[-1]["delta_bytes"] if commit else None,
+                "folded": any(e.name == "journal.compaction" for e in new_events),
+                "phases": phase_summary(stats)})
+            if step == 3:
+                step3_files = sorted(os.listdir(os.path.join(root, "step_3")))
+        points = mgr.restore_points()
+    refs_after, _ = committed_refs(ts, root)
+    disk_after = chunks_on_disk(root)
+    fold_reclaimed = sorted(set(disk_before) - set(disk_after))
+    fold_expected = sorted(set().union(*refs_before.values()) - refs_after["step_3/.snapshot_metadata"])
+    fold_reclaimed_bytes = sum(disk_before[c] for c in fold_reclaimed)
+    fold_manifest_bytes = sum(sizes_before.get(c, -1) for c in fold_expected)
+    segs_ok = all(s["bytes_written"] == s["payload_bytes_metered"] and 0 < s["bytes_written"] <= s["bound_bytes"]
+                  for s in saves[1:])
+    fold_ok = (len(folds) == 1 and folds[0]["payload_bytes"] == 0 and saves[3]["folded"]
+               and step3_files == [".snapshot_metadata"] and points == [(3, "full"), (4, "seg")]
+               and fold_reclaimed == fold_expected and fold_reclaimed_bytes == fold_manifest_bytes)
+
+    # Replayed restores: seg 4 (the newest point), then step 3.
+    mgr = SnapshotManager(root, max_to_keep=1, journal=True)
+    landed = []
+    latest_s, latest_bad, latest_moved, latest_stats = restore_check(
+        torch, ts, None, app_state, ref, phase_stats, restore_fn=lambda a: landed.append(mgr.restore_latest(a)))
+    mutate_step(torch, model, ref, JOURNAL_PATTERNS[3])  # state and reference back to step 3
+    at3_s, at3_bad, at3_moved, _ = restore_check(torch, ts, None, app_state, ref, phase_stats,
+                                                 restore_fn=lambda a: landed.append(mgr.restore_at(3, a)))
+    restores_ok = landed == [4, 3] and not (latest_bad or latest_moved or at3_bad or at3_moved)
+
+    # A corrupt seg 4: restore_latest falls back to step 3.
+    seg4_refs, seg4_sizes = committed_refs(ts, root)
+    seg4_only = sorted(seg4_refs["seg_4/.snapshot_metadata"] - seg4_refs["step_3/.snapshot_metadata"])
+    with open(os.path.join(root, "seg_4", ".snapshot_metadata"), "w") as f:
+        f.write("{corrupt")
+    n_events = len(events)
+    fb_s, fb_bad, fb_moved, _ = restore_check(torch, ts, None, app_state, ref, phase_stats,
+                                              restore_fn=lambda a: landed.append(mgr.restore_latest(a)))
+    fb_step = landed[-1]
+    fb_events = sorted({e.name for e in events[n_events:] if e.name.endswith(".fallback")})
+    fallback_ok = (fb_step == 3 and not fb_bad and not fb_moved
+                   and fb_events == ["journal.fallback", "restore_latest.fallback"])
+
+    # gc: with the corrupt segment removed, gc_detail names and reclaims
+    # exactly the chunks only seg 4 referenced.
+    shutil.rmtree(os.path.join(root, "seg_4"))
+    disk_before_gc = chunks_on_disk(root)
+    dry = mgr.gc_detail(apply=False)
+    begin = time.monotonic()
+    applied = mgr.gc_detail(apply=True)
+    gc_s = time.monotonic() - begin
+    gc_bytes_disk = sum(disk_before_gc[c] for c in applied[1])
+    gc_bytes_manifest = sum(seg4_sizes.get(c, -1) for c in seg4_only)
+    gc_ok = (dry == applied == ([], seg4_only, []) and bool(seg4_only) and gc_bytes_disk == gc_bytes_manifest
+             and set(chunks_on_disk(root)) == set(disk_before_gc) - set(seg4_only))
+    ok = segs_ok and fold_ok and restores_ok and fallback_ok and gc_ok
+    emit({"phase": "manager_journal", "ok": ok, "max_to_keep": 1, "journal_max_segments": 3, "saves": saves,
+          "segments_ok": segs_ok, "fold_ok": fold_ok, "fold_s": round(folds[0]["seconds"], 4) if folds else None,
+          "fold_files_written": folds[0]["files_written"] if folds else None,
+          "fold_step3_files": step3_files, "restore_points_after_step4": points,
+          "fold_and_prune_reclaimed_chunks": len(fold_reclaimed), "fold_and_prune_reclaimed_bytes": fold_reclaimed_bytes,
+          "fold_and_prune_expected_bytes_from_manifests": fold_manifest_bytes,
+          "restore_latest_step": landed[0], "restore_latest_s": round(latest_s, 3),
+          "restore_latest_bit_exact": not latest_bad, "restore_latest_data_ptr_unchanged": not latest_moved,
+          "restore_latest_phases": phase_summary(latest_stats),
+          "restore_at_3_s": round(at3_s, 3), "restore_at_3_bit_exact": not at3_bad,
+          "fallback_step": fb_step, "fallback_s": round(fb_s, 3), "fallback_events": fb_events,
+          "fallback_bit_exact": not fb_bad,
+          "gc_reclaimed_chunks": applied[1], "gc_expected_chunks": seg4_only, "gc_reclaimed_bytes": gc_bytes_disk,
+          "gc_expected_bytes_from_manifest": gc_bytes_manifest, "gc_s": round(gc_s, 4)})
+    if not ok:
+        raise RuntimeError("manager_journal: a segment past its bound, a fold that wrote payload, reclamation "
+                           "other than the unreferenced chunks, a restore not bit-exact, or no fallback to step 3")
+    return root
+
+
+def manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root):
+    """A fresh journal manager on the root (chain read back from storage,
+    base step_3) saves step 5 with ``async_=True`` in pinned_host mode;
+    every tensor changes in place right after the return.  Its segment
+    manifest must equal, entry by entry, the sync segment of the same
+    change: a sync CAS take of the same state filtered by the journal's
+    delta against the same chain (an entry absent from one delta resolves
+    to the base).  restore_latest replays it bit-exact.  Removes the root."""
+    from torchsnapshot_tpu_torch import journal
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    model = app_state["model"].state_dict()
+    mgr = SnapshotManager(root, journal=True)
+    mutate_step(torch, model, ref, JOURNAL_PATTERNS[4])
+    device_sync(torch)
+    phase_stats.reset()
+    with knobs.override_async_staging("pinned_host"):
+        begin = time.monotonic()
+        pending = mgr.save(5, app_state, async_=True)
+        stall_s = time.monotonic() - begin
+    for p in ref:
+        get_leaf(model, p).view(torch.int16).bitwise_not_()
+    pending.wait()
+    total_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    for p in ref:
+        get_leaf(model, p).view(torch.int16).bitwise_not_()  # back to step 5's state
+    storage = url_to_storage_plugin(root)
+    try:
+        seg = journal.read_segment_metadata(storage, 5)
+        base_view = journal.view_of(journal._read_metadata(storage, "step_3/.snapshot_metadata").manifest)
+    finally:
+        storage.sync_close()
+    with knobs.override_cas(True):
+        device_sync(torch)
+        begin = time.monotonic()
+        sync_md = ts.Snapshot.take(os.path.join(root, "sync_5"), app_state).metadata
+        sync_s = time.monotonic() - begin
+    sync_seg = journal.compute_delta(sync_md, base_view, 3, [])
+    base = journal.manifest_of(base_view)
+    keys = sorted(set(seg.manifest) | set(sync_seg.manifest))
+    _, aliased, differ = compare_model_entries(
+        {k: sync_seg.manifest.get(k, base.get(k)) for k in keys}, {k: seg.manifest.get(k, base.get(k)) for k in keys})
+    differ += [k for k in keys if "/model/" not in k and (k in seg.manifest) != (k in sync_seg.manifest)]
+    shutil.rmtree(os.path.join(root, "sync_5"))
+    landed = []
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, None, app_state, ref, phase_stats,
+                                                       restore_fn=lambda a: landed.append(mgr.restore_latest(a)))
+    ok = (pending.staging_mode == "pinned_host" and seg.journal["base_step"] == 3 and not differ
+          and landed == [5] and not mismatched and not moved)
+    emit({"phase": "manager_async_journal", "ok": ok, "staging_mode": pending.staging_mode,
+          "stall_s": round(stall_s, 4), "total_s": round(total_s, 3),
+          "segment": journal.sidecar_summary(seg.journal), "sync_segment": journal.sidecar_summary(sync_seg.journal),
+          "sync_take_s": round(sync_s, 3), "entries_compared": len(keys), "entries_differ": differ[:5],
+          "entries_aliasing_equal_bytes": aliased, "restored_step": landed,
+          "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "phases": phase_summary(stats), "restore_phases": phase_summary(rstats)})
+    shutil.rmtree(root)
+    if not ok:
+        raise RuntimeError("manager_async_journal: wrong mode, the segment differs from the sync segment of the "
+                           "same change, or the replayed restore is not bit-exact")
+
+
+def manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+    root = manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
+    manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
 
 
 # ------------------------------------------------------ distributed phases
@@ -876,6 +1165,52 @@ def dist_job_hsdp(torch, ts, rank, world, seed, workdir):
         shutil.rmtree(root)
     pg.barrier()
 
+    # dist_manager_journal: a journal manager saves step 0 (the base), then,
+    # with every box of wk refilled from another seed, step 1 (a segment);
+    # restore_latest replays it in place on every rank, and wk gets its own
+    # values back.  Rank 0 removes the root.
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
+    root = os.path.join(workdir, "dist_manager")
+    mgr = SnapshotManager(root, pg=pg, journal=True)
+    device_sync(torch)
+    pg.barrier()
+    begin = time.monotonic()
+    mgr.save(0, app_state, replicated=["train/step"])
+    base_s = time.monotonic() - begin
+    seeded_fill(torch, wk.to_local(), wk_seed, tuple(wk.shape), offsets)
+    device_sync(torch)
+    pg.barrier()
+    n_events = len(events)
+    phase_stats.reset()
+    begin = time.monotonic()
+    mgr.save(1, app_state, replicated=["train/step"])
+    seg_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    cas_stats = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]["cas"]
+    for t in dist_locals(params):
+        t.zero_()
+    ptrs = [t.data_ptr() for t in dist_locals(params)]
+    device_sync(torch)
+    pg.barrier()
+    begin = time.monotonic()
+    restored = mgr.restore_latest(app_state)
+    device_sync(torch)
+    restore_s = time.monotonic() - begin
+    out["dist_manager_journal"] = {
+        "base_s": base_s, "seg_s": seg_s, "restore_s": restore_s, "restored_step": restored,
+        "bytes_written": cas_stats["physical_bytes_written"],
+        "prestage": {k: cas_stats[f"prestage_{k}"] for k in ("probed", "hits", "bytes")},
+        "mismatched": dist_check(torch, params, seed, {wk_path: wk_seed}),
+        "data_ptr_moved": sum(a != t.data_ptr() for a, t in zip(ptrs, dist_locals(params))),
+        "phases": phase_summary(stats)}
+    seeded_fill(torch, wk.to_local(), tensor_seed(seed, wk_path), tuple(wk.shape), offsets)
+    device_sync(torch)
+    pg.barrier()
+    if rank == 0:
+        shutil.rmtree(root)
+    pg.barrier()
+
     # dist_async_take (auto → pinned_host); the fault wrapper's byte meter
     # (a spec of "none") counts the commits.
     faults.reset_write_counters()
@@ -1030,11 +1365,7 @@ def snapshot_payload(ts, path: str):
     from torchsnapshot_tpu_torch import serialization
     from torchsnapshot_tpu_torch.manifest import iter_payload_entries
 
-    on_disk = 0
-    for dirpath, _, files in os.walk(path):
-        for name in files:
-            if name != ".snapshot_metadata":
-                on_disk += os.path.getsize(os.path.join(dirpath, name))
+    on_disk = dir_bytes(path)
     seen = set()
     tensor_bytes = 0
     for key, entry in iter_payload_entries(ts.Snapshot(path).get_manifest()):
@@ -1116,6 +1447,20 @@ def dist_phases(torch, ts, args) -> None:
                                           "data_ptr_moved", "phases")} for r in cas_]})
     if not cas_ok:
         raise RuntimeError("dist_cas_take: step 1 wrote other bytes than the changed boxes, or not bit-exact")
+
+    mgr_ = [r["dist_manager_journal"] for r in ranks]
+    written = [r["bytes_written"] for r in mgr_]
+    mgr_ok = (all(not r["mismatched"] and r["data_ptr_moved"] == 0 and r["restored_step"] == 1 for r in mgr_)
+              and sum(written) == changed)
+    emit({"phase": "dist_manager_journal", "ok": mgr_ok, "ranks": 4, "changed": "layers/attn/wk, every box",
+          "changed_bytes": changed, "seg_bytes_written_sum": sum(written), "seg_bytes_written_per_rank": written,
+          "max_base_s": round(max(r["base_s"] for r in mgr_), 3), "max_seg_s": round(max(r["seg_s"] for r in mgr_), 3),
+          "max_restore_s": round(max(r["restore_s"] for r in mgr_), 3),
+          "per_rank": [{k: r[k] for k in ("base_s", "seg_s", "restore_s", "restored_step", "bytes_written", "prestage",
+                                          "mismatched", "data_ptr_moved", "phases")} for r in mgr_]})
+    if not mgr_ok:
+        raise RuntimeError("dist_manager_journal: the segment wrote other bytes than wk's boxes, or the replayed "
+                           "restore is not bit-exact in place on every rank")
 
     elastic = [r["dist_elastic_restore"] for r in dist_launch(torch, "elastic", 2, args)]
     seconds = max(r["seconds"] for r in elastic)
@@ -1328,6 +1673,7 @@ def run(args) -> int:
     async_phase(*common, "async_host", "host", "host")
     del mats
     storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
+    manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

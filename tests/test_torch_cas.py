@@ -13,7 +13,7 @@ import torch
 
 from torchsnapshot_tpu_torch import Snapshot, StateDict, cas, knobs
 from torchsnapshot_tpu_torch._native.build import NativeBuildError
-from torchsnapshot_tpu_torch.manifest import CAS_MANIFEST_VERSION, SnapshotMetadata, UnsupportedSnapshotError
+from torchsnapshot_tpu_torch.manifest import CAS_MANIFEST_VERSION, SnapshotMetadata
 
 FROZEN = np.random.RandomState(0).rand(65536).astype(np.float32)
 
@@ -59,8 +59,10 @@ def test_three_step_save_stores_frozen_bytes_once(tmp_path):
     assert cas.is_cas_location(md.manifest["0/m/frozen"].location)
     locs = {Snapshot(str(root / f"step_{s}")).metadata.manifest["0/m/frozen"].location for s in (1, 2, 3)}
     assert len(locs) == 1
-    # Step directories hold no payload: only the commit marker.
-    assert os.listdir(root / "step_3") == [".snapshot_metadata"]
+    # Step directories hold no payload: only the commit marker and the
+    # telemetry sidecars of the take and the restore.
+    assert sorted(os.listdir(root / "step_3")) == [".snapshot_metadata", "telemetry"]
+    assert sorted(n.split("-")[0] for n in os.listdir(root / "step_3" / "telemetry")) == ["restore", "take"]
 
 
 def test_async_take_dedups_and_restores(tmp_path):
@@ -183,12 +185,24 @@ def test_orphan_chunk_is_verified_before_reuse(tmp_path):
 
 
 def test_shared_store_and_journal_segments_are_refused(tmp_path, monkeypatch):
-    """TPUSNAP_STORE (the shared chunk store) and 0.5.0 journal segments
-    are not ported: each is refused, naming the feature."""
+    """TPUSNAP_STORE (the shared chunk store) is not ported and is refused,
+    naming it, by a CAS take and by the manager.  A 0.5.0 journal segment
+    is read (its chunk references seed the index) but a direct restore of
+    it is refused: only the manager's replay restores a delta."""
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
     monkeypatch.setenv("TPUSNAP_STORE", str(tmp_path / "store"))
     with knobs.override_cas(True), pytest.raises(NotImplementedError, match="shared chunk store"):
         Snapshot.take(str(tmp_path / "root" / "step_1"), _state(1))
+    with pytest.raises(NotImplementedError, match="shared chunk store"):
+        SnapshotManager(str(tmp_path / "root")).save(1, _state(1))
+    with pytest.raises(NotImplementedError, match="shared chunk store"):
+        SnapshotManager(str(tmp_path / "root"), store=str(tmp_path / "store"))
     assert not (tmp_path / "store").exists()
+    monkeypatch.delenv("TPUSNAP_STORE")
     doc = SnapshotMetadata(version="0.5.0", world_size=1, journal={"base_step": 1}).to_json()
-    with pytest.raises(UnsupportedSnapshotError, match="journal delta segments"):
-        SnapshotMetadata.from_json(doc)
+    assert SnapshotMetadata.from_json(doc).journal == {"base_step": 1}
+    (tmp_path / "root" / "seg_2").mkdir(parents=True)
+    (tmp_path / "root" / "seg_2" / ".snapshot_metadata").write_text(doc)
+    with pytest.raises(RuntimeError, match="journal delta segment"):
+        Snapshot(str(tmp_path / "root" / "seg_2")).restore(_state(0))

@@ -320,3 +320,37 @@ def test_cuda_casx_restore_in_place(tmp_path, cuda_device):
         torch.cuda.synchronize()
         assert dst["w"].data_ptr() == ptr
         assert torch.equal(_bits(dst["w"]), _bits(state["w"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_", [False, True], ids=["sync_segment", "async_segment"])
+def test_cuda_replayed_journal_restore_in_place(tmp_path, cuda_device, async_):
+    """A journal manager saves a base and two segments of CUDA state (the
+    second async in pinned_host mode when ``async_``); restore_latest and
+    restore_at replay the chains through cas:// reads into the CUDA
+    targets in place."""
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
+    state = _state(cuda_device)
+    want = {}
+    with knobs.override_slab_size_threshold_bytes(64), knobs.override_async_staging("pinned_host"):
+        mgr = SnapshotManager(str(tmp_path / "ckpts"), journal=True)
+        for step in (1, 2, 3):
+            state["w"].view(torch.int16).add_(step)
+            want[step] = {k: v.clone() for k, v in state.items()}
+            if async_ and step == 3:
+                pending = mgr.save(step, {"m": StateDict(state)}, async_=True)
+                assert pending.staging_mode == "pinned_host"
+                pending.wait()
+            else:
+                mgr.save(step, {"m": StateDict(state)})
+    assert mgr.restore_points() == [(1, "full"), (2, "seg"), (3, "seg")]
+    dst = {k: torch.zeros_like(v) for k, v in state.items()}
+    dst["nc"] = torch.zeros(64, 32, device=cuda_device).t()
+    ptrs = {k: v.data_ptr() for k, v in dst.items()}
+    for step, restore in ((3, mgr.restore_latest), (2, lambda a: mgr.restore_at(2, a))):
+        assert restore({"m": StateDict(dst)}) == step
+        torch.cuda.synchronize()
+        for k, v in want[step].items():
+            assert dst[k].is_cuda and dst[k].data_ptr() == ptrs[k], k
+            assert torch.equal(_bits(dst[k]), _bits(v)), (step, k)

@@ -35,6 +35,11 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch.chunker\n"
         "import torchsnapshot_tpu_torch.cas\n"
         "import torchsnapshot_tpu_torch.incremental\n"
+        "import torchsnapshot_tpu_torch.journal\n"
+        "import torchsnapshot_tpu_torch.manager\n"
+        "import torchsnapshot_tpu_torch.telemetry\n"
+        "import torchsnapshot_tpu_torch.telemetry.sidecar\n"
+        "import torchsnapshot_tpu_torch.telemetry.history\n"
         "from torchsnapshot_tpu_torch import compression\n"
         "assert compression.resolve('zstd') == 'zstd'  # the native backend\n"
         "compression.decode(compression.encode(bytes(1 << 21), 'zstd')[0])\n"

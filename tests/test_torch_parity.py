@@ -753,3 +753,248 @@ def test_multi_rank_storage_depth_both_directions(tmp_path, monkeypatch):
         new_bytes = sum(os.path.getsize(tmp_path / f"port_{variant}" / rel) for rel in refs["step_1"] - refs["step_0"])
         changed = changed_parity_value("w_bf16").numel() * 2
         assert 0 < new_bytes <= changed + 2 * 256
+
+
+# ------------------------------------------------ cross-management (manager)
+#
+# Either package's SnapshotManager manages a root the other wrote: journal
+# chains (also mixed-writer ones), gc reports, in-flight markers, the
+# digest-index sidecar, and segment manifests for the same change.
+
+from test_torch_sharded import MANAGER_PARITY_LAYOUTS, manager_parity_value, parity_manager_journal_2  # noqa: E402
+
+
+def _managers():
+    from torchsnapshot_tpu.manager import SnapshotManager as JaxManager
+
+    return {"jax": JaxManager, "port": ts.SnapshotManager}
+
+
+def _mgr_state(seed, step):
+    """A manager test state at ``step``: ``frozen`` never changes, ``hot``
+    does every step, ``small`` at step 2."""
+    rng = np.random.RandomState(seed)
+    frozen = rng.standard_normal((64, 32)).astype(np.float32)
+    hot = rng.standard_normal((32, 32)).astype(np.float32) + step
+    small = rng.standard_normal(16).astype(np.float32) + (step >= 2)
+    return {"frozen": frozen, "hot": hot, "small": small, "step": step}
+
+
+def _mgr_save(pkg, mgr, step, seed=0, **kwargs):
+    state = _mgr_state(seed, step)
+    app = {"m": JaxStateDict(state)} if pkg == "jax" else {"m": ts.StateDict(state_from_numpy(state))}
+    return mgr.save(step, app, **kwargs)
+
+
+def _restore_both(mgr_by_pkg, step, seed=0, at=None):
+    """Restore ``step`` (the latest when ``at`` is None) through both
+    packages' managers, each bit-exact against the state."""
+    want = _mgr_state(seed, step)
+    for pkg, mgr in mgr_by_pkg.items():
+        zeros = _zeros_numpy(want)
+        app = {"m": JaxStateDict(zeros)} if pkg == "jax" else {"m": ts.StateDict(state_from_numpy(zeros))}
+        got = mgr.restore_latest(app) if at is None else mgr.restore_at(at, app)
+        assert got == step, pkg
+        _assert_same_bytes(want, app["m"].state_dict())
+
+
+@pytest.fixture
+def small_slabs():
+    with ts.knobs.override_slab_size_threshold_bytes(64):
+        yield
+
+
+@pytest.mark.parametrize("journal", [False, True])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_manager_root_of_one_package_restores_through_the_other(tmp_path, small_slabs, writer, journal):
+    """A root whose base and segments (or full steps) one package wrote is
+    replayed by both packages' restore_latest and restore_at, bit-exact."""
+    root = str(tmp_path / "ckpts")
+    managers = _managers()
+    mgr = managers[writer](root, journal=journal)
+    for step in (1, 2, 3):
+        _mgr_save(writer, mgr, step)
+    readers = {pkg: cls(root, journal=journal) for pkg, cls in managers.items()}
+    kinds = ["full", "seg", "seg"] if journal else ["full"] * 3
+    for reader in readers.values():
+        assert reader.restore_points() == list(zip((1, 2, 3), kinds))
+    _restore_both(readers, 3)
+    for step in (1, 2):
+        _restore_both(readers, step, at=step)
+
+
+def test_mixed_writer_chain_replays_in_both(tmp_path, small_slabs):
+    """A base from the port, a segment from the JAX package, then one from
+    the port: one chain, replayed bit-exact by both."""
+    root = str(tmp_path / "ckpts")
+    managers = _managers()
+    for step, pkg in ((1, "port"), (2, "jax"), (3, "port")):
+        _mgr_save(pkg, managers[pkg](root, journal=True), step)
+    readers = {pkg: cls(root, journal=True) for pkg, cls in managers.items()}
+    from torchsnapshot_tpu_torch import journal
+
+    storage = ts.storage_plugin.url_to_storage_plugin(root)
+    try:
+        assert journal.read_segment_metadata(storage, 3).journal["prior_segments"] == [2]
+    finally:
+        storage.sync_close()
+    _restore_both(readers, 3)
+    _restore_both(readers, 2, at=2)
+
+
+def test_gc_reports_agree_across_packages(tmp_path, small_slabs):
+    """On one root holding an orphan step, an uncommitted segment, stale
+    segments and orphan chunks, both packages' gc_detail(apply=False) name
+    the same steps, chunks and segments, and applied on two copies of the
+    root they remove the same (the chunks only a swept stale segment
+    referenced too); the JAX package then finds nothing left."""
+    import shutil
+    from torchsnapshot_tpu.io_types import WriteIO as JaxWriteIO
+    from torchsnapshot_tpu.storage_plugin import url_to_storage_plugin as jax_plugin
+
+    from torchsnapshot_tpu_torch import journal
+
+    root = tmp_path / "ckpts"
+    managers = _managers()
+    with ts.knobs.override_journal_max_segments(100):
+        _mgr_save("jax", managers["jax"](str(root), journal=True), 1)
+        for step in (2, 3):
+            _mgr_save("port", managers["port"](str(root), journal=True), step)
+    storage = ts.storage_plugin.url_to_storage_plugin(str(root))
+    try:
+        merged, _ = journal.merged_metadata(storage, 3)
+    finally:
+        storage.sync_close()
+    jax_storage = jax_plugin(str(root))
+    try:  # a fold that crashed before it swept its segments
+        jax_storage.sync_write(JaxWriteIO(path="step_3/.snapshot_metadata", buf=merged.to_json().encode(), durable=True))
+    finally:
+        jax_storage.sync_close()
+    (root / "step_7").mkdir()
+    (root / "step_7" / "0").write_bytes(b"torn")
+    (root / "seg_8").mkdir()
+    (root / "cas" / "xxh64" / "ab").mkdir(parents=True, exist_ok=True)
+    (root / "cas" / "xxh64" / "ab" / "abababababababab").write_bytes(b"debris")
+    reports = {pkg: cls(str(root)).gc_detail(apply=False) for pkg, cls in managers.items()}
+    assert reports["port"] == reports["jax"]
+    steps, chunks, segs = reports["port"]
+    assert steps == [7] and segs == [2, 3, 8] and "cas/xxh64/ab/abababababababab" in chunks
+    shutil.copytree(root, tmp_path / "copy")
+    applied = managers["port"](str(root)).gc_detail(apply=True)
+    assert applied == managers["jax"](str(tmp_path / "copy")).gc_detail(apply=True)
+    assert applied[0] == steps and applied[2] == segs and set(chunks) < set(applied[1])
+    assert managers["jax"](str(root)).gc_detail(apply=False) == ([], [], [])
+    _restore_both({pkg: cls(str(root)) for pkg, cls in managers.items()}, 3)
+
+
+@pytest.mark.parametrize("marker_pkg", ["jax", "port"])
+def test_live_inflight_marker_of_one_blocks_the_others_gc(tmp_path, marker_pkg):
+    """A refreshed in-flight marker one package's manager holds blocks the
+    other's applied gc unless force; once released, gc runs."""
+    root = tmp_path / "ckpts"
+    managers = _managers()
+    owner = managers[marker_pkg](str(root))
+    _mgr_save(marker_pkg, owner, 1)
+    (root / "step_2").mkdir()
+    owner._write_inflight_marker(2, "step")
+    try:
+        other = managers["port" if marker_pkg == "jax" else "jax"](str(root))
+        with pytest.raises(RuntimeError, match="in-flight save marker"):
+            other.gc(apply=True)
+        assert (root / "step_2").exists()
+        assert other.gc(apply=False) == [2]
+    finally:
+        owner._remove_inflight_marker(2, "step")
+    assert other.gc(apply=True) == [2]
+    owner._write_inflight_marker(3, "step")
+    (root / "step_3").mkdir()
+    try:
+        assert other.gc(apply=True, force=True) == [3]
+    finally:
+        owner._remove_inflight_marker(3, "step")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_digest_index_sidecar_seeds_the_other_package(tmp_path, monkeypatch, small_slabs, writer):
+    """The .digest_index.json one package's manager writes is loaded by the
+    other's without re-reading manifests, with the same keys and payloads,
+    and a save of an unchanged state through the other writes no chunk."""
+    from torchsnapshot_tpu import cas as jax_cas
+    from torchsnapshot_tpu.storage_plugin import url_to_storage_plugin as jax_plugin
+
+    from torchsnapshot_tpu_torch import cas
+
+    root = tmp_path / "root"
+    managers = _managers()
+    with ts.knobs.override_cas(True):
+        _mgr_save(writer, managers[writer](str(root)), 1)
+    doc = json.loads((root / cas.INDEX_SIDECAR_FNAME).read_text())
+
+    def _no_seed(*args, **kwargs):
+        raise AssertionError("seeded from manifests although the sidecar is current")
+
+    monkeypatch.setattr(cas, "seed_digest_index", _no_seed)
+    monkeypatch.setattr(jax_cas, "seed_digest_index", _no_seed)
+    loaded = {}
+    for pkg, plugin, mod in (("port", ts.storage_plugin.url_to_storage_plugin, cas), ("jax", jax_plugin, jax_cas)):
+        storage = plugin(str(root))
+        try:
+            loaded[pkg] = mod.load_or_seed_index(str(root), storage, "xxh64")
+        finally:
+            storage.sync_close()
+    for index in loaded.values():
+        assert index.snapshot_keys() == set(doc["keys"]) and index.payload_count() == len(doc["payloads"])
+    other = "port" if writer == "jax" else "jax"
+    before = _chunk_files(root)
+    with ts.knobs.override_cas(True):
+        state = _mgr_state(0, 1)
+        app = {"m": JaxStateDict(state)} if other == "jax" else {"m": ts.StateDict(state_from_numpy(state))}
+        managers[other](str(root)).save(2, app)
+    assert _chunk_files(root) == before
+    persisted = json.loads((root / cas.INDEX_SIDECAR_FNAME).read_text())
+    assert persisted["committed"] == ["step_1/.snapshot_metadata", "step_2/.snapshot_metadata"]
+
+
+def test_segment_manifests_agree_across_packages(tmp_path, small_slabs):
+    """For the same state and the same change, the two packages' managers
+    commit equal base and segment manifests, entry by entry."""
+    managers = _managers()
+    for pkg, cls in managers.items():
+        mgr = cls(str(tmp_path / pkg), journal=True)
+        for step in (1, 2, 3):
+            _mgr_save(pkg, mgr, step)
+    for marker in ("step_1", "seg_2", "seg_3"):
+        docs = {pkg: json.loads((tmp_path / pkg / marker / ".snapshot_metadata").read_text()) for pkg in managers}
+        assert sorted(docs["port"]["manifest"]) == sorted(docs["jax"]["manifest"]), marker
+        for key, entry in docs["jax"]["manifest"].items():
+            assert docs["port"]["manifest"][key] == entry, (marker, key)
+        assert docs["port"].get("journal") == docs["jax"].get("journal"), marker
+        assert docs["port"]["version"] == docs["jax"]["version"]
+
+
+def test_two_rank_journal_root_restores_through_the_jax_manager(tmp_path, monkeypatch):
+    """2 gloo ranks take HSDP and uneven Shard DTensors through a journal
+    manager (a base, then a segment) and replay it; the JAX package's
+    manager then restores the root into NamedShardings, bit-exact."""
+    from torchsnapshot_tpu.manager import SnapshotManager as JaxManager
+
+    root = tmp_path / "ckpts"
+    monkeypatch.setenv("TPUSNAP_TEST_SNAPSHOT", str(root))
+    parity_manager_journal_2()
+    shardings = {
+        "w_f32": NamedSharding(_jax_mesh((4, 2), ("x", "y")), P("y", None)),
+        "w_bf16": NamedSharding(_jax_mesh((2, 4), ("a", "b")), P(None, "b")),
+        "uneven": NamedSharding(_jax_mesh((8,), ("x",)), P(None, None)),
+    }
+    targets = {}
+    for name in MANAGER_PARITY_LAYOUTS:
+        want = manager_parity_value(name, 2)
+        np_dtype = ml_dtypes.bfloat16 if want.dtype == torch.bfloat16 else want.numpy().dtype
+        targets[name] = jax.device_put(jnp.zeros(tuple(want.shape), np_dtype), shardings[name])
+    dst = {"m": JaxStateDict(dict(targets, step=-1))}
+    assert JaxManager(str(root), journal=True).restore_latest(dst) == 2
+    assert dst["m"]["step"] == 2
+    for name in MANAGER_PARITY_LAYOUTS:
+        got = dst["m"][name]
+        assert got.sharding == targets[name].sharding
+        assert _raw(np.asarray(got)) == manager_parity_value(name, 2).view(torch.uint8).numpy().tobytes(), name

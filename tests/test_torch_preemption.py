@@ -4,8 +4,8 @@ Covers torchsnapshot_tpu_torch/preemption.py: the io-concurrency boost,
 the installed handler, and an ``async_take`` in flight when SIGTERM
 arrives: its write pipeline widens in place, it commits a snapshot that
 restores bit-exact, and ``preemption.flush`` start/end events bracket the
-flush.  The JAX package's other deadline-mode switches (compression
-dropped, telemetry sidecars shed) have nothing to act on in the port.
+flush.  The other two deadline-mode switches (compression dropped,
+telemetry sidecars shed) are pinned in tests/test_torch_sidecar.py.
 
 The flush is shown without a wall-clock threshold: every write blocks on a
 gate, the pipeline runs one write at a time, and the test waits until the

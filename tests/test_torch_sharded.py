@@ -784,3 +784,78 @@ def parity_storage_depth_4():
                 continue
             state["w_bf16"].to_local().view(torch.uint8).add_(1)
             Snapshot.take(os.path.join(root, f"port_{variant}", "step_1"), {"m": StateDict(state)}, pg=pg)
+
+
+# The manager's journal over DTensors on 2 ranks: an HSDP layout on a
+# (2, 1) ("replicate", "shard") mesh and an uneven Shard(0) (7 rows over 2:
+# 4, 3).  The parent restores the root through the JAX package's manager.
+
+MANAGER_PARITY_LAYOUTS = {
+    "w_f32": ((2, 1), ("replicate", "shard"), "R S0"),
+    "w_bf16": ((2,), ("x",), "S1"),
+    "uneven": ((2,), ("x",), "S0"),
+}
+
+
+def manager_parity_value(name, step):
+    """The seeded value of ``name`` at journal step ``step``: ``w_bf16``
+    changes at step 2 (every byte + 1), the rest never."""
+    if name == "uneven":
+        value = torch.from_numpy(np.random.RandomState(5).rand(7, 5).astype(np.float32))
+    else:
+        value = parity_value(name)
+    if name == "w_bf16" and step >= 2:
+        value = changed_parity_value(name)
+    return value
+
+
+def _manager_dt(name, step, zero=False):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from torchsnapshot_tpu_torch import staging
+
+    mesh_shape, names, spec = MANAGER_PARITY_LAYOUTS[name]
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
+    full = manager_parity_value(name, step)
+    placements = _placements(spec)
+    offsets, sizes = staging.box_at(full.shape, mesh.shape, mesh.get_coordinate(), placements)
+    local = full[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))].clone()
+    if zero:
+        local.zero_()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape, stride=full.stride())
+
+
+@run_with_procs(nproc=2, gloo=True)
+def parity_manager_journal_2():
+    """2 ranks: a journal manager saves step 1 (the base) and step 2 (a
+    segment with ``w_bf16`` changed), then restore_latest replays it in
+    place on both ranks.  The segment holds only the changed entry."""
+    from torchsnapshot_tpu_torch import StateDict, journal
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    pg = make_test_pg()
+    root = os.environ["TPUSNAP_TEST_SNAPSHOT"]
+    mgr = SnapshotManager(root, pg=pg, journal=True)
+    for step in (1, 2):
+        state = {name: _manager_dt(name, step) for name in MANAGER_PARITY_LAYOUTS}
+        mgr.save(step, {"m": StateDict(dict(state, step=step))}, replicated=["m/step"])
+    assert mgr.restore_points() == [(1, "full"), (2, "seg")]
+    storage = url_to_storage_plugin(root)
+    try:
+        seg = journal.read_segment_metadata(storage, 2)
+    finally:
+        storage.sync_close()
+    assert {k.split("/", 1)[1] for k in seg.manifest} == {"m/w_bf16", "m/step"}
+    targets = {name: _manager_dt(name, 2, zero=True) for name in MANAGER_PARITY_LAYOUTS}
+    ptrs = {k: v.to_local().data_ptr() for k, v in targets.items()}
+    dst = {"m": StateDict(dict(targets, step=-1))}
+    assert mgr.restore_latest(dst) == 2
+    assert dst["m"]["step"] == 2
+    for name in MANAGER_PARITY_LAYOUTS:
+        got = dst["m"][name]
+        assert got.to_local().data_ptr() == ptrs[name]
+        offsets, sizes = staging_box(got)
+        box = manager_parity_value(name, 2)[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))]
+        assert torch.equal(got.to_local().view(torch.uint8), box.contiguous().view(torch.uint8)), name

@@ -356,15 +356,22 @@ def test_memory_storage_roundtrip(toggle_batching):
         MemoryStoragePlugin.reset()
 
 
-def test_later_manifest_versions_name_the_missing_feature():
-    """Compression (0.2.0), content addressing (0.4.0) and content-defined
-    chunking (0.6.0) are read; journal delta segments (0.5.0) are refused,
-    naming the feature."""
-    for version in ("0.2.0", "0.4.0", "0.6.0"):
+def test_later_manifest_versions_name_the_missing_feature(tmp_path):
+    """Compression (0.2.0), content addressing (0.4.0), journal delta
+    segments (0.5.0) and content-defined chunking (0.6.0) are read; a
+    direct restore of a delta segment is refused, naming the manager's
+    replay; a version past the reader's is refused."""
+    for version in ("0.2.0", "0.4.0", "0.5.0", "0.6.0"):
         doc = SnapshotMetadata(version=version, world_size=1).to_json()
         assert SnapshotMetadata.from_json(doc).version == version
-    doc = SnapshotMetadata(version="0.5.0", world_size=1).to_json()
-    with pytest.raises(UnsupportedSnapshotError, match="journal"):
+    seg = tmp_path / "seg_2"
+    seg.mkdir()
+    doc = SnapshotMetadata(version="0.5.0", world_size=1, journal={"base_step": 1}).to_json()
+    (seg / ".snapshot_metadata").write_text(doc)
+    with pytest.raises(RuntimeError, match="journal delta segment.*restore_latest"):
+        Snapshot(str(seg)).restore({"m": StateDict({"w": torch.zeros(2)})})
+    doc = SnapshotMetadata(version="0.7.0", world_size=1).to_json()
+    with pytest.raises(UnsupportedSnapshotError, match="newer than this reader"):
         SnapshotMetadata.from_json(doc)
 
 

@@ -14,16 +14,17 @@ either package and either package reads them:
 - :class:`CASWriterPlugin` hashes every staged payload, writes a chunk the
   root does not hold yet (durably: temp file, fsync, rename) and records a
   pure reference otherwise, against a :class:`DigestIndex` seeded from
-  the root's committed manifests (or a digest-index sidecar the JAX
+  the root's committed manifests (or the digest-index sidecar either
   package's manager left);
 - :class:`CASReaderPlugin` resolves chunk locations against the root, so
   restore and read_object need no knowledge of the layout;
 - :func:`prestage_delta_skip` resolves unchanged leaves to references
   before batching, compression and the write pipeline.
 
-Not in this package yet: the manager's index sidecar writer, prune and
-GC, repack and export, and the shared chunk store (``TPUSNAP_STORE``),
-which a CAS take refuses.
+The manager (manager.py) persists the index as a root sidecar, lists the
+chunks present and sweeps those no committed manifest references.  Not in
+this package yet: repack and export, and the shared chunk store
+(``TPUSNAP_STORE``), which a CAS take refuses.
 
 Trust: a hit against the seeded index trusts committed manifests (chunks
 are immutable once visible).  A chunk that exists but no committed
@@ -47,8 +48,9 @@ CAS_DIR = "cas"
 CAS_SCHEME = "cas://"
 CASX_SCHEME = "casx://"
 
-# The JAX package's manager caches the digest index here between
-# processes; this package reads it (load_or_seed_index) and never writes it.
+# Either package's manager caches the digest index here between processes
+# (persist_index_sidecar); load_or_seed_index trusts it while the committed
+# markers it recorded still match the root.
 INDEX_SIDECAR_FNAME = ".digest_index.json"
 _INDEX_SIDECAR_VERSION = 2
 
@@ -128,6 +130,16 @@ def casx_location_for(parts: List[Tuple[str, str, int]]) -> str:
 
 def _digest_key(algo: str, hexdigest: str) -> str:
     return f"{algo}/{hexdigest}"
+
+
+def key_for_relpath(relpath: str) -> Optional[str]:
+    """``"cas/<algo>/<p2>/<digest>"`` → the index key ``"<algo>/<digest>"``,
+    or None for a path outside the chunk layout: a chunk sweep keeps the
+    digest index in step with the disk through it."""
+    parts = relpath.split("/")
+    if len(parts) != 4 or parts[0] != CAS_DIR:
+        return None
+    return _digest_key(parts[1], parts[3])
 
 
 def chunk_relpaths_of_location(location: str) -> List[str]:
@@ -238,6 +250,10 @@ class DigestIndex:
         with self._lock:
             return len(self._payloads)
 
+    def snapshot_payloads(self) -> Dict[str, Tuple[str, Optional[Tuple[int, int]]]]:
+        with self._lock:
+            return dict(self._payloads)
+
     def snapshot_keys(self) -> Set[str]:
         with self._lock:
             return set(self._keys)
@@ -276,9 +292,7 @@ def seed_digest_index(storage: StoragePlugin) -> DigestIndex:
         read_io = ReadIO(path=marker)
         try:
             storage.sync_read(read_io)
-            metadata = SnapshotMetadata.from_json(
-                bytes(read_io.buf).decode("utf-8"), accept_journal=True
-            )
+            metadata = SnapshotMetadata.from_json(bytes(read_io.buf).decode("utf-8"))
         except Exception:  # noqa: BLE001 — torn, absent or foreign
             continue
         for _, entry in iter_payload_entries(metadata.manifest):
@@ -296,11 +310,39 @@ def seed_digest_index(storage: StoragePlugin) -> DigestIndex:
     return DigestIndex(keys, payloads)
 
 
+def persist_index_sidecar(storage: StoragePlugin, index: DigestIndex, algo: str) -> None:
+    """Write the root's index sidecar: the digest set, the payload map, and
+    the committed marker set they were derived from (what a load checks).
+    Durable, so a torn sidecar cannot half-parse; callers treat a failure
+    as best-effort, since the manifests stay the source of truth."""
+    doc = {
+        "version": _INDEX_SIDECAR_VERSION,
+        "algo": algo,
+        "keys": sorted(index.snapshot_keys()),
+        "payloads": {
+            digest: [location, list(byte_range) if byte_range else None]
+            for digest, (location, byte_range) in sorted(index.snapshot_payloads().items())
+        },
+        "committed": committed_marker_relpaths(storage),
+    }
+    storage.sync_write(WriteIO(path=INDEX_SIDECAR_FNAME, buf=json.dumps(doc).encode("utf-8"), durable=True))
+
+
+def drop_index_sidecar(storage: StoragePlugin) -> None:
+    """Remove the root's index sidecar (best-effort): after chunks were
+    swept by a process that holds no index, the sidecar would still list
+    them while the committed marker set it is checked against is unchanged."""
+    try:
+        storage.sync_delete(INDEX_SIDECAR_FNAME)
+    except Exception:  # noqa: BLE001 — absent already, or the next load re-seeds
+        pass
+
+
 def load_or_seed_index(root_url: str, storage: StoragePlugin, algo: str) -> DigestIndex:
-    """The digest index of a root: the JAX manager's sidecar when the set
-    of committed markers it recorded still matches the root, else a seed
-    from the committed manifests.  A stale or unreadable sidecar only costs
-    the seed."""
+    """The digest index of a root: a manager's sidecar when the set of
+    committed markers it recorded still matches the root, else a seed from
+    the committed manifests.  A stale or unreadable sidecar only costs the
+    seed."""
     try:
         read_io = ReadIO(path=INDEX_SIDECAR_FNAME)
         storage.sync_read(read_io)
@@ -322,6 +364,28 @@ def load_or_seed_index(root_url: str, storage: StoragePlugin, algo: str) -> Dige
     except Exception:  # noqa: BLE001 — the sidecar is only a cache
         pass
     return seed_digest_index(storage)
+
+
+def list_chunk_relpaths(storage: StoragePlugin) -> List[str]:
+    """Every chunk present under a root's ``cas/`` directory, as sorted
+    root-relative paths (``cas/<algo>/<p2>/<digest>``)."""
+    out: List[str] = []
+    try:
+        algos = storage.sync_list_dir(CAS_DIR)
+    except (NotImplementedError, FileNotFoundError):
+        return out
+    for algo in algos:
+        try:
+            prefixes = storage.sync_list_dir(f"{CAS_DIR}/{algo}")
+        except FileNotFoundError:
+            continue
+        for prefix in prefixes:
+            try:
+                names = storage.sync_list_dir(f"{CAS_DIR}/{algo}/{prefix}")
+            except FileNotFoundError:
+                continue
+            out.extend(f"{CAS_DIR}/{algo}/{prefix}/{name}" for name in names)
+    return sorted(out)
 
 
 # ------------------------------------------------------------------- reads

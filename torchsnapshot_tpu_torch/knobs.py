@@ -1,18 +1,29 @@
 """Environment-variable configuration knobs.
 
 Counterpart of ``torchsnapshot_tpu/knobs.py``, holding only the knobs the
-take/restore, async-take, distributed and storage-depth (compression,
-content addressing, content-defined chunking) paths read.  The environment variable names are
-the JAX package's own, so one setting (and one test override) drives both
-packages.  Defaults are storage-side numbers and match the JAX package:
-512 MB chunks, 128 MB slabs, 16 concurrent I/O operations per process.
+take/restore, async-take, distributed, storage-depth (compression,
+content addressing, content-defined chunking) and manager (journal,
+telemetry sidecars, step history) paths read.  The environment variable
+names are the JAX package's own, so one setting (and one test override)
+drives both packages.  Defaults are storage-side numbers and match the
+JAX package: 512 MB chunks, 128 MB slabs, 16 concurrent I/O operations per
+process.
+
+Knobs of the JAX package's host data plane that this package does not
+implement yet (:data:`UNIMPLEMENTED_KNOBS`) are not silently ignored:
+:func:`warn_unimplemented_knobs` warns once per process for each one set.
+``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST`` have no meaning here:
+they force the JAX package's sub-word bitcast staging, and torch moves
+every dtype's bytes through a ``view(torch.uint8)`` with no repack.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import warnings
 from contextlib import contextmanager
-from typing import Generator, Optional, Tuple
+from typing import Generator, Optional, Set, Tuple
 
 _ENV_PREFIX = "TPUSNAP_"
 
@@ -53,6 +64,28 @@ CDC_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MIN_BYTES"
 CDC_AVG_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_AVG_BYTES"
 CDC_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MAX_BYTES"
 STORE_ENV_VAR = _ENV_PREFIX + "STORE"
+SIDECAR_ENV_VAR = _ENV_PREFIX + "SIDECAR"
+JOURNAL_ENV_VAR = _ENV_PREFIX + "JOURNAL"
+JOURNAL_MAX_SEGMENTS_ENV_VAR = _ENV_PREFIX + "JOURNAL_MAX_SEGMENTS"
+JOURNAL_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "JOURNAL_MAX_BYTES"
+REGRESSION_FACTOR_ENV_VAR = _ENV_PREFIX + "REGRESSION_FACTOR"
+REGRESSION_WINDOW_ENV_VAR = _ENV_PREFIX + "REGRESSION_WINDOW"
+DIRECT_IO_ENV_VAR = _ENV_PREFIX + "DIRECT_IO"
+NATIVE_BATCH_ENV_VAR = _ENV_PREFIX + "NATIVE_BATCH"
+PARALLEL_READ_WAYS_ENV_VAR = _ENV_PREFIX + "PARALLEL_READ_WAYS"
+NATIVE_ENV_VAR = _ENV_PREFIX + "NATIVE"
+NATIVE_SANITIZE_ENV_VAR = _ENV_PREFIX + "NATIVE_SANITIZE"
+
+# The JAX package's host data plane knobs this package reads nothing of yet.
+UNIMPLEMENTED_KNOBS = (
+    DIRECT_IO_ENV_VAR,
+    NATIVE_BATCH_ENV_VAR,
+    PARALLEL_READ_WAYS_ENV_VAR,
+    NATIVE_ENV_VAR,
+    NATIVE_SANITIZE_ENV_VAR,
+)
+_warned_knobs: Set[str] = set()
+_warned_lock = threading.Lock()
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
@@ -84,6 +117,14 @@ _SUPPORTED_CAS_ALGOS = ("xxh64",)
 _DEFAULT_CDC_MIN_BYTES = 256 * 1024
 _DEFAULT_CDC_AVG_BYTES = 1024 * 1024
 _DEFAULT_CDC_MAX_BYTES = 4 * 1024 * 1024
+# Journal compaction triggers: segments since the base, and summed logical
+# delta bytes (0 disables the byte trigger).
+_DEFAULT_JOURNAL_MAX_SEGMENTS = 8
+_DEFAULT_JOURNAL_MAX_BYTES = 0
+# Step-history regression detection: a save slower than this multiple of
+# the trailing window's median is flagged.
+_DEFAULT_REGRESSION_FACTOR = 2.0
+_DEFAULT_REGRESSION_WINDOW = 50
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -331,9 +372,69 @@ def get_cdc_params() -> Tuple[int, int, int]:
 
 def get_store_url() -> Optional[str]:
     """The shared chunk store (``TPUSNAP_STORE``), or None.  Not ported:
-    CAS takes refuse it (cas.py)."""
+    CAS takes and the manager refuse it (cas.py, manager.py)."""
     val = os.environ.get(STORE_ENV_VAR, "").strip()
     return val or None
+
+
+def sidecar_enabled() -> bool:
+    """Whether each take, async take and restore writes a small
+    ``telemetry/<op>.json`` summary next to ``.snapshot_metadata``
+    (telemetry/sidecar.py).  On by default; ``TPUSNAP_SIDECAR=0`` opts out."""
+    return _get_flag_env(SIDECAR_ENV_VAR, "1")
+
+
+def journal_enabled() -> bool:
+    """Whether ``SnapshotManager.save`` runs in delta-journal mode
+    (journal.py): each save appends a segment of the entries that changed
+    since the last committed base, and segments are folded into full steps.
+    Off by default; ``SnapshotManager(journal=...)`` overrides it."""
+    return _get_flag_env(JOURNAL_ENV_VAR, "0")
+
+
+def get_journal_max_segments() -> int:
+    """Segment-count compaction trigger: once this many committed segments
+    chain on the base, the next committed save folds them into a full step.
+    Minimum 1."""
+    return max(1, _get_int_env(JOURNAL_MAX_SEGMENTS_ENV_VAR, _DEFAULT_JOURNAL_MAX_SEGMENTS))
+
+
+def get_journal_max_bytes() -> int:
+    """Byte compaction trigger: fold once the committed segments' summed
+    logical delta bytes reach this; 0 (the default) leaves the count
+    trigger alone."""
+    return max(0, _get_int_env(JOURNAL_MAX_BYTES_ENV_VAR, _DEFAULT_JOURNAL_MAX_BYTES))
+
+
+def get_regression_factor() -> float:
+    """A committed save slower than this multiple of the trailing-window
+    median is flagged in the step history (telemetry/history.py) with a
+    ``telemetry.regression`` event; 0 disables detection."""
+    val = os.environ.get(REGRESSION_FACTOR_ENV_VAR)
+    return float(val) if val is not None else _DEFAULT_REGRESSION_FACTOR
+
+
+def get_regression_window() -> int:
+    """Entries of the same action the regression median is taken over."""
+    return max(1, _get_int_env(REGRESSION_WINDOW_ENV_VAR, _DEFAULT_REGRESSION_WINDOW))
+
+
+def warn_unimplemented_knobs() -> None:
+    """Warn, once per process and knob, for each :data:`UNIMPLEMENTED_KNOBS`
+    entry that is set: the JAX package reads it, this package does not yet."""
+    for name in UNIMPLEMENTED_KNOBS:
+        if not os.environ.get(name, "").strip():
+            continue
+        with _warned_lock:
+            if name in _warned_knobs:
+                continue
+            _warned_knobs.add(name)
+        warnings.warn(
+            f"{name} is set but has no effect in torchsnapshot_tpu_torch yet "
+            "(torchsnapshot_tpu reads it; this package ignores it)",
+            RuntimeWarning,
+            stacklevel=3,
+        )
 
 
 @contextmanager
@@ -484,4 +585,40 @@ def override_slab_size_threshold_bytes(value: int) -> Generator[None, None, None
 @contextmanager
 def override_staging_threads(value: int) -> Generator[None, None, None]:
     with override_env(STAGING_THREADS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_retry_base_s(value: float) -> Generator[None, None, None]:
+    with override_env(RETRY_BASE_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_sidecar(enabled: bool) -> Generator[None, None, None]:
+    with override_env(SIDECAR_ENV_VAR, "1" if enabled else "0"):
+        yield
+
+
+@contextmanager
+def override_journal(enabled: bool) -> Generator[None, None, None]:
+    with override_env(JOURNAL_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_journal_max_segments(value: int) -> Generator[None, None, None]:
+    with override_env(JOURNAL_MAX_SEGMENTS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_journal_max_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(JOURNAL_MAX_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_regression_window(value: int) -> Generator[None, None, None]:
+    with override_env(REGRESSION_WINDOW_ENV_VAR, str(value)):
         yield

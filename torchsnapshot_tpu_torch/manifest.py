@@ -1,12 +1,12 @@
 """Snapshot manifest: typed entry schema + metadata (de)serialization.
 
 A copy of ``torchsnapshot_tpu/manifest.py``: both packages write and read
-the same JSON ``.snapshot_metadata``, entry for entry.  What differs is the
-reader's reach.  This package reads and writes manifest version 0.1.0; a
-snapshot that declares a later version needs a feature this package does
-not have yet, and :meth:`SnapshotMetadata.from_json` refuses it with an
-error naming that feature (compression 0.2.0, content addressing 0.4.0,
-journal segments 0.5.0, content-defined chunking 0.6.0).
+the same JSON ``.snapshot_metadata``, entry for entry, at every version
+either writes: 0.1.0, compression frames 0.2.0, content addressing 0.4.0,
+journal delta segments 0.5.0 and content-defined chunking 0.6.0.  A later
+version is refused (:class:`UnsupportedSnapshotError`).  A 0.5.0 segment
+is read by the journal and the manager; ``Snapshot.restore`` refuses one
+outside the manager's replay, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -502,17 +502,13 @@ SUPPORTED_MANIFEST_VERSIONS = (
     MANIFEST_VERSION,
     FRAMED_MANIFEST_VERSION,
     CAS_MANIFEST_VERSION,
+    JOURNAL_MANIFEST_VERSION,
     CDC_MANIFEST_VERSION,
 )
-# Versions this package recognises but cannot read, by the feature each
-# needs.
-_FEATURE_OF_VERSION = {
-    JOURNAL_MANIFEST_VERSION: "journal delta segments",
-}
 
 
 class UnsupportedSnapshotError(ValueError):
-    """The snapshot needs a feature this package does not have yet."""
+    """The snapshot declares a manifest version newer than this reader."""
 
 
 def iter_payload_entries(manifest: "Manifest"):
@@ -588,21 +584,12 @@ class SnapshotMetadata:
         return json.dumps(doc, sort_keys=True)
 
     @classmethod
-    def from_json(cls, s: str, accept_journal: bool = False) -> "SnapshotMetadata":
-        """Parse a ``.snapshot_metadata`` document.  Journal delta segments
-        (0.5.0) are refused, naming the feature, unless ``accept_journal``
-        (the CAS digest index reads their chunk references; nothing restores
-        them)."""
+    def from_json(cls, s: str) -> "SnapshotMetadata":
+        """Parse a ``.snapshot_metadata`` document, journal delta segments
+        (0.5.0) included."""
         d = json.loads(s)
         version = d["version"]
-        if version in _FEATURE_OF_VERSION and not accept_journal:
-            raise UnsupportedSnapshotError(
-                f"Snapshot manifest version {version} needs "
-                f"{_FEATURE_OF_VERSION[version]}, which torchsnapshot_tpu_torch "
-                "does not support yet; restore it with torchsnapshot_tpu's "
-                "SnapshotManager, which replays the journal over its base"
-            )
-        if version not in SUPPORTED_MANIFEST_VERSIONS and version not in _FEATURE_OF_VERSION:
+        if version not in SUPPORTED_MANIFEST_VERSIONS:
             raise UnsupportedSnapshotError(
                 f"Snapshot manifest version {version!r} is newer than this "
                 f"reader supports ({', '.join(SUPPORTED_MANIFEST_VERSIONS)})"

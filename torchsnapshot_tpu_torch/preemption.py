@@ -10,9 +10,11 @@ mode** for the ``TPUSNAP_SAVE_DEADLINE_S`` budget:
   semaphore gains extra permits (released onto its own event loop, so an
   already-draining pipeline widens at once), and pipelines created after
   activation start wide, within the unchanged memory budget;
-- compression is not dropped and no telemetry is shed: this package has
-  no compression codec and no telemetry sidecars yet, so the JAX
-  package's other two deadline-mode switches have nothing to act on.
+- **compression is dropped**: payloads are framed ``raw`` whatever
+  ``TPUSNAP_COMPRESSION`` asks for (compression.py); the self-describing
+  frame keeps every reader correct;
+- **telemetry sidecars are shed** (telemetry/sidecar.py ``enabled``): one
+  write fewer between the flush and its commit.
 
 ``preemption.flush.start`` / ``preemption.flush.end`` events bracket the
 flush; the end event says whether every save in flight at activation

@@ -37,8 +37,14 @@ content-addressed store of the snapshot's parent directory (cas.py), split
 on content-defined edges with ``TPUSNAP_CDC`` (chunker.py), and unchanged
 leaves become references before they are staged; ``incremental_from``
 hard-links unchanged payloads of a base snapshot (incremental.py).  Reads
-resolve chunk references whatever the knobs say.  Journals, the manager,
-caches and telemetry are later slices.
+resolve chunk references whatever the knobs say.
+
+Telemetry: every committed take and async take, and every restore, writes
+a per-rank sidecar under the snapshot's ``telemetry/`` (telemetry/
+sidecar.py) that the manager's step history and restore-point times read.
+``manifest_transform`` lets the manager's journal (journal.py) commit a
+delta manifest; a journal segment is restored only through the manager's
+replay (manager.py).
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from . import cas, device_staging, io_preparer, knobs, preemption, retry as retry_policy, staging
+from . import cas, device_staging, io_preparer, journal, knobs, phase_stats, preemption, retry as retry_policy, staging
 from .batcher import batch_read_requests, batch_write_requests
 from .dist_store import LinearBarrier, StorePeerError, acquire_op_lease, release_op_lease
 from .event import Event
@@ -78,6 +84,7 @@ from .manifest_utils import is_container_entry
 from .partitioner import consolidate_replicated_entries, partition_write_reqs
 from .pg_wrapper import PGWrapper
 from .rng_state import RNGState
+from .rss_profiler import RSSWatermark
 from .scheduler import (
     DeferredIOWork,
     get_process_memory_budget_bytes,
@@ -86,6 +93,7 @@ from .scheduler import (
 )
 from .stateful import AppState, Stateful
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import sidecar as tsidecar
 
 logger = logging.getLogger(__name__)
 
@@ -120,6 +128,7 @@ class Snapshot:
         incremental_from: Optional[str] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         cas_index: Optional["cas.DigestIndex"] = None,
+        manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
     ) -> "Snapshot":
         """Collective over ``pg`` (default: ``PGWrapper.from_torch()``).
         ``replicated``: globs of logical paths that hold the same value on
@@ -132,7 +141,13 @@ class Snapshot:
         instead of written (incremental.py).  ``storage_options``:
         per-plugin settings overriding the environment.  ``cas_index``: a
         caller-maintained ``cas.DigestIndex`` for ``TPUSNAP_CAS`` takes,
-        which skips seeding it from the root's manifests."""
+        which skips seeding it from the root's manifests.
+
+        ``manifest_transform``: rank 0 applies it to the gathered metadata
+        right before the commit write (the journal's delta filter); the
+        returned handle keeps the full metadata.  Pure computation; an
+        exception fails the take."""
+        knobs.warn_unimplemented_knobs()
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
@@ -142,6 +157,8 @@ class Snapshot:
         }
         log_event(Event(name="take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        phases_before = phase_stats.snapshot()
+        rss = RSSWatermark()
         in_flight = _TakeInFlight()
         preemption.track_save(in_flight)
         # Liveness lease: while this rank is inside the take its store-side
@@ -174,13 +191,29 @@ class Snapshot:
                         manifest=global_manifest,
                     )
                     # Every rank's payloads are durable → rank 0 commits.
+                    # The transform shapes only what is written; the handle
+                    # keeps the full view.
                     pg.barrier()
+                    committed_md = metadata
                     if pg.get_rank() == 0:
-                        cls._write_snapshot_metadata(metadata, storage)
+                        if manifest_transform is not None:
+                            committed_md = manifest_transform(metadata)
+                        cls._write_snapshot_metadata(committed_md, storage)
                     pg.barrier()
                 except BaseException:
                     cls._cleanup_failed_take(storage, pg)
                     raise
+                _write_sidecar(
+                    storage,
+                    "take",
+                    unique_id,
+                    pg,
+                    time.monotonic() - begin,
+                    phases_before,
+                    rss,
+                    nbytes=nbytes,
+                    committed_md=committed_md,
+                )
             finally:
                 storage.sync_close()
         except Exception:
@@ -217,6 +250,7 @@ class Snapshot:
         incremental_from: Optional[str] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         cas_index: Optional["cas.DigestIndex"] = None,
+        manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
     ) -> "PendingSnapshot":
         """Returns once the app state is snapshot-stable; storage I/O and the
         metadata commit continue on a background thread.  The caller may
@@ -231,8 +265,10 @@ class Snapshot:
         buffer to host memory before returning.  Only what this rank writes
         after dedup is copied.  Collective like :meth:`take`; the ranks
         commit once, through a store-based two-phase barrier.
-        ``incremental_from``, ``storage_options`` and ``cas_index`` as in
+        ``incremental_from``, ``storage_options``, ``cas_index`` and
+        ``manifest_transform`` (applied on the commit thread) as in
         :meth:`take`."""
+        knobs.warn_unimplemented_knobs()
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
@@ -242,6 +278,8 @@ class Snapshot:
         }
         log_event(Event(name="async_take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        phases_before = phase_stats.snapshot()
+        rss = RSSWatermark()
         # Held through the background commit; the PendingSnapshot releases
         # it when its thread finishes.
         lease = acquire_op_lease(pg.store, pg.get_rank())
@@ -277,6 +315,9 @@ class Snapshot:
             stall_s=time.monotonic() - begin,
             lease=lease,
             storage_options=storage_options,
+            manifest_transform=manifest_transform,
+            phases_before=phases_before,
+            rss=rss,
         )
 
     @staticmethod
@@ -458,17 +499,23 @@ class Snapshot:
         process group.  Dense, chunked and sharded CUDA uploads have landed
         when this returns.  DTensors restore into their local tensors from
         any saved world size and layout.  ``strict=False`` is forwarded to
-        statefuls whose ``load_state_dict`` accepts it."""
+        statefuls whose ``load_state_dict`` accepts it.  A journal delta
+        segment is refused unless the manager's replay set its merged
+        metadata on this handle."""
+        knobs.warn_unimplemented_knobs()
         self._validate_app_state(app_state)
         pg = self._pg
         rank = pg.get_rank()
+        unique_id = _gen_unique_id(pg)
         event_metadata: Dict[str, Any] = {
-            "unique_id": _gen_unique_id(pg),
+            "unique_id": unique_id,
             "rank": rank,
             "action": "restore",
         }
         log_event(Event(name="restore.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
+        phases_before = phase_stats.snapshot()
+        rss = RSSWatermark()
         lease = acquire_op_lease(pg.store, rank)
         try:
             storage = url_to_storage_plugin(self.path, self._storage_options)
@@ -499,6 +546,7 @@ class Snapshot:
                         storage=storage,
                         memory_budget_bytes=memory_budget_bytes,
                     )
+                _write_sidecar(storage, "restore", unique_id, pg, time.monotonic() - begin, phases_before, rss)
             finally:
                 storage.sync_close()
         except Exception:
@@ -568,6 +616,7 @@ class Snapshot:
         placed on ``device`` (default ``"cuda"``).  ``memory_budget_bytes``
         bounds the read buffers (large dense tensors read in tiles under
         it)."""
+        knobs.warn_unimplemented_knobs()
         event_metadata: Dict[str, Any] = {
             "unique_id": uuid.uuid4().hex,
             "rank": self._pg.get_rank(),
@@ -655,13 +704,14 @@ class Snapshot:
 
     def _wrap_reads(self, storage: StoragePlugin, metadata: SnapshotMetadata) -> StoragePlugin:
         """Chunk references resolve against the root's store.  A journal
-        delta segment holds partial state and is refused, as the JAX
-        package refuses it outside its manager's replay."""
+        delta segment holds partial state and is refused outside the
+        manager's replay, which sets the merged metadata on the handle."""
         if metadata.journal is not None:
             raise RuntimeError(
                 f"{self.path} is a journal delta segment (manifest version "
-                f"{metadata.version}); restore it with torchsnapshot_tpu's "
-                "SnapshotManager, which replays the journal over its base"
+                f"{metadata.version}); restore it via "
+                "SnapshotManager.restore_latest()/restore_at(), which replay "
+                "the journal over its base snapshot"
             )
         try:
             return cas.maybe_wrap_cas_reads(storage, self.path, metadata, self._storage_options)
@@ -967,9 +1017,15 @@ class PendingSnapshot:
         stall_s: float = 0.0,
         lease: Optional[Any] = None,
         storage_options: Optional[Dict[str, Any]] = None,
+        manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
+        phases_before: Optional[Dict[str, Dict[str, float]]] = None,
+        rss: Optional[RSSWatermark] = None,
     ) -> None:
         self.path = path
         self._storage_options = storage_options
+        self._manifest_transform = manifest_transform
+        self._phases_before = phases_before or {}
+        self._rss = rss or RSSWatermark()
         self.pg = pg
         self._lease = lease
         self._barrier: Optional[LinearBarrier] = None
@@ -1018,12 +1074,32 @@ class PendingSnapshot:
             barrier_timeout_s = knobs.get_barrier_timeout_s()
             if barrier is not None:
                 barrier.arrive(timeout_s=barrier_timeout_s)
+            committed_md = None
             if self.pg.get_rank() == 0:
+                # The handle keeps the full metadata; the transform (the
+                # journal's delta filter) shapes what is committed.
                 self._metadata = self._finalizer.build_global(self._storage)
-                Snapshot._write_snapshot_metadata(self._metadata, self._storage)
+                committed_md = self._metadata
+                if self._manifest_transform is not None:
+                    committed_md = self._manifest_transform(self._metadata)
+                Snapshot._write_snapshot_metadata(committed_md, self._storage)
                 self._finalizer.cleanup_sidecars(self._storage)
             if barrier is not None:
                 barrier.depart(timeout_s=barrier_timeout_s)
+            # Committed: this rank's telemetry sidecar, still on this thread
+            # (storage only, no collectives).
+            _write_sidecar(
+                self._storage,
+                "async_take",
+                self._unique_id,
+                self.pg,
+                time.monotonic() - self._begin,
+                self._phases_before,
+                self._rss,
+                nbytes=self._bytes_total,
+                committed_md=committed_md,
+                extra={"staging_mode": self._finalizer.staging_mode, "stall_s": round(self.stall_s, 4)},
+            )
             self._storage.sync_close()
             log_event(
                 Event(
@@ -1145,6 +1221,53 @@ class PendingSnapshot:
             fn(self)
         except Exception:  # noqa: BLE001 — never masks the take's outcome
             logger.warning("PendingSnapshot done-callback %r failed", fn, exc_info=True)
+
+
+def _write_sidecar(
+    storage: StoragePlugin,
+    action: str,
+    unique_id: str,
+    pg: PGWrapper,
+    duration_s: float,
+    phases_before: Dict[str, Dict[str, float]],
+    rss: RSSWatermark,
+    nbytes: int = 0,
+    committed_md: Optional[SnapshotMetadata] = None,
+    extra: Optional[Dict[str, Any]] = None,
+) -> None:
+    """This rank's telemetry sidecar of a committed take or a restore,
+    with the CAS writer's stats and the journal summary of a committed
+    segment.  Best-effort: a failure is logged at debug and never fails
+    the operation (``TPUSNAP_SIDECAR=0`` and deadline mode skip it)."""
+    if not tsidecar.enabled():
+        return
+    try:
+        rss.sample()
+        doc_extra: Dict[str, Any] = {
+            "world_size": pg.get_world_size(),
+            **(extra or {}),
+            "rss_high_water_bytes": rss.high_water,
+        }
+        cas_stats = cas.writer_stats(storage)
+        if cas_stats is not None:
+            # Logical against physical bytes: what dedup saved this rank.
+            doc_extra["cas"] = cas_stats
+        if committed_md is not None and committed_md.journal is not None:
+            doc_extra["journal"] = journal.sidecar_summary(committed_md.journal)
+        tsidecar.write(
+            storage,
+            tsidecar.build(
+                action=action,
+                unique_id=unique_id,
+                rank=pg.get_rank(),
+                duration_s=duration_s,
+                phases=phase_stats.delta(phases_before),
+                nbytes=nbytes,
+                extra=doc_extra,
+            ),
+        )
+    except Exception:  # noqa: BLE001 — a sidecar never fails its operation
+        logger.debug("telemetry sidecar of %s failed", action, exc_info=True)
 
 
 def _rank_prefixed(gathered: List[Manifest]) -> Manifest:

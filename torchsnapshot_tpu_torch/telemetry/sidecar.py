@@ -1,0 +1,164 @@
+"""Per-snapshot telemetry sidecars: ``telemetry/<op>.json`` next to
+``.snapshot_metadata``.
+
+Counterpart of ``torchsnapshot_tpu/telemetry/sidecar.py``, schema 1.0 with
+the same keys, so a sidecar either package writes is read by the other's
+manager (restore-point times, step history).  Each take, async take and
+restore writes a small per-rank JSON summary into the snapshot itself:
+phase_stats deltas, throughput, codec and knob values.
+
+Sidecars ride the snapshot's own storage plugin, live under the dot-free
+``telemetry/`` prefix (outside every payload namespace: payloads are
+``<rank>/...``, ``sharded/...``, ``batched/...`` or chunks under the
+root's ``cas/``), and are written best-effort: a failed write is a debug
+log line, never a failed operation.  On by default; ``TPUSNAP_SIDECAR=0``
+opts out, and deadline mode (preemption.py) sheds them.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from typing import Any, Dict, List, Optional
+
+from .. import knobs
+
+logger = logging.getLogger(__name__)
+
+SIDECAR_DIR = "telemetry"
+SCHEMA_VERSION = "1.0"
+
+
+def enabled() -> bool:
+    from .. import preemption
+
+    # Deadline mode: the sidecar is one more storage write between the
+    # flush and its commit, and the least essential one.
+    if preemption.deadline_active():
+        return False
+    return knobs.sidecar_enabled()
+
+
+def sidecar_path(action: str, unique_id: str, rank: int) -> str:
+    return f"{SIDECAR_DIR}/{action}-{unique_id[:8]}-rank{rank}.json"
+
+
+def _knob_values() -> Dict[str, Any]:
+    """The tunables that shape a run's performance profile."""
+    codec, level = knobs.get_compression()
+    return {
+        "compression": codec if level is None else f"{codec}:{level}",
+        "cas": knobs.cas_enabled(),
+        "compression_min_bytes": knobs.get_compression_min_bytes(),
+        "max_per_rank_io_concurrency": knobs.get_max_per_rank_io_concurrency(),
+        "slab_size_threshold_bytes": knobs.get_slab_size_threshold_bytes(),
+        "max_chunk_size_bytes": knobs.get_max_chunk_size_bytes(),
+        "batching_disabled": knobs.is_batching_disabled(),
+        "memory_budget_override_bytes": knobs.get_per_rank_memory_budget_bytes_override(),
+    }
+
+
+def build(
+    action: str,
+    unique_id: str,
+    rank: int,
+    duration_s: float,
+    phases: Dict[str, Dict[str, float]],
+    nbytes: int = 0,
+    success: bool = True,
+    extra: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """One sidecar document.  ``phases`` is the phase_stats delta of
+    exactly this operation, copied (rounded) so its totals agree with
+    phase_stats."""
+    if not nbytes and phases:
+        # Without an exact count: the largest per-phase byte total (each
+        # phase sees the payload stream at most once).
+        nbytes = int(max(v.get("bytes", 0) for v in phases.values()))
+    doc: Dict[str, Any] = {
+        "schema_version": SCHEMA_VERSION,
+        "action": action,
+        "op_id": unique_id,
+        "rank": rank,
+        "timestamp": time.time(),
+        "success": success,
+        "duration_s": round(duration_s, 6),
+        "bytes": int(nbytes),
+        "throughput_gbps": round(nbytes / 1e9 / duration_s, 4) if duration_s > 0 else None,
+        "phases": {
+            phase: {k: (round(v, 6) if isinstance(v, float) else v) for k, v in vals.items()}
+            for phase, vals in phases.items()
+        },
+        "knobs": _knob_values(),
+    }
+    if extra:
+        doc.update(extra)
+    return doc
+
+
+def write(storage, doc: Dict[str, Any]) -> Optional[str]:
+    """Best-effort write of a sidecar through the snapshot's storage
+    plugin.  Returns its path, or None on failure or opt-out."""
+    if not enabled():
+        return None
+    from ..io_types import WriteIO
+
+    path = sidecar_path(doc["action"], doc["op_id"], doc["rank"])
+    try:
+        storage.sync_write(WriteIO(path=path, buf=json.dumps(doc, indent=1).encode("utf-8")))
+        return path
+    except Exception:  # noqa: BLE001 — a sidecar never fails its operation
+        logger.debug("failed to write telemetry sidecar %s", path, exc_info=True)
+        return None
+
+
+def read_all(storage) -> List[Dict[str, Any]]:
+    """Every readable sidecar in a snapshot, newest first."""
+    from ..io_types import ReadIO
+
+    try:
+        names = storage.sync_list_dir(SIDECAR_DIR)
+    except (NotImplementedError, FileNotFoundError):
+        return []
+    docs: List[Dict[str, Any]] = []
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        read_io = ReadIO(path=f"{SIDECAR_DIR}/{name}")
+        try:
+            storage.sync_read(read_io)
+            docs.append(json.loads(bytes(read_io.buf).decode("utf-8")))
+        except Exception:  # noqa: BLE001 — one unreadable sidecar hides none other
+            logger.warning("unreadable telemetry sidecar %s", name)
+    docs.sort(key=lambda d: d.get("timestamp", 0), reverse=True)
+    return docs
+
+
+def summarize(doc: Dict[str, Any]) -> str:
+    """One human line per sidecar."""
+    gbps = doc.get("throughput_gbps")
+    phases = doc.get("phases", {})
+    top = sorted(phases.items(), key=lambda kv: -kv[1].get("wall", kv[1].get("s", 0.0)))[:3]
+    top_str = " ".join("{}={:.2f}s".format(ph, v.get("wall", v.get("s", 0.0))) for ph, v in top)
+    line = (
+        f"{doc.get('action', '?'):>10}  rank {doc.get('rank', '?')}  "
+        f"{doc.get('duration_s', 0.0):7.2f}s  "
+        f"{(doc.get('bytes') or 0) / 1e9:8.3f}GB  "
+        f"{gbps if gbps is not None else '-':>7} GB/s  "
+        f"[{'ok' if doc.get('success', True) else 'ERR'}] {top_str}"
+    )
+    cache = doc.get("cache")
+    if isinstance(cache, dict):
+        hit = int(cache.get("hit_bytes", 0) or 0)
+        miss = int(cache.get("miss_bytes", 0) or 0)
+        if hit or miss:
+            line += f" cache={hit / (hit + miss):.0%} hit ({miss / 1e9:.3f}GB from origin)"
+    cas = doc.get("cas")
+    if isinstance(cas, dict) and cas.get("logical_bytes"):
+        # Logical against physical: what the save represents, what it wrote.
+        logical = cas["logical_bytes"]
+        physical = cas.get("physical_bytes_written", logical)
+        ratio_str = f"{logical / physical:.2f}x" if physical else "inf"
+        line += f" dedup={ratio_str} ({physical / 1e9:.3f}GB physical of {logical / 1e9:.3f}GB logical)"
+    return line
