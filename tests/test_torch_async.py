@@ -41,6 +41,8 @@ from torchsnapshot_tpu_torch.serialization import PrePickled
 from torchsnapshot_tpu_torch.snapshot import _ManifestFinalizer
 from torchsnapshot_tpu_torch.storage_plugins import memory as memory_mod
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 MODES = ["device", "pinned_host", "host"]
 _GATE_TIMEOUT_S = 60.0
 

@@ -15,6 +15,8 @@ from torchsnapshot_tpu_torch import Snapshot, StateDict, cas, knobs
 from torchsnapshot_tpu_torch._native.build import NativeBuildError
 from torchsnapshot_tpu_torch.manifest import CAS_MANIFEST_VERSION, SnapshotMetadata
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 FROZEN = np.random.RandomState(0).rand(65536).astype(np.float32)
 
 

@@ -17,6 +17,8 @@ from torchsnapshot_tpu_torch import Snapshot, StateDict, cas, chunker, event_han
 from torchsnapshot_tpu_torch.manifest import CDC_MANIFEST_VERSION
 from torchsnapshot_tpu_torch.native_io import NativeFileIO
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 SMALL = dict(min_size=1024, avg_size=4096, max_size=16384)
 
 

@@ -24,6 +24,8 @@ from torchsnapshot_tpu_torch.manifest import (
 )
 from torchsnapshot_tpu_torch.serialization import state_from_numpy
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 ALL_CODEC_NAMES = ["raw", "zstd", "lz4", "zlib"]
 
 _DTYPES = [

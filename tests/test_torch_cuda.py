@@ -15,6 +15,8 @@ from torchsnapshot_tpu_torch import ChecksumError, Snapshot, StateDict, knobs
 from torchsnapshot_tpu_torch import device_staging, phase_stats
 from torchsnapshot_tpu_torch.manifest import ChunkedTensorEntry
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 @pytest.fixture
 def cuda_device():

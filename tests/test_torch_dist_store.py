@@ -19,6 +19,8 @@ import pytest
 from torchsnapshot_tpu_torch import knobs
 from torchsnapshot_tpu_torch.test_utils import make_test_pg, run_with_procs
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 @run_with_procs(nproc=4)
 def _collectives_body():

@@ -23,6 +23,8 @@ from torchsnapshot_tpu_torch.test_utils import (
     run_with_procs,
 )
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _run_dir(name: str) -> str:
     """A directory beside the run's FileStore (removed with the run)."""

@@ -30,6 +30,8 @@ from torchsnapshot_tpu_torch.io_types import ReadIO, WriteIO
 from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
 from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _state(v=1):
     return {"m": StateDict({"w": torch.full((256,), float(v)), "step": v})}

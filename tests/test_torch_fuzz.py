@@ -16,6 +16,8 @@ from torchsnapshot_tpu import Snapshot as JaxSnapshot
 from torchsnapshot_tpu import StateDict as JaxStateDict
 from torchsnapshot_tpu_torch.serialization import host_bytes, state_from_numpy
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _random_leaf(rng: random.Random):
     choice = rng.randrange(7)

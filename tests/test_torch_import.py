@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO_ROOT, "torchsnapshot_tpu_torch")
 FORBIDDEN = ("jax", "ml_dtypes", "psutil", "aiofiles", "zstandard", "lz4", "torchsnapshot_tpu")

@@ -11,6 +11,8 @@ import torch
 
 from torchsnapshot_tpu_torch import Snapshot, StateDict, knobs
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _inode(path):
     return os.stat(path).st_ino

@@ -13,6 +13,8 @@ from torchsnapshot_tpu import integrity as jax_integrity
 from torchsnapshot_tpu_torch import ChecksumError, Snapshot, StateDict, integrity
 from torchsnapshot_tpu_torch.native_io import STRIPED_MIN_BYTES, NativeFileIO
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _flip(path, entry, offset=100):
     payload = os.path.join(path, entry.location)

@@ -27,6 +27,8 @@ from torchsnapshot_tpu_torch.snapshot import Snapshot
 from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 from torchsnapshot_tpu_torch.telemetry import sidecar
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _state(v, frozen=None, drop=False):
     d = {"hot": torch.full((128,), float(v)), "step": v}

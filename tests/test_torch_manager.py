@@ -23,6 +23,8 @@ from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
 from torchsnapshot_tpu_torch.telemetry import sidecar
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _state(v):
     return {"m": StateDict({"w": torch.full((8,), float(v)), "step": v})}

@@ -21,6 +21,8 @@ from torchsnapshot_tpu.integrity import ChecksumError as JaxChecksumError
 from torchsnapshot_tpu.models.llama import LlamaConfig, init_params
 from torchsnapshot_tpu_torch.serialization import host_bytes, state_from_numpy
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 SHARED_DTYPES = sorted(d for d in jax_ser._STRING_TO_DTYPE if d != "float8_e4m3b11fnuz")
 
 

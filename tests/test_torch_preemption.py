@@ -24,6 +24,8 @@ import torch
 from torchsnapshot_tpu_torch import Snapshot, StateDict, event_handlers, knobs, preemption
 from torchsnapshot_tpu_torch.storage_plugins import memory as memory_mod
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 _WAIT_S = 60.0
 
 

@@ -14,6 +14,8 @@ import torch
 from torchsnapshot_tpu_torch import ChecksumError, Snapshot, StateDict, StorageTransientError, event_handlers, knobs
 from torchsnapshot_tpu_torch.manager import SnapshotManager
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _state(v):
     return {"m": StateDict({"w": torch.full((1024,), float(v)), "step": v})}

@@ -11,6 +11,8 @@ from torchsnapshot_tpu import serialization as jax_ser
 from torchsnapshot_tpu_torch import serialization as ser
 from torchsnapshot_tpu_torch.serialization import DtypeUnavailableError
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 ALL_DTYPES = sorted(jax_ser._STRING_TO_DTYPE)
 SHARED_DTYPES = [s for s in ALL_DTYPES if s != "float8_e4m3b11fnuz"]
 

@@ -19,6 +19,8 @@ import torch
 from torchsnapshot_tpu_torch import knobs
 from torchsnapshot_tpu_torch.test_utils import make_test_pg, run_with_procs
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 # ------------------------------------------------ box arithmetic vs JAX
 
 

@@ -25,6 +25,8 @@ from torchsnapshot_tpu_torch.manager import SnapshotManager
 from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 from torchsnapshot_tpu_torch.telemetry import history, sidecar
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _state(v):
     return {"m": StateDict({"w": torch.full((256,), float(v)), "step": v})}

@@ -32,6 +32,8 @@ from torchsnapshot_tpu_torch.manifest import (
     UnsupportedSnapshotError,
 )
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 
 def _app_state():
     g = torch.Generator().manual_seed(0)

@@ -16,6 +16,8 @@ import pytest
 from torchsnapshot_tpu_torch import knobs
 from torchsnapshot_tpu_torch.test_utils import run_with_procs
 
+from torch_env import default_knob_env  # noqa: F401  autouse fixture
+
 PAIRINGS = ["port-port", "port-jax", "jax-port"]
 
 
