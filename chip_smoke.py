@@ -48,6 +48,24 @@ calls, in phases that each print one JSON line:
                 bytes equal to the state's bytes
 6. read_object — reads the chunked ``embed.tokens`` onto the card
 7. integrity  — a flipped payload byte must raise ``ChecksumError``
+   host data plane — each phase removes its directories before the next:
+   direct_io_take — ``Snapshot.take`` with ``TPUSNAP_DIRECT_IO=1``: the
+                resolved mode (1 io_uring, 2 O_DIRECT pwrite, 3 the
+                buffered fallback, which must come with one
+                ``native.degraded`` event), every payload digest equal to
+                the ``take`` phase's; ``direct_io_restore`` bit-exact in
+                place
+   adaptive_restore — that snapshot restored with ``TPUSNAP_CHECKSUM=0``
+                (unhashed reads, so large ones take the adaptive path)
+                under ``TPUSNAP_PARALLEL_READ_WAYS`` 1, 8 and unset, each
+                after evicting its files from the page cache and again
+                warm: sequential and parallel read counts, the measured
+                rates and the pick; bit-exact in place
+   torch_layout_take — the same weights as an ``nn.Module.state_dict()`` of
+                Llama-3-8B holds them (291 per-layer views), taken with
+                ``TPUSNAP_NATIVE_BATCH=0`` and then 8: native write+hash,
+                batched call and member counts; equal digests;
+                ``torch_layout_restore`` bit-exact in place
    async_*    — ``Snapshot.async_take`` forced into each staging mode
                 (``async_pinned_host`` twice: ``auto``, which must resolve
                 to pinned_host, then ``pinned_host``; ``async_device``;
@@ -938,6 +956,194 @@ def manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
 
 
+# --------------------------------------------------- host data plane phases
+#
+# Direct I/O, the adaptive read strategy and micro-batched fused writes, at
+# full size.  Each phase removes its directories before the next starts.
+
+READ_WAYS = ("1", "8", None)  # pinned sequential, pinned parallel, measured
+
+
+def payload_digests(manifest):
+    """{(key, location, byte range): checksum} of every payload entry."""
+    from torchsnapshot_tpu_torch.manifest import iter_payload_entries
+
+    return {(k, e.location, tuple(getattr(e, "byte_range", None) or ())): e.checksum
+            for k, e in iter_payload_entries(manifest)}
+
+
+def evict_page_cache(root: str) -> int:
+    """Drop the page-cache pages of every file under ``root`` (flushed first,
+    so the pages are clean and droppable); returns the bytes evicted."""
+    total = 0
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            fd = os.open(os.path.join(dirpath, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                total += os.fstat(fd).st_size
+            finally:
+                os.close(fd)
+    return total
+
+
+def phase_n(stats, phase: str) -> int:
+    return int(stats.get(phase, {}).get("n", 0))
+
+
+def direct_io_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, buffered_manifest):
+    """A sync take with TPUSNAP_DIRECT_IO=1: the resolved rung, whether the
+    writes fell back to buffered I/O, the same digests as the buffered
+    take of the same state, then a restore (a cold one: the page cache
+    never held the payload)."""
+    from torchsnapshot_tpu_torch.native_io import NativeFileIO
+
+    path = os.path.join(workdir, "direct", "snap")
+    first_event = len(events)
+    device_sync(torch)
+    with knobs.override_direct_io(True):
+        phase_stats.reset()
+        begin = time.monotonic()
+        snapshot = ts.Snapshot.take(path, app_state)
+        take_s = time.monotonic() - begin
+        stats = phase_stats.snapshot()
+        mode = NativeFileIO.get().direct_io_mode()
+    degraded = [e.metadata for e in events[first_event:] if e.name == "native.degraded"]
+    want, got = payload_digests(buffered_manifest), payload_digests(snapshot.get_manifest())
+    differ = sorted(str(k) for k in set(want) | set(got) if want.get(k) != got.get(k))
+    take_ok = mode in (1, 2, 3) and bool(want) and not differ and (mode == 3) == bool(degraded)
+    emit({"phase": "direct_io_take", "ok": take_ok, "mode": mode,
+          "mode_name": {1: "io_uring", 2: "O_DIRECT pwrite", 3: "buffered fallback"}.get(mode),
+          "degraded_event": bool(degraded), "seconds": round(take_s, 3), "gbps": round(nbytes / GB / take_s, 3),
+          "native_write_hash_wall_s": round(stats.get("native_write_hash", {}).get("wall", 0.0), 4),
+          "commit_fs_write_s": round(stats.get("fs_write", {}).get("wall", 0.0), 4),
+          "digests_compared": len(want), "digests_differ": differ[:5], "phases": phase_summary(stats)})
+    if not take_ok:
+        raise RuntimeError(f"direct_io_take: mode {mode}, degraded {degraded}, digests differ: {differ[:5]}")
+    seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
+    ok = not mismatched and not moved
+    emit({"phase": "direct_io_restore", "ok": ok, "cache": "cold (written with O_DIRECT)" if mode in (1, 2) else "warm",
+          "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3), "bit_exact": not mismatched,
+          "data_ptr_unchanged": not moved, "mismatched": mismatched[:5], "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("direct_io_restore: not bit-exact in place")
+    return path
+
+
+def adaptive_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, path):
+    """Unhashed restores (TPUSNAP_CHECKSUM=0) of the direct-I/O snapshot,
+    so that the large reads take the adaptive path: pinned sequential
+    (ways 1), pinned parallel (ways 8) and measured (unset), each from a
+    cold page cache (evicted) and then a warm one."""
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+    measured = []
+    close = FSStoragePlugin.close
+
+    async def close_recording(self):
+        measured.append((self._seq_gbps, self._par_gbps))
+        await close(self)
+
+    FSStoragePlugin.close = close_recording
+    try:
+        with knobs.override_env("TPUSNAP_CHECKSUM", "0"):
+            for ways in READ_WAYS:
+                for cache in ("cold", "warm"):
+                    evicted = evict_page_cache(path) if cache == "cold" else 0
+                    del measured[:]
+                    with knobs.override_env("TPUSNAP_PARALLEL_READ_WAYS", ways):
+                        seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
+                    seq, par = next(((s, p) for s, p in measured if s or p), (None, None))
+                    pick = None if seq is None or par is None else ("parallel" if par > seq else "sequential")
+                    ok = not mismatched and not moved and "checksum" not in stats
+                    emit({"phase": "adaptive_restore", "ok": ok, "ways": ways or "auto", "cache": cache,
+                          "evicted_bytes": evicted, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+                          "sequential_reads": phase_n(stats, "fs_read"), "parallel_reads": phase_n(stats, "native_read"),
+                          "measured_seq_gbps": seq and round(seq, 3), "measured_par_gbps": par and round(par, 3),
+                          "adaptive_pick": pick, "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+                          "phases": phase_summary(stats)})
+                    if not ok:
+                        raise RuntimeError(f"adaptive_restore ways={ways} {cache}: not bit-exact in place, or hashed")
+    finally:
+        FSStoragePlugin.close = close
+
+
+def module_layout(model):
+    """The stacked parameters as an ``nn.Module.state_dict()`` of Llama-3-8B
+    holds them: one tensor per layer and role (the Meta reference names),
+    each a view of its stacked tensor, plus the embedding, final norm and
+    output."""
+    attn, mlp, layers = model["layers"]["attn"], model["layers"]["mlp"], model["layers"]
+    flat = {"tok_embeddings.weight": model["embed"]["tokens"], "norm.weight": model["final_norm"],
+            "output.weight": model["output"]["kernel"]}
+    roles = (("attention.wq", attn["wq"]), ("attention.wk", attn["wk"]), ("attention.wv", attn["wv"]),
+             ("attention.wo", attn["wo"]), ("feed_forward.w1", mlp["w_gate"]), ("feed_forward.w3", mlp["w_up"]),
+             ("feed_forward.w2", mlp["w_down"]), ("attention_norm", layers["attn_norm"]),
+             ("ffn_norm", layers["mlp_norm"]))
+    for i in range(attn["wq"].shape[0]):
+        for name, stacked in roles:
+            flat[f"layers.{i}.{name}.weight"] = stacked[i]
+    return flat
+
+
+def torch_layout_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir):
+    """The same weights as 291 per-layer tensors: a take with micro-batching
+    off, then on (the default 8); equal digests; a bit-exact restore."""
+    flat = module_layout(app_state["model"].state_dict())
+    small = sum(1 for t in flat.values() if t.numel() * 2 <= 8 << 10)
+    digests = {}
+    for batch in (0, 8):
+        path = os.path.join(workdir, "layout", f"batch_{batch}")
+        device_sync(torch)
+        phase_stats.reset()
+        with knobs.override_env("TPUSNAP_NATIVE_BATCH", str(batch)):
+            begin = time.monotonic()
+            snapshot = ts.Snapshot.take(path, {"model": ts.StateDict(flat)})
+            seconds = time.monotonic() - begin
+        stats = phase_stats.snapshot()
+        manifest = snapshot.get_manifest()
+        digests[batch] = payload_digests(manifest)
+        slabbed = sum(1 for k, e in manifest.items() if getattr(e, "location", "").startswith("batched/"))
+        members = phase_n(stats, "native_write_batched")
+        emit({"phase": "torch_layout_take", "ok": True, "native_batch": batch, "tensors": len(flat),
+              "tensors_8kib_or_less": small, "slab_members": slabbed, "seconds": round(seconds, 3),
+              "gbps": round(nbytes / GB / seconds, 3), "native_write_hash_calls": phase_n(stats, "native_write_hash"),
+              "batched_calls": phase_n(stats, "native_write_batch"), "batched_members": members,
+              "fused_batcher_saw_no_member": members == 0, "phases": phase_summary(stats)})
+        if batch == 0:
+            shutil.rmtree(path)
+    model = app_state["model"].state_dict()
+    ptrs = {k: t.data_ptr() for k, t in flat.items()}
+    for p in ref:
+        get_leaf(model, p).zero_()
+    device_sync(torch)
+    phase_stats.reset()
+    begin = time.monotonic()
+    ts.Snapshot(path).restore({"model": ts.StateDict(flat)})
+    device_sync(torch)
+    seconds = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    mismatched = [p for p in ref if not bit_equal(torch, get_leaf(model, p), ref[p])]
+    moved = [k for k, t in flat.items() if t.data_ptr() != ptrs[k]]
+    differ = sorted(str(k) for k in set(digests[0]) | set(digests[8]) if digests[0].get(k) != digests[8].get(k))
+    ok = not mismatched and not moved and bool(digests[0]) and not differ
+    emit({"phase": "torch_layout_restore", "ok": ok, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+          "digests_compared": len(digests[0]), "digests_differ": differ[:5], "bit_exact": not mismatched,
+          "data_ptr_unchanged": not moved, "mismatched": mismatched[:5], "phases": phase_summary(stats)})
+    shutil.rmtree(os.path.dirname(path))
+    if not ok:
+        raise RuntimeError(f"torch_layout: digests differ {differ[:5]} or not bit-exact in place")
+
+
+def data_plane_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, buffered_manifest):
+    path = direct_io_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir,
+                                buffered_manifest)
+    adaptive_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, path)
+    shutil.rmtree(os.path.dirname(path))
+    torch_layout_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir)
+
+
 # ------------------------------------------------------ distributed phases
 #
 # Several ranks share the one card: spawned processes (CUDA cannot be
@@ -1660,6 +1866,8 @@ def run(args) -> int:
     del params, w, small
     events: list = []
     event_handlers.register_event_handler(events.append)
+    # host data plane phases, held against the take phase's manifest.
+    data_plane_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, manifest)
     g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
     mats = [torch.randn(STEP_DIM, STEP_DIM, generator=g, dtype=torch.bfloat16, device="cuda") * STEP_DIM ** -0.5
             for _ in range(2)]

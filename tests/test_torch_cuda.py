@@ -14,6 +14,8 @@ import torch
 from torchsnapshot_tpu_torch import ChecksumError, Snapshot, StateDict, knobs
 from torchsnapshot_tpu_torch import device_staging, phase_stats
 from torchsnapshot_tpu_torch.manifest import ChunkedTensorEntry
+from torchsnapshot_tpu_torch.native_io import NativeFileIO
+from torchsnapshot_tpu_torch.storage_plugins import fs as fs_mod
 
 from torch_env import default_knob_env  # noqa: F401  autouse fixture
 
@@ -356,3 +358,65 @@ def test_cuda_replayed_journal_restore_in_place(tmp_path, cuda_device, async_):
         for k, v in want[step].items():
             assert dst[k].is_cuda and dst[k].data_ptr() == ptrs[k], k
             assert torch.equal(_bits(dst[k]), _bits(v)), (step, k)
+
+
+def _restore_in_place_and_check(path, state):
+    dst = {k: torch.zeros_like(v) for k, v in state.items()}
+    ptrs = {k: v.data_ptr() for k, v in dst.items()}
+    Snapshot(str(path)).restore({"m": StateDict(dst)})
+    torch.cuda.synchronize()
+    for k, v in state.items():
+        assert torch.equal(_bits(dst[k]), _bits(v)) and dst[k].data_ptr() == ptrs[k], k
+
+
+def _plane_state(device):
+    """Leaves of several sizes, each its own payload with the slab batcher
+    off: direct-I/O writes with unaligned tails, reads above and below the
+    (lowered) parallel-read threshold."""
+    g = torch.Generator(device=device).manual_seed(1)
+    state = _state(device)
+    state["big"] = torch.randn(9 << 18, generator=g, device=device)  # 9 MiB: three 4 MiB bounce chunks
+    state["odd"] = torch.randn(1001, 3, generator=g, device=device).to(torch.bfloat16)
+    return state
+
+
+@pytest.mark.cuda
+def test_cuda_direct_io_take_and_restore_in_place(tmp_path, cuda_device):
+    """A take of CUDA tensors with TPUSNAP_DIRECT_IO=1 writes the same bytes
+    as a buffered take, through the resolved rung, and restores bit-exact
+    in place."""
+    state = _plane_state(cuda_device)
+    with knobs.override_batching_disabled(True), knobs.override_sidecar(False):
+        Snapshot.take(str(tmp_path / "buffered"), {"m": StateDict(state)})
+        with knobs.override_direct_io(True):
+            Snapshot.take(str(tmp_path / "direct"), {"m": StateDict(state)})
+            mode = NativeFileIO.get().direct_io_mode()
+    assert mode in (1, 2, 3), mode
+    files = sorted(p.relative_to(tmp_path / "buffered") for p in (tmp_path / "buffered").rglob("*") if p.is_file())
+    assert files
+    for rel in files:
+        assert (tmp_path / "direct" / rel).read_bytes() == (tmp_path / "buffered" / rel).read_bytes(), rel
+    _restore_in_place_and_check(tmp_path / "direct", state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ways", ["1", "8", "auto"])
+def test_cuda_unhashed_adaptive_restore_in_place(tmp_path, cuda_device, monkeypatch, ways):
+    """With checksums off the reads into the pinned buffers of CUDA targets
+    are unhashed and take the adaptive path (the threshold lowered so every
+    tensor above 1 KiB qualifies): pinned to sequential, pinned to
+    parallel, or measured; every restore is bit-exact in place."""
+    state = _plane_state(cuda_device)
+    with knobs.override_batching_disabled(True):
+        Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(state)})
+    monkeypatch.setattr(fs_mod, "_PARALLEL_READ_MIN_BYTES", 1024)
+    monkeypatch.setenv("TPUSNAP_CHECKSUM", "0")
+    monkeypatch.setenv("TPUSNAP_PARALLEL_READ_WAYS", ways)
+    with knobs.override_batching_disabled(True):
+        phase_stats.reset()
+        _restore_in_place_and_check(tmp_path / "snap", state)
+    stats = phase_stats.snapshot()
+    if ways != "auto":
+        assert ("native_read" in stats) == (ways == "8")
+    assert "fs_read" in stats  # the reads below the threshold, at least
+

@@ -42,6 +42,9 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch.telemetry\n"
         "import torchsnapshot_tpu_torch.telemetry.sidecar\n"
         "import torchsnapshot_tpu_torch.telemetry.history\n"
+        "import torchsnapshot_tpu_torch.native_io\n"
+        "import torchsnapshot_tpu_torch._native.build\n"
+        "import torchsnapshot_tpu_torch.storage_plugins.fs\n"
         "from torchsnapshot_tpu_torch import compression\n"
         "assert compression.resolve('zstd') == 'zstd'  # the native backend\n"
         "compression.decode(compression.encode(bytes(1 << 21), 'zstd')[0])\n"

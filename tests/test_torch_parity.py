@@ -1000,3 +1000,79 @@ def test_two_rank_journal_root_restores_through_the_jax_manager(tmp_path, monkey
         got = dst["m"][name]
         assert got.sharding == targets[name].sharding
         assert _raw(np.asarray(got)) == manager_parity_value(name, 2).view(torch.uint8).numpy().tobytes(), name
+
+
+# ------------------------------------------------------- host data plane
+
+import hashlib  # noqa: E402
+
+from torchsnapshot_tpu import native_io as jax_native_io  # noqa: E402
+from torchsnapshot_tpu_torch import phase_stats  # noqa: E402
+from torchsnapshot_tpu_torch.native_io import NativeFileIO  # noqa: E402
+
+PLANE_ON = {"TPUSNAP_DIRECT_IO": "1", "TPUSNAP_NATIVE_BATCH": "8"}
+PLANE_OFF = {"TPUSNAP_DIRECT_IO": "0", "TPUSNAP_NATIVE_BATCH": "0"}
+
+
+def _plane_state():
+    """A striped leaf, a mid-sized one, and 48 small leaves (each its own
+    payload with the slab batcher off, so the micro-batcher has members)."""
+    rng = np.random.default_rng(17)
+    return {
+        "big": rng.standard_normal((33 << 20) // 4 + 1000).astype(np.float32),
+        "mid": rng.integers(0, 1 << 30, (300, 257), dtype=np.int64),
+        **{f"leaf{i}": rng.standard_normal((24, 40 + i)).astype(np.float32) for i in range(48)},
+        "step": 5,
+    }
+
+
+def _payload_digests(root):
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            rel = os.path.relpath(os.path.join(dirpath, name), root)
+            if not (name.startswith(".") or rel.startswith("telemetry/")):
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    out[rel] = hashlib.sha1(f.read()).hexdigest()
+    return out
+
+
+@pytest.mark.parametrize("slab_batching", [False, True], ids=["slabs_off", "slabs_on"])
+@pytest.mark.parametrize("port_knobs", ["on", "off"], ids=["port_direct_batched", "jax_direct_batched"])
+def test_data_plane_knobs_leave_the_bytes_identical_across_packages(tmp_path, monkeypatch, port_knobs, slab_batching):
+    """One package takes with direct I/O and micro-batching on, the other
+    with both off: every payload file and every manifest entry (digests
+    included) are identical, and each package restores the other's
+    snapshot bit-exact."""
+    state = _plane_state()
+    monkeypatch.setenv("TPUSNAP_SIDECAR", "0")
+    monkeypatch.setenv("TPUSNAP_DISABLE_BATCHER", "0" if slab_batching else "1")
+    port_env, jax_env = (PLANE_ON, PLANE_OFF) if port_knobs == "on" else (PLANE_OFF, PLANE_ON)
+    jax_native = jax_native_io.NativeFileIO.maybe_create()
+    try:
+        _set_env(monkeypatch, port_env)
+        phase_stats.reset()
+        ts.Snapshot.take(str(tmp_path / "port"), {"m": ts.StateDict(state_from_numpy(state))})
+        port_mode = NativeFileIO.get().direct_io_mode()
+        batched = phase_stats.snapshot().get("native_write_batched", {}).get("n", 0)
+        _set_env(monkeypatch, jax_env)
+        JaxSnapshot.take(str(tmp_path / "jax"), {"m": JaxStateDict(state)})
+        jax_mode = jax_native.direct_io_mode()
+    finally:
+        jax_native.configure_direct_io(False)
+    on_mode, off_mode = (port_mode, jax_mode) if port_knobs == "on" else (jax_mode, port_mode)
+    assert on_mode in (1, 2, 3) and off_mode == 0
+    assert (batched > 0) == (port_knobs == "on" and not slab_batching)
+    digests = _payload_digests(tmp_path / "port")
+    assert digests and digests == _payload_digests(tmp_path / "jax")
+    docs = {pkg: json.loads((tmp_path / pkg / ".snapshot_metadata").read_text()) for pkg in ("jax", "port")}
+    assert docs["port"]["manifest"] == docs["jax"]["manifest"]
+
+    for key in PLANE_ON:
+        monkeypatch.delenv(key)
+    targets = state_from_numpy(_zeros_numpy(state))
+    ts.Snapshot(str(tmp_path / "jax")).restore({"m": ts.StateDict(targets)})
+    _assert_same_bytes(state, targets)
+    jax_dst = {"m": JaxStateDict(_zeros_numpy(state))}
+    JaxSnapshot(str(tmp_path / "port")).restore(jax_dst)
+    _assert_same_bytes(state, jax_dst["m"].state_dict())

@@ -6,8 +6,11 @@
 // _native/tpustore.cc, cut to what the synchronous take/restore path calls:
 //   tpusnap_abi_version / tpusnap_pool_configure / tpusnap_pool_size
 //   tpusnap_xxhash64 / tpusnap_xxhash64_striped
-//   tpusnap_write_file_parts / tpusnap_write_parts_hash
-//   tpusnap_read_ranges_hash / tpusnap_file_size
+//   tpusnap_write_file_parts / tpusnap_write_parts_hash /
+//   tpusnap_write_parts_hash_batch (N payload files in one call)
+//   tpusnap_direct_io_configure / tpusnap_direct_io_mode (the opt-in
+//   io_uring -> O_DIRECT pwrite -> buffered write ladder)
+//   tpusnap_read_range / tpusnap_read_ranges_hash / tpusnap_file_size
 //   tpusnap_cdc_boundaries (content-defined chunk edges)
 //   tpusnap_has_zstd / tpusnap_zstd_encode / tpusnap_zstd_encode2 /
 //   tpusnap_zstd_decode (the compression frame's zstd codec)
@@ -21,6 +24,7 @@
 #include <cerrno>
 #include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <dlfcn.h>
@@ -37,6 +41,21 @@
 
 #ifdef TPUSNAP_WITH_ZSTD
 #include <zstd.h>
+#endif
+
+// io_uring write submission (TPUSNAP_DIRECT_IO): raw syscalls against the
+// uapi header, no liburing.  Compiled whenever the build host's headers
+// describe the interface; whether the RUNNING kernel (or a container's
+// seccomp profile) allows it is a runtime probe (uring_available).
+#if defined(__linux__)
+#include <sys/syscall.h>
+#if defined(__NR_io_uring_setup) && defined(__NR_io_uring_enter) && \
+    __has_include(<linux/io_uring.h>)
+#define TPUSNAP_HAVE_URING 1
+#include <linux/io_uring.h>
+#include <sys/mman.h>
+#include <sys/uio.h>
+#endif
 #endif
 
 extern "C" {
@@ -358,16 +377,353 @@ uint64_t combine_stripe_digests(const std::vector<uint64_t>& digests,
                           static_cast<int64_t>(packed.size()), seed);
 }
 
-// One payload file: open, write all parts sequentially, close.
-int write_one_file(const char* path, const void* const* bufs,
-                   const int64_t* sizes, int n) {
+// ------------------------------------------------------- direct I/O plane
+// Opt-in (TPUSNAP_DIRECT_IO -> tpusnap_direct_io_configure): payload writes
+// bypass the page cache.  Capability ladder, probed at configure time and
+// degraded per process at the first incompatibility:
+//   1 = io_uring submission of aligned O_DIRECT chunk writes,
+//   2 = aligned pwrite + O_DIRECT (no io_uring on this kernel),
+//   3 = buffered fallback (the filesystem rejected O_DIRECT), which the
+//       Python side reports once as a native.degraded event.
+// Payloads stream through DIO_ALIGN-aligned bounce buffers (caller buffers
+// need no alignment); the final partial block is zero-padded for the
+// aligned write and the file truncated back to its logical size, so the
+// bytes on disk are identical to the buffered path's in every mode.
+enum DirectMode {
+  DIO_OFF = 0,
+  DIO_URING = 1,
+  DIO_ODIRECT = 2,
+  DIO_BUFFERED = 3,
+};
+
+std::atomic<int> g_direct_mode{DIO_OFF};
+
+constexpr int64_t DIO_ALIGN = 4096;
+constexpr int64_t DIO_BOUNCE = 4 << 20;
+
+bool uring_available() {
+#ifdef TPUSNAP_HAVE_URING
+  static const bool avail = [] {
+    io_uring_params p{};
+    memset(&p, 0, sizeof(p));
+    int fd = static_cast<int>(syscall(__NR_io_uring_setup, 4, &p));
+    if (fd >= 0) {
+      ::close(fd);
+      return true;
+    }
+    return false;
+  }();
+  return avail;
+#else
+  return false;
+#endif
+}
+
+#ifdef TPUSNAP_HAVE_URING
+// Minimal single-threaded submission ring (one per file write, never
+// shared): enough for double-buffered sequential chunk writes.  The SQ/CQ
+// indices shared with the kernel are accessed with acquire/release atomics
+// per the io_uring memory model.
+struct Uring {
+  int ring_fd = -1;
+  void* sq_ring = MAP_FAILED;
+  size_t sq_ring_sz = 0;
+  void* cq_ring = MAP_FAILED;
+  size_t cq_ring_sz = 0;
+  void* sqe_mem = MAP_FAILED;
+  size_t sqe_sz = 0;
+  unsigned* sq_tail = nullptr;
+  unsigned* sq_mask = nullptr;
+  unsigned* sq_array = nullptr;
+  io_uring_sqe* sqes = nullptr;
+  unsigned* cq_head = nullptr;
+  unsigned* cq_tail = nullptr;
+  unsigned* cq_mask = nullptr;
+  io_uring_cqe* cqes = nullptr;
+
+  bool init(unsigned entries) {
+    io_uring_params p{};
+    memset(&p, 0, sizeof(p));
+    ring_fd = static_cast<int>(syscall(__NR_io_uring_setup, entries, &p));
+    if (ring_fd < 0) return false;
+    sq_ring_sz = p.sq_off.array + p.sq_entries * sizeof(unsigned);
+    cq_ring_sz = p.cq_off.cqes + p.cq_entries * sizeof(io_uring_cqe);
+    sq_ring = mmap(nullptr, sq_ring_sz, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, ring_fd, IORING_OFF_SQ_RING);
+    cq_ring = mmap(nullptr, cq_ring_sz, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, ring_fd, IORING_OFF_CQ_RING);
+    sqe_sz = p.sq_entries * sizeof(io_uring_sqe);
+    sqe_mem = mmap(nullptr, sqe_sz, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, ring_fd, IORING_OFF_SQES);
+    if (sq_ring == MAP_FAILED || cq_ring == MAP_FAILED ||
+        sqe_mem == MAP_FAILED) {
+      return false;
+    }
+    auto* sqb = static_cast<uint8_t*>(sq_ring);
+    sq_tail = reinterpret_cast<unsigned*>(sqb + p.sq_off.tail);
+    sq_mask = reinterpret_cast<unsigned*>(sqb + p.sq_off.ring_mask);
+    sq_array = reinterpret_cast<unsigned*>(sqb + p.sq_off.array);
+    sqes = static_cast<io_uring_sqe*>(sqe_mem);
+    auto* cqb = static_cast<uint8_t*>(cq_ring);
+    cq_head = reinterpret_cast<unsigned*>(cqb + p.cq_off.head);
+    cq_tail = reinterpret_cast<unsigned*>(cqb + p.cq_off.tail);
+    cq_mask = reinterpret_cast<unsigned*>(cqb + p.cq_off.ring_mask);
+    cqes = reinterpret_cast<io_uring_cqe*>(cqb + p.cq_off.cqes);
+    return true;
+  }
+
+  ~Uring() {
+    if (sq_ring != MAP_FAILED) munmap(sq_ring, sq_ring_sz);
+    if (cq_ring != MAP_FAILED) munmap(cq_ring, cq_ring_sz);
+    if (sqe_mem != MAP_FAILED) munmap(sqe_mem, sqe_sz);
+    if (ring_fd >= 0) ::close(ring_fd);
+  }
+
+  // Submit one IORING_OP_WRITEV (iov must outlive the completion).  EINTR
+  // is retried: a signal mid-enter must not read as a capability failure
+  // (the caller degrades the process off io_uring on a submit error).
+  int submit_writev(int fd, const iovec* iov, int64_t off, uint64_t tag) {
+    unsigned tail = *sq_tail;
+    unsigned idx = tail & *sq_mask;
+    io_uring_sqe* sqe = &sqes[idx];
+    memset(sqe, 0, sizeof(*sqe));
+    sqe->opcode = IORING_OP_WRITEV;
+    sqe->fd = fd;
+    sqe->addr = reinterpret_cast<uint64_t>(iov);
+    sqe->len = 1;
+    sqe->off = static_cast<uint64_t>(off);
+    sqe->user_data = tag;
+    sq_array[idx] = idx;
+    __atomic_store_n(sq_tail, tail + 1, __ATOMIC_RELEASE);
+    long rc;
+    do {
+      rc = syscall(__NR_io_uring_enter, ring_fd, 1, 0, 0, nullptr, 0);
+    } while (rc < 0 && errno == EINTR);
+    return rc < 0 ? -errno : 0;
+  }
+
+  // Block for one completion; *res is the CQE result (bytes or -errno).
+  int wait_one(int64_t* res, uint64_t* tag) {
+    for (;;) {
+      unsigned head = *cq_head;
+      unsigned tail = __atomic_load_n(cq_tail, __ATOMIC_ACQUIRE);
+      if (head != tail) {
+        io_uring_cqe* cqe = &cqes[head & *cq_mask];
+        *res = cqe->res;
+        *tag = cqe->user_data;
+        __atomic_store_n(cq_head, head + 1, __ATOMIC_RELEASE);
+        return 0;
+      }
+      long rc = syscall(__NR_io_uring_enter, ring_fd, 0, 1,
+                        IORING_ENTER_GETEVENTS, nullptr, 0);
+      if (rc < 0 && errno != EINTR) return -errno;
+    }
+  }
+};
+#endif  // TPUSNAP_HAVE_URING
+
+struct AlignedBuf {
+  uint8_t* p = nullptr;
+  explicit AlignedBuf(size_t n) {
+    void* mem = nullptr;
+    if (posix_memalign(&mem, static_cast<size_t>(DIO_ALIGN), n) == 0) {
+      p = static_cast<uint8_t*>(mem);
+    }
+  }
+  ~AlignedBuf() { free(p); }
+};
+
+// Streams the parts' bytes through aligned bounce buffers into an O_DIRECT
+// fd; with use_uring, chunk N+1 fills while chunk N's write is in flight
+// (double buffering, the only asynchrony a sequential payload permits).
+// An io_uring rejection at run time degrades the PROCESS to the pwrite rung
+// and redoes the chunk; a short aligned write is finished with pwrite.
+int write_parts_direct(int fd, const void* const* bufs, const int64_t* sizes,
+                       int n, bool use_uring) {
+  int64_t total = 0;
+  for (int i = 0; i < n; ++i) total += sizes[i];
+  if (total == 0) return 0;
+  // The bounce is sized to the payload (a 64 KiB batch member must not pay
+  // two 4 MiB allocations and a ring), and a one-chunk payload skips
+  // io_uring: ring setup costs more than the one pwrite it would replace.
+  int64_t rounded = ((total + DIO_ALIGN - 1) / DIO_ALIGN) * DIO_ALIGN;
+  int64_t bounce_sz = rounded < DIO_BOUNCE ? rounded : DIO_BOUNCE;
+  bool multi_chunk = total > bounce_sz;
+  if (!multi_chunk) use_uring = false;
+  AlignedBuf a(static_cast<size_t>(bounce_sz));
+  AlignedBuf b(static_cast<size_t>(multi_chunk ? bounce_sz : DIO_ALIGN));
+  if (a.p == nullptr || b.p == nullptr) return -ENOMEM;
+  uint8_t* bounce[2] = {a.p, b.p};
+  bool inflight[2] = {false, false};
+  int64_t inflight_len[2] = {0, 0};
+  int64_t inflight_off[2] = {0, 0};
+#ifdef TPUSNAP_HAVE_URING
+  Uring ring;
+  iovec iov[2];
+  if (use_uring && !ring.init(4)) {
+    g_direct_mode.store(DIO_ODIRECT);
+    use_uring = false;
+  }
+  // Process the completion of ANY in-flight chunk (at most two).
+  auto reap_one = [&]() -> int {
+    int64_t res = 0;
+    uint64_t tag = 0;
+    int rc = ring.wait_one(&res, &tag);
+    if (rc != 0) {
+      // The ring itself failed: no completion will come, so clear both
+      // flags (a drain keyed on them would spin forever).  The bounce
+      // buffers live to function exit, so a straggling kernel write never
+      // touches freed memory.
+      inflight[0] = false;
+      inflight[1] = false;
+      return rc;
+    }
+    int k = static_cast<int>(tag);
+    inflight[k] = false;
+    if (res == -EINVAL || res == -EOPNOTSUPP || res == -ENOTSUP) {
+      // The kernel or filesystem rejected the uring write (not the
+      // bytes): degrade and redo this chunk synchronously.
+      g_direct_mode.store(DIO_ODIRECT);
+      use_uring = false;
+      return pwrite_full(fd, bounce[k], inflight_len[k], inflight_off[k]);
+    }
+    if (res < 0) return static_cast<int>(res);
+    if (res < inflight_len[k]) {
+      return pwrite_full(fd, bounce[k] + res, inflight_len[k] - res,
+                         inflight_off[k] + res);
+    }
+    return 0;
+  };
+#else
+  (void)inflight_len;
+  (void)inflight_off;
+  use_uring = false;
+#endif
+  int err = 0;
+  int cur = 0;
+  int64_t file_off = 0;
+  int part = 0;
+  int64_t part_off = 0;
+  bool padded = false;
+  while (part < n && err == 0) {
+#ifdef TPUSNAP_HAVE_URING
+    // Gated on inflight alone, not use_uring: after a mid-stream degrade
+    // the other buffer's write may still be with the kernel.
+    while (inflight[cur] && err == 0) err = reap_one();
+    if (err != 0) break;
+#endif
+    int64_t fill = 0;
+    while (fill < bounce_sz && part < n) {
+      int64_t take = sizes[part] - part_off;
+      if (take > bounce_sz - fill) take = bounce_sz - fill;
+      if (take > 0) {
+        memcpy(bounce[cur] + fill,
+               static_cast<const uint8_t*>(bufs[part]) + part_off,
+               static_cast<size_t>(take));
+      }
+      fill += take;
+      part_off += take;
+      if (part_off >= sizes[part]) {
+        ++part;
+        part_off = 0;
+      }
+    }
+    if (fill == 0) break;
+    int64_t wlen = fill;
+    if (part >= n && (wlen % DIO_ALIGN) != 0) {
+      int64_t up = ((wlen + DIO_ALIGN - 1) / DIO_ALIGN) * DIO_ALIGN;
+      memset(bounce[cur] + wlen, 0, static_cast<size_t>(up - wlen));
+      wlen = up;
+      padded = true;
+    }
+#ifdef TPUSNAP_HAVE_URING
+    if (use_uring) {
+      iov[cur].iov_base = bounce[cur];
+      iov[cur].iov_len = static_cast<size_t>(wlen);
+      int rc = ring.submit_writev(fd, &iov[cur], file_off,
+                                  static_cast<uint64_t>(cur));
+      if (rc != 0) {
+        g_direct_mode.store(DIO_ODIRECT);
+        use_uring = false;
+        err = pwrite_full(fd, bounce[cur], wlen, file_off);
+      } else {
+        inflight[cur] = true;
+        inflight_len[cur] = wlen;
+        inflight_off[cur] = file_off;
+      }
+    } else
+#endif
+    {
+      err = pwrite_full(fd, bounce[cur], wlen, file_off);
+    }
+    file_off += wlen;
+    cur ^= 1;
+  }
+#ifdef TPUSNAP_HAVE_URING
+  while (inflight[0] || inflight[1]) {
+    int rc = reap_one();
+    if (rc != 0 && err == 0) err = rc;
+  }
+#endif
+  if (err == 0 && padded && ::ftruncate(fd, total) < 0) err = -errno;
+  return err;
+}
+
+// Opens path for writing under the process direct-I/O mode; *strategy is
+// the rung taken for THIS file.  A filesystem that rejects O_DIRECT moves
+// the process to buffered writes (mode 3, sticky while enabled) instead of
+// failing the take; every other open failure propagates.
+int open_for_write(const char* path, int* strategy) {
+  int mode = g_direct_mode.load(std::memory_order_relaxed);
+  if (mode == DIO_URING || mode == DIO_ODIRECT) {
+    int fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC | O_DIRECT, 0644);
+    if (fd >= 0) {
+      *strategy = mode;
+      return fd;
+    }
+    if (errno != EINVAL && errno != EOPNOTSUPP) return -errno;
+    g_direct_mode.store(DIO_BUFFERED);
+  }
+  *strategy = DIO_OFF;
   int fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC, 0644);
-  if (fd < 0) return -errno;
+  return fd < 0 ? -errno : fd;
+}
+
+int write_parts_buffered(int fd, const void* const* bufs,
+                         const int64_t* sizes, int n) {
   int err = 0;
   int64_t off = 0;
   for (int i = 0; i < n && err == 0; ++i) {
     if (sizes[i]) err = pwrite_full(fd, bufs[i], sizes[i], off);
     off += sizes[i];
+  }
+  return err;
+}
+
+// One payload file under the direct-I/O mode: open, write all parts
+// sequentially, close.  Every native write entry point (scatter parts,
+// fused single, batch members) goes through here, so TPUSNAP_DIRECT_IO
+// covers them alike and the buffered default stays the plain pwrite loop.
+int write_one_file(const char* path, const void* const* bufs,
+                   const int64_t* sizes, int n) {
+  int strategy = DIO_OFF;
+  int fd = open_for_write(path, &strategy);
+  if (fd < 0) return fd;
+  int err = 0;
+  if (strategy == DIO_URING || strategy == DIO_ODIRECT) {
+    err = write_parts_direct(fd, bufs, sizes, n, strategy == DIO_URING);
+    if (err == -EINVAL || err == -EOPNOTSUPP) {
+      // Some filesystems (FUSE, network mounts) accept O_DIRECT at open
+      // but reject the direct write: the same degrade as an open-time
+      // rejection, and THIS file is redone from scratch (O_TRUNC).
+      g_direct_mode.store(DIO_BUFFERED);
+      ::close(fd);
+      fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC, 0644);
+      if (fd < 0) return -errno;
+      err = write_parts_buffered(fd, bufs, sizes, n);
+    }
+  } else {
+    err = write_parts_buffered(fd, bufs, sizes, n);
   }
   if (err != 0) {
     ::close(fd);
@@ -696,6 +1052,18 @@ int64_t tpusnap_file_size(const char* path) {
   return st.st_size;
 }
 
+// Sequential ranged pread into a caller-owned buffer, on the calling thread
+// (the adaptive into-read's sequential strategy: one stream that rides the
+// kernel's readahead).  A short file is -EIO.
+int tpusnap_read_range(const char* path, void* buf, int64_t offset,
+                       int64_t nbytes) {
+  int fd = ::open(path, O_RDONLY);
+  if (fd < 0) return -errno;
+  int rc = pread_full(fd, buf, nbytes, offset);
+  ::close(fd);
+  return rc;
+}
+
 // Striped xxh64 ("xxh64s"): independent xxh64 per stripe_bytes window,
 // computed in parallel on the pool, combined via xxh64 over the
 // little-endian digest stream.  NOT equal to plain xxh64 of the buffer —
@@ -778,6 +1146,96 @@ int tpusnap_write_parts_hash(const char* path, const void** bufs,
   }
   return 0;
 }
+
+// Batched fused write+hash: N payloads (each its own file and parts list,
+// flattened into bufs/sizes with parts_per_file counts) cross the FFI
+// boundary and enter the pool as ONE task set, so a drain of small writes
+// stops paying one native call and one pool submission per payload.
+// Writes to DIFFERENT files are pool tasks (no shared inode, unlike the
+// single call's one-file parts) overlapping the per-part hashing; each
+// payload's write outcome is isolated in out_errs[f] (0 or -errno), so one
+// member's failure never discards its siblings' completed writes.  Digests
+// land in out_hashes exactly as N single calls compute them (same size
+// policy, same stripe combination).  Returns 0 when every payload
+// succeeded, else the first failing member's -errno.
+int tpusnap_write_parts_hash_batch(const char* const* paths, int n_files,
+                                   const int* parts_per_file,
+                                   const void* const* bufs,
+                                   const int64_t* sizes, int n_parts_total,
+                                   uint64_t seed, int64_t stripe_bytes,
+                                   int64_t striped_min_bytes,
+                                   uint64_t* out_hashes, int* out_errs) {
+  for (int f = 0; f < n_files; ++f) out_errs[f] = 0;
+  int64_t declared = 0;
+  for (int f = 0; f < n_files; ++f) declared += parts_per_file[f];
+  if (declared != n_parts_total) return -EINVAL;
+  std::vector<std::vector<uint64_t>> stripes(
+      static_cast<size_t>(n_parts_total));
+  TaskSet ts;
+  int part_index = 0;
+  for (int f = 0; f < n_files; ++f) {
+    int np = parts_per_file[f];
+    const char* path = paths[f];
+    const void* const* fbufs = bufs + part_index;
+    const int64_t* fsizes = sizes + part_index;
+    int* errp = &out_errs[f];
+    ts.tasks.emplace_back(
+        [=] { *errp = write_one_file(path, fbufs, fsizes, np); });
+    for (int i = 0; i < np; ++i) {
+      int gi = part_index + i;
+      const uint8_t* buf = static_cast<const uint8_t*>(bufs[gi]);
+      int64_t sz = sizes[gi];
+      bool striped = striped_min_bytes > 0 && stripe_bytes > 0 &&
+                     sz >= striped_min_bytes && sz > stripe_bytes;
+      if (!striped) {
+        ts.tasks.emplace_back(
+            [=] { out_hashes[gi] = tpusnap_xxhash64(buf, sz, seed); });
+        continue;
+      }
+      int64_t n_stripes = (sz + stripe_bytes - 1) / stripe_bytes;
+      stripes[static_cast<size_t>(gi)].resize(static_cast<size_t>(n_stripes));
+      std::vector<uint64_t>* out = &stripes[static_cast<size_t>(gi)];
+      for (int64_t j = 0; j < n_stripes; ++j) {
+        int64_t s_off = j * stripe_bytes;
+        int64_t s_sz = sz - s_off < stripe_bytes ? sz - s_off : stripe_bytes;
+        ts.tasks.emplace_back([=] {
+          (*out)[static_cast<size_t>(j)] =
+              tpusnap_xxhash64(buf + s_off, s_sz, seed);
+        });
+      }
+    }
+    part_index += np;
+  }
+  ts.run_all();
+  for (int gi = 0; gi < n_parts_total; ++gi) {
+    if (!stripes[static_cast<size_t>(gi)].empty()) {
+      out_hashes[gi] =
+          combine_stripe_digests(stripes[static_cast<size_t>(gi)], seed);
+    }
+  }
+  for (int f = 0; f < n_files; ++f) {
+    if (out_errs[f] != 0) return out_errs[f];
+  }
+  return 0;
+}
+
+// Direct-I/O opt-in (TPUSNAP_DIRECT_IO): resolves the capability ladder at
+// configure time (io_uring when the running kernel allows it, aligned
+// pwrite+O_DIRECT otherwise).  A filesystem that later rejects O_DIRECT
+// moves the process to buffered writes (mode 3), which a later enable does
+// not undo; disabling resets the mode to 0.  Returns the resolved mode.
+int tpusnap_direct_io_configure(int enabled) {
+  if (!enabled) {
+    g_direct_mode.store(DIO_OFF);
+    return DIO_OFF;
+  }
+  if (g_direct_mode.load() == DIO_BUFFERED) return DIO_BUFFERED;
+  int mode = uring_available() ? DIO_URING : DIO_ODIRECT;
+  g_direct_mode.store(mode);
+  return mode;
+}
+
+int tpusnap_direct_io_mode() { return g_direct_mode.load(); }
 
 // Parallel multi-range read with optional fused per-range hashing: the
 // restore/audit fan-out that replaces the per-range Python loop.  Each

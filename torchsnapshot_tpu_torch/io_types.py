@@ -72,6 +72,11 @@ class WriteIO:
     # digest per part (ScatterBuffer members in order, or the whole buffer).
     want_part_hashes: bool = False
     part_hash64: Optional[List[int]] = None
+    # Scheduler hint that sibling writes are in flight or queued: a plugin
+    # that micro-batches small fused writes into one native call (fs with
+    # TPUSNAP_NATIVE_BATCH) routes this write through its group-commit
+    # gate.  False for a lone write, which skips the gate.
+    batch_hint: bool = False
 
 
 @dataclass

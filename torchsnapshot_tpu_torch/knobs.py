@@ -9,9 +9,14 @@ drives both packages.  Defaults are storage-side numbers and match the
 JAX package: 512 MB chunks, 128 MB slabs, 16 concurrent I/O operations per
 process.
 
-Knobs of the JAX package's host data plane that this package does not
-implement yet (:data:`UNIMPLEMENTED_KNOBS`) are not silently ignored:
-:func:`warn_unimplemented_knobs` warns once per process for each one set.
+The host data plane's knobs are the JAX package's too: micro-batched
+fused writes (``TPUSNAP_NATIVE_BATCH``), direct I/O (``TPUSNAP_DIRECT_IO``),
+the adaptive into-read (``TPUSNAP_PARALLEL_READ_WAYS``) and sanitizer
+builds of the native library (``TPUSNAP_NATIVE_SANITIZE``).
+``TPUSNAP_NATIVE=0`` selects the JAX package's pure-Python data plane,
+which this package does not have (its native library is required), so it
+stays in :data:`UNIMPLEMENTED_KNOBS`: :func:`warn_unimplemented_knobs`
+warns once per process when it is set.
 ``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST`` have no meaning here:
 they force the JAX package's sub-word bitcast staging, and torch moves
 every dtype's bytes through a ``view(torch.uint8)`` with no repack.
@@ -76,14 +81,9 @@ PARALLEL_READ_WAYS_ENV_VAR = _ENV_PREFIX + "PARALLEL_READ_WAYS"
 NATIVE_ENV_VAR = _ENV_PREFIX + "NATIVE"
 NATIVE_SANITIZE_ENV_VAR = _ENV_PREFIX + "NATIVE_SANITIZE"
 
-# The JAX package's host data plane knobs this package reads nothing of yet.
-UNIMPLEMENTED_KNOBS = (
-    DIRECT_IO_ENV_VAR,
-    NATIVE_BATCH_ENV_VAR,
-    PARALLEL_READ_WAYS_ENV_VAR,
-    NATIVE_ENV_VAR,
-    NATIVE_SANITIZE_ENV_VAR,
-)
+# The JAX package's knobs this package reads nothing of: there is no
+# pure-Python data plane to switch to.
+UNIMPLEMENTED_KNOBS = (NATIVE_ENV_VAR,)
 _warned_knobs: Set[str] = set()
 _warned_lock = threading.Lock()
 
@@ -125,6 +125,12 @@ _DEFAULT_JOURNAL_MAX_BYTES = 0
 # the trailing window's median is flagged.
 _DEFAULT_REGRESSION_FACTOR = 2.0
 _DEFAULT_REGRESSION_WINDOW = 50
+# Max payloads the fs plugin's micro-batcher groups into one native
+# write+hash batch call; below the default 16 io slots, so a batch can form
+# from in-flight writers while the previous batch's call runs.
+_DEFAULT_NATIVE_BATCH = 8
+# Sanitizer builds of the native library (_native/build.py).
+_SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -186,6 +192,50 @@ def get_native_threads() -> int:
     """Size of the native library's C++ worker pool; 0 (default) sizes it
     to min(16, hardware threads).  Read once, when the library loads."""
     return max(0, _get_int_env(NATIVE_THREADS_ENV_VAR, 0))
+
+
+def get_native_batch() -> int:
+    """Max payloads the fs plugin's fused write+hash path groups into one
+    native batch call (``TPUSNAP_NATIVE_BATCH``, default 8); 0 or 1 gives
+    every payload its own call."""
+    return max(0, _get_int_env(NATIVE_BATCH_ENV_VAR, _DEFAULT_NATIVE_BATCH))
+
+
+def direct_io_enabled() -> bool:
+    """Whether payload writes bypass the page cache (``TPUSNAP_DIRECT_IO=1``,
+    off by default): io_uring where the kernel allows it, aligned pwrite
+    with ``O_DIRECT`` otherwise, and buffered writes, with one
+    ``native.degraded`` event, on a filesystem that rejects ``O_DIRECT``.
+    The bytes on disk are identical in every mode."""
+    return _get_flag_env(DIRECT_IO_ENV_VAR, "0")
+
+
+def get_parallel_read_ways() -> Optional[int]:
+    """Intra-file parallelism of large unchecksummed into-reads
+    (``TPUSNAP_PARALLEL_READ_WAYS``): a pinned way count, or None for the
+    default ``auto``, where the fs plugin measures a sequential and a
+    parallel read once and keeps the faster."""
+    val = os.environ.get(PARALLEL_READ_WAYS_ENV_VAR)
+    if val is None or val == "auto":
+        return None
+    return int(val)
+
+
+def get_native_sanitize() -> str:
+    """The sanitizer the native library is built with
+    (``TPUSNAP_NATIVE_SANITIZE``: ``tsan``, ``asan`` or ``ubsan``, each into
+    its own ``libtpusnap_torch-<mode>.so``), or "" for none.  Any other
+    value raises: an uninstrumented race run would report a meaningless
+    "clean"."""
+    val = os.environ.get(NATIVE_SANITIZE_ENV_VAR, "").strip().lower()
+    if val in ("", "0", "none", "off"):
+        return ""
+    if val not in _SUPPORTED_SANITIZERS:
+        raise ValueError(
+            f"{NATIVE_SANITIZE_ENV_VAR}={val!r}: unsupported sanitizer "
+            f"(supported: {', '.join(_SUPPORTED_SANITIZERS)})"
+        )
+    return val
 
 
 def checksum_enabled() -> bool:
@@ -621,4 +671,28 @@ def override_journal_max_bytes(value: int) -> Generator[None, None, None]:
 @contextmanager
 def override_regression_window(value: int) -> Generator[None, None, None]:
     with override_env(REGRESSION_WINDOW_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_native_batch(value: int) -> Generator[None, None, None]:
+    with override_env(NATIVE_BATCH_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_direct_io(enabled: bool) -> Generator[None, None, None]:
+    with override_env(DIRECT_IO_ENV_VAR, "1" if enabled else "0"):
+        yield
+
+
+@contextmanager
+def override_parallel_read_ways(value: int) -> Generator[None, None, None]:
+    with override_env(PARALLEL_READ_WAYS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_native_sanitize(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(NATIVE_SANITIZE_ENV_VAR, value):
         yield

@@ -6,10 +6,19 @@ the synchronous take/restore path calls:
 - ``write_parts_hash`` — ONE call per payload or slab that writes every
   part and returns each part's digest, hash and write fused over the same
   bytes (the pool hashes while the calling thread writes);
+- ``write_parts_hash_batch`` — N payloads in ONE call and ONE pool
+  submission (the fs plugin's micro-batcher feeds it), each member's write
+  outcome isolated;
 - ``write_file_parts`` — the same write without digests (checksums off);
+- ``configure_direct_io`` / ``direct_io_mode`` / ``check_direct_io_degrade``
+  — the opt-in direct-I/O write plane (``TPUSNAP_DIRECT_IO``): io_uring,
+  then aligned pwrite with ``O_DIRECT``, then buffered, with one
+  ``native.degraded`` event when a filesystem forces the last rung;
 - ``xxhash64`` / ``xxhash64_striped`` — the "xxh64" and "xxh64s" digests;
 - ``read_ranges_into`` — parallel pread into caller-owned buffers, with
   optional fused per-range digests;
+- ``read_file_into`` — one sequential pread stream into a caller-owned
+  buffer on the calling thread;
 - ``cdc_boundaries`` — content-defined chunk edges (chunker.py), the
   candidate scan striped over the worker pool;
 - ``zstd_encode_into`` / ``zstd_encode2_into`` / ``zstd_decode_into`` — the
@@ -24,6 +33,7 @@ raises if it cannot.  The GIL is released for every call (ctypes).
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import threading
 from typing import Any, List, Optional, Sequence, Tuple
@@ -39,6 +49,8 @@ STRIPED_MIN_BYTES = 32 << 20
 # ABI generation of the library; a mismatch (a library built from another
 # source) is refused at load.
 NATIVE_ABI_VERSION = 3
+
+logger = logging.getLogger(__name__)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -111,6 +123,25 @@ class NativeFileIO:
                     ctypes.POINTER(_U64),
                 ],
             ),
+            "tpusnap_write_parts_hash_batch": (
+                ctypes.c_int,
+                [
+                    ctypes.POINTER(ctypes.c_char_p),
+                    ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(_P),
+                    ctypes.POINTER(_I64),
+                    ctypes.c_int,
+                    _U64,
+                    _I64,
+                    _I64,
+                    ctypes.POINTER(_U64),
+                    ctypes.POINTER(ctypes.c_int),
+                ],
+            ),
+            "tpusnap_direct_io_configure": (ctypes.c_int, [ctypes.c_int]),
+            "tpusnap_direct_io_mode": (ctypes.c_int, []),
+            "tpusnap_read_range": (ctypes.c_int, [ctypes.c_char_p, _P, _I64, _I64]),
             "tpusnap_read_ranges_hash": (
                 ctypes.c_int,
                 [
@@ -198,6 +229,47 @@ class NativeFileIO:
         _check(rc, path)
         return [int(out[i]) for i in range(len(arrs))]
 
+    def write_parts_hash_batch(
+        self, jobs: Sequence[Tuple[str, Sequence[Any]]]
+    ) -> List[Any]:
+        """Fused write+hash of several payload files in ONE native call and
+        one pool submission.  Returns one result per ``(path, parts)`` job,
+        in order: the job's per-part digests (what :meth:`write_parts_hash`
+        returns), or an ``OSError`` when that job's write failed; one
+        member's failure leaves its siblings' writes standing."""
+        if not jobs:
+            return []
+        paths = [path.encode() for path, _ in jobs]
+        per_job = [[_u8(p) for p in parts] for _, parts in jobs]
+        arrs = [a for job in per_job for a in job]
+        bufs, sizes = _ptrs(arrs)
+        njobs = len(jobs)
+        out = (_U64 * max(len(arrs), 1))()
+        errs = (ctypes.c_int * njobs)()
+        self._lib.tpusnap_write_parts_hash_batch(
+            (ctypes.c_char_p * njobs)(*paths),
+            njobs,
+            (ctypes.c_int * njobs)(*(len(job) for job in per_job)),
+            bufs,
+            sizes,
+            len(arrs),
+            0,
+            STRIPE_BYTES,
+            STRIPED_MIN_BYTES,
+            out,
+            errs,
+        )  # the per-job outcomes are in errs; rc is the first of them
+        results: List[Any] = []
+        index = 0
+        for i, job in enumerate(per_job):
+            err = int(errs[i])
+            if err != 0:
+                results.append(OSError(-err, os.strerror(-err), jobs[i][0]))
+            else:
+                results.append([int(out[index + k]) for k in range(len(job))])
+            index += len(job)
+        return results
+
     def write_file_parts(self, path: str, parts: Sequence[Any]) -> None:
         """Scatter-gather write with no digests."""
         arrs = [_u8(p) for p in parts]
@@ -254,6 +326,58 @@ class NativeFileIO:
         )
         _check(rc, path)
         return [int(out[i]) for i in range(n)] if want_hash else None
+
+    def read_file_into(self, path: str, offset: int, view: Any) -> None:
+        """One sequential pread stream of ``[offset, offset + len(view))``
+        into the writable ``view``, on the calling thread (no pool tasks).
+        A short file raises ``OSError(EIO)``."""
+        arr = np.frombuffer(memoryview(view).cast("B"), np.uint8)
+        if arr.nbytes:
+            _check(
+                self._lib.tpusnap_read_range(
+                    path.encode(), arr.ctypes.data, offset, arr.nbytes
+                ),
+                path,
+            )
+
+    # ------------------------------------------------------- direct I/O
+
+    _direct_io_reported = False
+
+    def configure_direct_io(self, enabled: bool) -> int:
+        """Set the PROCESS-global direct-I/O mode (``TPUSNAP_DIRECT_IO``):
+        resolves io_uring, then aligned pwrite with ``O_DIRECT``.  Returns
+        the mode: 0 off, 1 io_uring, 2 ``O_DIRECT`` pwrite, 3 buffered (a
+        filesystem rejected ``O_DIRECT`` earlier in this process)."""
+        return int(self._lib.tpusnap_direct_io_configure(1 if enabled else 0))
+
+    def direct_io_mode(self) -> int:
+        """The current mode (see :meth:`configure_direct_io`); it moves
+        from 1 or 2 to 3 at the first write to a filesystem that rejects
+        ``O_DIRECT``."""
+        return int(self._lib.tpusnap_direct_io_mode())
+
+    def check_direct_io_degrade(self) -> None:
+        """One ``native.degraded`` event and one warning per process once
+        direct I/O was asked for and the writes fell back to buffered I/O
+        (mode 3).  The writes themselves succeeded; this makes the fallback
+        visible."""
+        if NativeFileIO._direct_io_reported or self.direct_io_mode() != 3:
+            return
+        NativeFileIO._direct_io_reported = True
+        logger.warning(
+            "TPUSNAP_DIRECT_IO is set but the filesystem rejected O_DIRECT; "
+            "payload writes fall back to buffered I/O"
+        )
+        from .event import Event
+        from .event_handlers import log_event
+
+        log_event(
+            Event(
+                name="native.degraded",
+                metadata={"missing": ["direct_io"], "mode": "buffered"},
+            )
+        )
 
     def cdc_boundaries(
         self, buf: Any, min_size: int, avg_size: int, max_size: int

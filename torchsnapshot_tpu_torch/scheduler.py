@@ -136,6 +136,9 @@ class _WritePipeline:
         self.buf_sz_bytes = 0
         self._io_credited = False
         self._digests_done = False
+        # Set when the write is dispatched: whether other writes are in
+        # flight or queued (WriteIO.batch_hint).
+        self.batch_hint = False
 
     def release_after_io(self, budget: _BudgetTracker) -> None:
         """Release the staged buffer and credit its bytes, exactly once
@@ -187,7 +190,9 @@ class _WritePipeline:
     async def write_buffer(self) -> None:
         assert self.buf is not None
         sinks = self._hash_sinks()
-        write_io = WriteIO(path=self.write_req.path, buf=self.buf)
+        write_io = WriteIO(
+            path=self.write_req.path, buf=self.buf, batch_hint=self.batch_hint
+        )
         fused = bool(sinks) and not self._digests_done and self.storage.supports_write_hash
         if fused:
             parts = self._aligned_parts(sinks)
@@ -409,6 +414,9 @@ async def execute_write_reqs(
                     budget.remaining += pipeline.staging_cost - pipeline.buf_sz_bytes
                     budget.inflight -= 1
                     staged_bytes += pipeline.buf_sz_bytes
+                    # Other writes in flight or queued: the storage may
+                    # micro-batch this one with them.
+                    pipeline.batch_hint = bool(io_live or staging_tasks or ready_for_staging)
                     io_task = asyncio.ensure_future(_io(pipeline))
                     io_tasks[io_task] = pipeline
                     io_live.add(io_task)
