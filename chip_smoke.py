@@ -121,6 +121,26 @@ calls, in phases that each print one JSON line:
                 pinned_host mode (every tensor mutated after the return):
                 stall and total; its manifest equals the sync segment of
                 the same change entry by entry; bit-exact replayed restore
+   S3 — tests/fake_s3.py's FakeS3Server in a child process on 127.0.0.1,
+                its MD5 ETags memoized per stored object (the numbers are
+                a loopback fake's in Python, not S3's), on
+                the take phase's state (the manager phases' changes undone);
+                each phase deletes its root through the plugin:
+   s3_take    — ``Snapshot.take("s3://smoke/take")`` at default knobs:
+                seconds, GB/s, objects and bytes stored, every model
+                digest equal to the ``take`` phase's
+   s3_restore — zeroed targets restored from it: bit-exact, ``data_ptr()``
+                unchanged, ``h2d`` bytes equal to the state's; the fan-out
+                reads (ranged GETs pinned to the ETag) are counted; then
+                again with ``TPUSNAP_PARALLEL_READ_WAYS=1`` (one GET per
+                read), bit-exact
+   s3_read_object — ``embed.tokens`` onto the card
+   s3_incremental_take — step 0 with the multipart threshold at 128 MiB
+                and 32 MiB parts (uploads and parts counted); step 1 after
+                ``mutate_step`` with ``incremental_from=step_0``: the bytes
+                PUT at most ``wk`` plus the ``w_gate`` chunks the rows
+                touch, every unchanged payload a server-side copy
+                (counted); step 1 restores bit-exact in place
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -954,6 +974,269 @@ def manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, n
 def manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
     root = manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
     manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
+
+
+# --------------------------------------------------------------- S3 phases
+#
+# The object-store backend at full size against tests/fake_s3.py's
+# FakeS3Server, run in a child process (its GIL and its RAM are not this
+# process's; it holds every object whole in a dict), with each object's
+# ETag computed once instead of on every request.  The numbers are those
+# of a loopback fake in Python, not of S3.  Each phase deletes its root
+# through the plugin before the next starts.
+
+S3_BUCKET = "smoke"
+# s3_incremental_take's step 0 goes up as multipart uploads.
+S3_MULTIPART_THRESHOLD = 128 << 20
+S3_MULTIPART_PART = 32 << 20
+S3_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import fake_s3
+from fake_s3 import FakeS3Server
+
+# The fake's ETag is the MD5 of the whole object, recomputed on every HEAD
+# and every If-Match GET: a fanned-out 512 MB read would hash 4 GB.  S3
+# stores an object's ETag with it, so the child memoizes it per stored
+# bytes object (same values); entries of objects no longer stored go at
+# the next stats call.
+etags = {}
+md5_etag = fake_s3._etag
+
+
+def stored_etag(data):
+    hit = etags.get(id(data))
+    if hit is None or hit[0] is not data:
+        hit = etags[id(data)] = (data, md5_etag(data))
+    return hit[1]
+
+
+fake_s3._etag = stored_etag
+srv = FakeS3Server()
+print(srv.endpoint, flush=True)
+
+
+def rss():
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+for line in sys.stdin:  # "<prefix>": the server's counters and the objects under it
+    prefix = line.rstrip("\n")
+    with srv._lock:
+        live = {id(v) for v in srv.objects.values()}
+        for key in [k for k in etags if k not in live]:
+            etags.pop(key, None)
+        keys = [k for k in srv.objects if k.startswith(prefix)]
+        out = {"objects": len(keys), "bytes": sum(len(srv.objects[k]) for k in keys), "put_bytes": srv.put_bytes,
+               "copies": srv.copies, "gets": srv.gets, "requests": srv.request_count,
+               "multipart_completed": srv.multipart_completed, "uploads_open": len(srv.uploads)}
+    out["rss_bytes"] = rss()
+    print(json.dumps(out), flush=True)
+srv.stop()
+"""
+
+
+class FakeS3Child:
+    """FakeS3Server in a child process on 127.0.0.1; ``stats(prefix)`` reads
+    its counters over a pipe, ``stop()`` ends it."""
+
+    def __init__(self) -> None:
+        self.proc = subprocess.Popen([sys.executable, "-c", S3_CHILD, os.path.join(HERE, "tests")],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.endpoint = self.proc.stdout.readline().strip()
+        if not self.endpoint.startswith("http://127.0.0.1:"):
+            self.stop()
+            raise RuntimeError(f"the fake S3 server did not start: {self.endpoint!r}")
+
+    def stats(self, prefix: str = "") -> dict:
+        self.proc.stdin.write(prefix + "\n")
+        self.proc.stdin.flush()
+        return json.loads(self.proc.stdout.readline())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def model_digests(manifest):
+    """payload_digests of the model's entries (the state's bytes)."""
+    return {k: v for k, v in payload_digests(manifest).items() if "/model/" in k[0]}
+
+
+def s3_delete_root(server, url: str) -> int:
+    """Delete a snapshot root through the plugin; returns the objects left."""
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    storage = url_to_storage_plugin(url)
+    try:
+        storage.sync_delete_dir("")
+    finally:
+        storage.sync_close()
+    return server.stats(url.split("://", 1)[1] + "/")["objects"]
+
+
+def s3_counts(stats):
+    return {k: phase_n(stats, k) for k in ("s3_put", "s3_multipart", "s3_multipart_part", "s3_get", "s3_fanout",
+                                           "s3_copy")}
+
+
+def s3_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server, buffered_manifest, n_layers):
+    """s3_take, s3_restore (then again with one GET stream per read) and
+    s3_read_object at default knobs."""
+    url = f"s3://{S3_BUCKET}/take"
+    before = server.stats()
+    device_sync(torch)
+    phase_stats.reset()
+    begin = time.monotonic()
+    snapshot = ts.Snapshot.take(url, app_state)
+    take_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    stored = server.stats(f"{S3_BUCKET}/take/")
+    want, got = model_digests(buffered_manifest), model_digests(snapshot.get_manifest())
+    differ = sorted(str(k) for k in set(want) | set(got) if want.get(k) != got.get(k))
+    d2h_bytes = int(stats.get("d2h", {}).get("bytes", 0))
+    take_ok = (bool(want) and not differ and stored["uploads_open"] == 0
+               and (d2h_bytes == nbytes or DEV != "cuda"))
+    emit({"phase": "s3_take", "ok": take_ok, "server": "tests/fake_s3.py in a child process, loopback",
+          "n_layers": n_layers, "depth_cut": None, "seconds": round(take_s, 3), "gbps": round(nbytes / GB / take_s, 3),
+          "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
+          "bytes_put": stored["put_bytes"] - before["put_bytes"], "state_bytes": nbytes, "d2h_bytes": d2h_bytes,
+          "digests_compared": len(want), "digests_differ": differ[:5], "server_rss_bytes": stored["rss_bytes"],
+          "counts": s3_counts(stats), "phases": phase_summary(stats)})
+    if not take_ok:
+        raise RuntimeError(f"s3_take: d2h bytes {d2h_bytes}, digests differ from the take phase's: {differ[:5]}")
+
+    before = server.stats()
+    seconds, mismatched, moved, stats = restore_check(torch, ts, url, app_state, ref, phase_stats)
+    after = server.stats()
+    h2d_bytes = int(stats.get("h2d_dispatch", {}).get("bytes", 0))
+    ok = (not mismatched and not moved and phase_n(stats, "s3_fanout") > 0
+          and (h2d_bytes == nbytes or DEV != "cuda"))
+    emit({"phase": "s3_restore", "ok": ok, "n_layers": n_layers, "seconds": round(seconds, 3),
+          "gbps": round(nbytes / GB / seconds, 3), "h2d_bytes": h2d_bytes, "state_bytes": nbytes,
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
+          "fanout_reads": phase_n(stats, "s3_fanout"), "gets": after["gets"] - before["gets"],
+          "counts": s3_counts(stats), "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("s3_restore: not bit-exact in place, h2d bytes differ, or no read fanned out")
+    # The same restore with one GET stream per read: the fake copies each
+    # range it serves, which the single stream does not ask of it.
+    with knobs.override_parallel_read_ways(1):
+        seconds, mismatched, moved, stats = restore_check(torch, ts, url, app_state, ref, phase_stats)
+    ok = not mismatched and not moved and phase_n(stats, "s3_fanout") == 0
+    emit({"phase": "s3_restore", "ok": ok, "parallel_read_ways": 1, "seconds": round(seconds, 3),
+          "gbps": round(nbytes / GB / seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "counts": s3_counts(stats), "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("s3_restore with one stream per read: not bit-exact in place, or a read fanned out")
+
+    entry = snapshot.get_manifest()["0/model/embed/tokens"]
+    phase_stats.reset()
+    begin = time.monotonic()
+    tokens = snapshot.read_object("0/model/embed/tokens", device=DEV)
+    device_sync(torch)
+    read_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    ok = tokens.device.type == DEV and bit_equal(torch, tokens, ref["embed/tokens"])
+    emit({"phase": "s3_read_object", "ok": ok, "path": "0/model/embed/tokens", "chunks": len(entry.chunks),
+          "device": str(tokens.device), "seconds": round(read_s, 3), "bytes": tokens.numel() * 2,
+          "counts": s3_counts(stats)})
+    del tokens
+    left = s3_delete_root(server, url)
+    if not ok or left:
+        raise RuntimeError(f"s3_read_object: wrong bytes or not on the card; {left} objects left after delete_dir")
+
+
+def s3_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, server, n_layers):
+    """s3_incremental_take: step 0 as multipart uploads (threshold 128 MiB,
+    parts 32 MiB); after mutate_step, step 1 with incremental_from=step 0:
+    every unchanged payload a server-side copy, the bytes PUT within the
+    whole-chunk bound of the change; step 1 restores bit-exact."""
+    from torchsnapshot_tpu_torch import faults
+    from torchsnapshot_tpu_torch.incremental import checksums_by_location
+
+    root = f"s3://{S3_BUCKET}/incremental"
+    model = app_state["model"].state_dict()
+    before = server.stats()
+    with knobs.override_env(knobs.S3_MULTIPART_THRESHOLD_ENV_VAR, str(S3_MULTIPART_THRESHOLD)), \
+            knobs.override_env(knobs.S3_MULTIPART_PART_ENV_VAR, str(S3_MULTIPART_PART)):
+        device_sync(torch)
+        phase_stats.reset()
+        begin = time.monotonic()
+        ts.Snapshot.take(f"{root}/step_0", app_state)
+        step0_s = time.monotonic() - begin
+    stats0 = phase_stats.snapshot()
+    after0 = server.stats(f"{S3_BUCKET}/incremental/step_0/")
+    changed_bytes, _ = mutate_step(torch, model, ref)
+    device_sync(torch)
+    n_events = len(events)
+    phase_stats.reset()
+    faults.reset_write_counters()
+    with knobs.override_faults("none"):
+        begin = time.monotonic()
+        snap1 = ts.Snapshot.take(f"{root}/step_1", app_state, incremental_from=f"{root}/step_0")
+        step1_s = time.monotonic() - begin
+    stats1 = phase_stats.snapshot()
+    after1 = server.stats(f"{S3_BUCKET}/incremental/step_1/")
+    put = sum(n for p, n in faults.write_counters().items() if payload_file(p))
+    end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    bound = whole_chunk_bound(snap1, model, ref)
+    base = checksums_by_location(ts.Snapshot(f"{root}/step_0").metadata)
+    unchanged = sum(1 for loc, c in checksums_by_location(snap1.metadata).items() if base.get(loc) == c)
+    copies = after1["copies"] - after0["copies"]
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, f"{root}/step_1", app_state, ref, phase_stats)
+    mutate_step(torch, model, ref)  # back to step 0's state
+    multipart = phase_n(stats0, "s3_multipart")
+    ok = (multipart > 0 and after0["multipart_completed"] - before["multipart_completed"] == multipart
+          and after0["uploads_open"] == 0 and end["incremental_links"] == unchanged == copies > 0
+          and phase_n(stats1, "s3_copy") == copies and 0 < put <= bound and not mismatched and not moved)
+    emit({"phase": "s3_incremental_take", "ok": ok, "n_layers": n_layers,
+          "step0_s": round(step0_s, 3), "step0_gbps": round(nbytes / GB / step0_s, 3),
+          "multipart_threshold_bytes": S3_MULTIPART_THRESHOLD, "multipart_part_bytes": S3_MULTIPART_PART,
+          "multipart_uploads": multipart, "multipart_parts": phase_n(stats0, "s3_multipart_part"),
+          "single_puts": phase_n(stats0, "s3_put"), "step0_phases": phase_summary(stats0),
+          "step1_s": round(step1_s, 3), "server_side_copies": copies, "incremental_links": end["incremental_links"],
+          "unchanged_payloads": unchanged, "bytes_put": put, "bound_bytes": bound, "changed_bytes": changed_bytes,
+          "state_bytes": nbytes, "step1_counts": s3_counts(stats1), "step1_phases": phase_summary(stats1),
+          "restore_s": round(seconds, 3), "restore_gbps": round(nbytes / GB / seconds, 3),
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "restore_counts": s3_counts(rstats),
+          "server_rss_bytes": after1["rss_bytes"]})
+    left = s3_delete_root(server, root)
+    if not ok or left:
+        raise RuntimeError("s3_incremental_take: no multipart upload, an unchanged payload not copied server-side, "
+                           f"bytes PUT past the bound, or not bit-exact; {left} objects left after delete_dir")
+
+
+def s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buffered_manifest, n_layers):
+    """The S3 phases, on the state of the take phase.  The manager phases
+    left it at their step 5: the patterns of steps 1-3 and 5 applied (step
+    4's was undone for ``restore_at(3)``).  Each is an XOR of the same
+    regions, so applying them again undoes them."""
+    model = app_state["model"].state_dict()
+    for pattern in JOURNAL_PATTERNS[:3] + JOURNAL_PATTERNS[4:]:
+        mutate_step(torch, model, ref, pattern)
+    device_sync(torch)
+    memory = host_memory(torch)
+    if memory["mem_available_bytes"] < nbytes + (8 << 30):
+        # The server holds one copy of the state whole, and a little more
+        # while a step's changed objects arrive.
+        raise RuntimeError(f"s3: {memory['mem_available_bytes']} bytes of host RAM available, the fake server "
+                           f"needs the state's {nbytes} and 8 GiB of slack")
+    server = FakeS3Child()
+    try:
+        emit({"phase": "s3_start", "ok": True, "endpoint": server.endpoint, "n_layers": n_layers,
+              "state_bytes": nbytes, **memory})
+        with knobs.override_env(knobs.S3_ENDPOINT_ENV_VAR, server.endpoint):
+            s3_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server, buffered_manifest, n_layers)
+            s3_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, server, n_layers)
+    finally:
+        server.stop()
 
 
 # --------------------------------------------------- host data plane phases
@@ -1882,6 +2165,7 @@ def run(args) -> int:
     del mats
     storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
+    s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

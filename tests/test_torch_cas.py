@@ -1,7 +1,7 @@
 """Content-addressed chunk store of the port (torchsnapshot_tpu_torch.cas):
-mirrors of tests/test_cas.py:268, :287, :484 and :499, and its manager
-cases rewritten as takes into ``<root>/step_N`` (the port has no manager
-yet).  Inputs are made from seeded numpy generators."""
+mirrors of tests/test_cas.py:268, :287, :484 and :499, the s3 case of
+:98 (against the fake server), and its manager cases rewritten as takes
+into ``<root>/step_N``.  Inputs are made from seeded numpy generators."""
 
 import glob
 import logging
@@ -15,7 +15,7 @@ from torchsnapshot_tpu_torch import Snapshot, StateDict, cas, knobs
 from torchsnapshot_tpu_torch._native.build import NativeBuildError
 from torchsnapshot_tpu_torch.manifest import CAS_MANIFEST_VERSION, SnapshotMetadata
 
-from torch_env import default_knob_env  # noqa: F401  autouse fixture
+from torch_env import default_knob_env, no_leaked_threads, s3_server  # noqa: F401  fixtures
 
 FROZEN = np.random.RandomState(0).rand(65536).astype(np.float32)
 
@@ -208,3 +208,23 @@ def test_shared_store_and_journal_segments_are_refused(tmp_path, monkeypatch):
     (tmp_path / "root" / "seg_2" / ".snapshot_metadata").write_text(doc)
     with pytest.raises(RuntimeError, match="journal delta segment"):
         Snapshot(str(tmp_path / "root" / "seg_2")).restore(_state(0))
+
+
+def test_cas_roundtrip_on_fake_s3(s3_server):
+    """Mirror of the s3 case of tests/test_cas.py:98: a manager root on S3
+    stores the frozen payload once (a chunk PUT is atomic, no temp object),
+    every step restores, and every chunk is referenced."""
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
+    mgr = SnapshotManager("s3://bkt/casrun")
+    with knobs.override_cas(True), knobs.override_batching_disabled(True):
+        for step in (1, 2, 3):
+            mgr.save(step, _state(step))
+    chunk_keys = [k for k in s3_server.objects if "/cas/" in k]
+    assert not [k for k in s3_server.objects if ".tmp" in k]
+    assert len([k for k in chunk_keys if s3_server.objects[k] == FROZEN.tobytes()]) == 1
+    for step in (1, 2, 3):
+        _assert_roundtrip(mgr.path_for_step(step), step)
+    referenced, orphan = mgr.chunk_classification()
+    assert orphan == []
+    assert len(referenced) == len(chunk_keys)

@@ -3,7 +3,8 @@
 Mirrors of tests/test_distributed.py (take and restore, elastic up- and
 downscale, successive snapshots on one group, the async two-phase commit
 and its failure, rank death without commit, the C++ store, the scale
-protocol, ``get_state_dict_for_key`` and divergent keys), each with DTensor
+protocol, ``get_state_dict_for_key``, divergent keys, and the take and
+restore on S3 through one fake server), each with DTensor
 state beside the plain values: FSDP-style ``Shard(0)``, HSDP-style
 ``[Replicate(), Shard(0)]``, fully ``Replicate``, uneven and empty shards,
 and an FSDP2-style local tensor that is a view into a flat buffer.  Every
@@ -23,7 +24,7 @@ from torchsnapshot_tpu_torch.test_utils import (
     run_with_procs,
 )
 
-from torch_env import default_knob_env  # noqa: F401  autouse fixture
+from torch_env import default_knob_env, no_leaked_threads, s3_server  # noqa: F401  fixtures
 
 
 def _run_dir(name: str) -> str:
@@ -166,6 +167,56 @@ def _distributed_take_restore_body():
 
 def test_distributed_take_restore():
     _distributed_take_restore_body()
+
+
+@run_with_procs(nproc=4, gloo=True)
+def _distributed_s3_take_restore_body():
+    """Four ranks take and restore DTensor, replicated and private state
+    through one S3 server (``TPUSNAP_TEST_S3_URL``): each replicated box is
+    written once, rank 0 commits, every rank restores in place."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    rank = torch.distributed.get_rank()
+    url = os.environ["TPUSNAP_TEST_S3_URL"]
+    mesh2d = _mesh((2, 2), ("replicate", "shard"))
+    mesh1d = _mesh((4,), ("fsdp",))
+    fulls = {"hsdp": _full(11, (8, 6)), "fsdp": _full(12, (7, 5), torch.bfloat16)}
+
+    def _state(zero: bool):
+        return {
+            "hsdp": _dtensor(torch.zeros_like(fulls["hsdp"]) if zero else fulls["hsdp"], mesh2d, [Replicate(), Shard(0)]),
+            "fsdp": _dtensor(torch.zeros_like(fulls["fsdp"]) if zero else fulls["fsdp"], mesh1d, [Shard(0)]),
+            "shared": torch.arange(64, dtype=torch.float32) * (0 if zero else 1),
+            "mine": torch.full((16,), -1.0 if zero else float(rank)),
+            "rank": -1 if zero else rank,
+        }
+
+    snapshot = Snapshot.take(url, {"m": StateDict(_state(zero=False))}, replicated=["m/shared"])
+    manifest = snapshot.get_manifest()
+    assert "0/m/shared" in manifest and "1/m/shared" not in manifest
+    dst_state = _state(zero=True)
+    ptrs = {k: dst_state[k].to_local().data_ptr() for k in fulls}
+    dst = {"m": StateDict(dst_state)}
+    snapshot.restore(dst)
+    restored = dst["m"].state_dict()
+    for key, full in fulls.items():
+        assert _local_bits_equal(restored[key], full), key
+        assert restored[key].to_local().data_ptr() == ptrs[key], key
+    assert torch.equal(restored["shared"], torch.arange(64, dtype=torch.float32))
+    assert torch.equal(restored["mine"], torch.full((16,), float(rank)))
+    assert restored["rank"] == rank
+
+
+def test_distributed_take_restore_on_s3(s3_server, monkeypatch):
+    """Mirror of tests/test_distributed.py:577."""
+    monkeypatch.setenv("TPUSNAP_TEST_S3_URL", "s3://dist-bkt/ckpt/multi")
+    _distributed_s3_take_restore_body()
+    keys = [k for k in s3_server.objects if k.startswith("dist-bkt/ckpt/multi/")]
+    assert "dist-bkt/ckpt/multi/.snapshot_metadata" in keys
+    # Every object is PUT once: each replicated box by one of its holders.
+    assert s3_server.put_bytes == sum(len(s3_server.objects[k]) for k in keys)
 
 
 def test_partial_and_strided_placements_are_refused():

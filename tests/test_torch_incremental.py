@@ -1,17 +1,21 @@
 """Incremental takes of the port (torchsnapshot_tpu_torch.incremental):
-unchanged payloads are hard-linked from the base.  Mirrors of
-tests/test_incremental.py:30-135 and :330; inputs from seeded numpy
+unchanged payloads are hard-linked from the base on fs and copied
+server-side on S3.  Mirrors of tests/test_incremental.py:30-135, :184 (the
+S3 server-side copy, against the fake server) and :330, and the
+same-bucket and same-scheme guards; inputs from seeded numpy
 generators."""
 
 import os
 import shutil
 
 import numpy as np
+import pytest
 import torch
 
 from torchsnapshot_tpu_torch import Snapshot, StateDict, knobs
+from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
 
-from torch_env import default_knob_env  # noqa: F401  autouse fixture
+from torch_env import default_knob_env, no_leaked_threads, s3_server  # noqa: F401  fixtures
 
 
 def _inode(path):
@@ -143,3 +147,44 @@ def test_slab_dedup_random_change_sets(tmp_path):
             got = _restored(str(dst_dir))
             for k, v in arrays2.items():
                 np.testing.assert_array_equal(got[k].numpy(), v)
+
+
+def test_incremental_on_s3_server_side_copy(s3_server):
+    """Unchanged payloads are CopyObject'd: the second take uploads the
+    head and the metadata, not the backbone, and restores bit-exact."""
+    backbone = np.random.RandomState(0).rand(400_000).astype(np.float32)
+    with knobs.override_batching_disabled(True):
+        Snapshot.take("s3://bkt/run/step_1", {"m": StateDict({"backbone": _t(backbone.copy()), "head": torch.ones(128)})})
+        uploaded_before = s3_server.put_bytes
+        head2 = torch.full((128,), 2.0)
+        snap2 = Snapshot.take(
+            "s3://bkt/run/step_2",
+            {"m": StateDict({"backbone": _t(backbone.copy()), "head": head2})},
+            incremental_from="s3://bkt/run/step_1",
+        )
+    assert s3_server.copies >= 1
+    assert s3_server.put_bytes - uploaded_before < backbone.nbytes // 4
+    dst = {"m": StateDict({"backbone": torch.zeros(400_000), "head": torch.zeros(128)})}
+    snap2.restore(dst)
+    np.testing.assert_array_equal(dst["m"]["backbone"].numpy(), backbone)
+    assert torch.equal(dst["m"]["head"], head2)
+
+
+@pytest.mark.parametrize("base", ["s3://other-bkt/run/step_1", "memory://run/step_1"])
+def test_incremental_base_in_another_bucket_or_scheme_is_ignored(s3_server, caplog, base):
+    """Server-side copies are same-bucket and same-scheme only: the take
+    warns once and writes everything, copying nothing."""
+    import logging
+
+    state = {"m": StateDict({"w": torch.arange(1024, dtype=torch.float32)})}
+    with knobs.override_batching_disabled(True):
+        Snapshot.take(base, state)
+        with caplog.at_level(logging.WARNING, logger="torchsnapshot_tpu_torch.incremental"):
+            Snapshot.take("s3://bkt/run/step_2", state, incremental_from=base)
+    assert s3_server.copies == 0
+    reason = "bucket" if base.startswith("s3") else "scheme"
+    assert any(f"incremental_from ignored: base {reason}" in r.getMessage() for r in caplog.records)
+    dst = {"m": StateDict({"w": torch.zeros(1024)})}
+    Snapshot("s3://bkt/run/step_2").restore(dst)
+    assert torch.equal(dst["m"]["w"], state["m"]["w"])
+    MemoryStoragePlugin.reset()

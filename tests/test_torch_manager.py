@@ -1,8 +1,8 @@
 """SnapshotManager of torchsnapshot_tpu_torch: step discovery, retention,
 resume, refcounted chunk reclamation and gc.
 
-Mirrors of tests/test_manager.py (the S3 and GCS cases wait for the object
-stores), tests/test_incremental.py:159, tests/test_cas.py:130, :164 and
+Mirrors of tests/test_manager.py (its S3 case against the fake server; the
+GCS case waits for that backend), tests/test_incremental.py:159, tests/test_cas.py:130, :164 and
 :340, and tests/test_cdc.py:328.  Values are made from seeds with numpy;
 where the JAX package's manager runs the same sequence on the same inputs,
 its outcome is the expectation."""
@@ -23,7 +23,7 @@ from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
 from torchsnapshot_tpu_torch.telemetry import sidecar
 
-from torch_env import default_knob_env  # noqa: F401  autouse fixture
+from torch_env import default_knob_env, no_leaked_threads, s3_server  # noqa: F401  fixtures
 
 
 def _state(v):
@@ -122,6 +122,59 @@ def test_manager_on_memory_backend():
         assert dst["m"]["step"] == 3
     finally:
         MemoryStoragePlugin.reset()
+
+
+def test_manager_on_s3_backend(s3_server):
+    """Step listing, commit detection, retention, resume and incremental
+    saves (server-side copies) against an object store, the JAX package's
+    manager reading the same root alike; then journal mode on another S3
+    root: a base and a delta segment through the chunk store, a replayed
+    restore, and gc finding nothing to collect."""
+    from torchsnapshot_tpu.manager import SnapshotManager as JaxManager
+
+    from torchsnapshot_tpu_torch.io_types import WriteIO
+
+    frozen = torch.from_numpy(np.random.RandomState(0).rand(512).astype(np.float32))
+
+    def state(v):
+        return {"m": StateDict({"w": torch.full((256,), float(v)), "frozen": frozen.clone(), "step": v})}
+
+    def zeroed():
+        dst = state(-1)
+        dst["m"]["frozen"].zero_()
+        return dst
+
+    mgr = SnapshotManager("s3://bkt/ckpts", max_to_keep=2)
+    with knobs.override_batching_disabled(True):
+        for step in (1, 2, 3):
+            mgr.save(step, state(step), incremental=True)
+    assert mgr.all_steps() == [2, 3]
+    assert not any(k.startswith("bkt/ckpts/step_1/") for k in s3_server.objects), "step_1 not pruned"
+    assert s3_server.copies == 2  # the frozen payload, copied server-side twice
+    dst = zeroed()
+    assert mgr.restore_latest(dst) == 3
+    assert torch.equal(dst["m"]["w"], torch.full((256,), 3.0)) and dst["m"]["step"] == 3
+    assert torch.equal(dst["m"]["frozen"], frozen)
+    # A torn snapshot (no metadata) is invisible to both managers.
+    plugin = url_to_storage_plugin("s3://bkt/ckpts")
+    try:
+        plugin.sync_write(WriteIO(path="step_9/0/m/x", buf=b"payload"))
+    finally:
+        plugin.sync_close()
+    assert mgr.all_steps() == [2, 3]
+    assert JaxManager("s3://bkt/ckpts", max_to_keep=2).all_steps() == [2, 3]
+
+    journal = SnapshotManager("s3://bkt/journal", journal=True)
+    with knobs.override_slab_size_threshold_bytes(64):
+        journal.save(0, state(0))
+        journal.save(1, state(1))
+    assert journal.restore_points() == [(0, "full"), (1, "seg")]
+    assert any(k.startswith("bkt/journal/seg_1/") for k in s3_server.objects)
+    assert any(k.startswith("bkt/journal/cas/") for k in s3_server.objects)
+    dst = zeroed()
+    assert journal.restore_latest(dst) == 1
+    assert torch.equal(dst["m"]["w"], torch.full((256,), 1.0)) and torch.equal(dst["m"]["frozen"], frozen)
+    assert journal.gc_detail(apply=False) == ([], [], [])
 
 
 def test_manager_incremental_chain(tmp_path):

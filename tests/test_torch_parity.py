@@ -1076,3 +1076,87 @@ def test_data_plane_knobs_leave_the_bytes_identical_across_packages(tmp_path, mo
     jax_dst = {"m": JaxStateDict(_zeros_numpy(state))}
     JaxSnapshot(str(tmp_path / "port")).restore(jax_dst)
     _assert_same_bytes(state, jax_dst["m"].state_dict())
+
+
+# ------------------------------------------------------- S3 object store
+#
+# Both packages against one fake S3 server (tests/fake_s3.py): a snapshot
+# either takes restores bit-exact through the other, and for one state
+# both store the same object keys with the same bytes.
+
+import importlib  # noqa: E402
+import sys  # noqa: E402
+
+from torch_env import no_leaked_threads, s3_server  # noqa: E402,F401  fixtures
+
+
+def _s3_payload_objects(server, prefix: str) -> dict:
+    """{snapshot-relative key: bytes} of the payload objects under
+    ``prefix``: not the commit marker, not the telemetry sidecars (whose
+    names carry each take's unique id)."""
+    out = {}
+    for key, data in server.objects.items():
+        if key.startswith(prefix + "/"):
+            rel = key[len(prefix) + 1 :]
+            if not (rel.startswith("telemetry/") or rel.rsplit("/", 1)[-1].startswith(".")):
+                out[rel] = data
+    return out
+
+
+@pytest.mark.parametrize("taker", ["jax", "port"])
+def test_s3_snapshot_of_one_package_restores_through_the_other(s3_server, monkeypatch, toggle_batching, taker):
+    monkeypatch.setenv("TPUSNAP_MAX_CHUNK_SIZE_BYTES", "4096")
+    state = _numpy_state()
+    url = "s3://bkt/cross/snap"
+    if taker == "jax":
+        JaxSnapshot.take(url, {"m": JaxStateDict(state)})
+        targets = state_from_numpy(_zeros_numpy(state))
+        ptrs = {k: v.data_ptr() for k, v in targets.items() if isinstance(v, torch.Tensor)}
+        ts.Snapshot(url).restore({"m": ts.StateDict(targets)})
+        _assert_same_bytes(state, targets)
+        assert all(targets[k].data_ptr() == ptr for k, ptr in ptrs.items())
+    else:
+        ts.Snapshot.take(url, {"m": ts.StateDict(state_from_numpy(state))})
+        dst = {"m": JaxStateDict(_zeros_numpy(state))}
+        JaxSnapshot(url).restore(dst)
+        _assert_same_bytes(state, dst["m"].state_dict())
+
+
+def test_s3_takes_of_both_packages_store_the_same_objects(s3_server, monkeypatch, toggle_batching):
+    monkeypatch.setenv("TPUSNAP_MAX_CHUNK_SIZE_BYTES", "4096")
+    state = _numpy_state()
+    JaxSnapshot.take("s3://bkt/same/jax", {"m": JaxStateDict(state)})
+    ts.Snapshot.take("s3://bkt/same/port", {"m": ts.StateDict(state_from_numpy(state))})
+    jax_objects = _s3_payload_objects(s3_server, "bkt/same/jax")
+    port_objects = _s3_payload_objects(s3_server, "bkt/same/port")
+    assert jax_objects and sorted(port_objects) == sorted(jax_objects)
+    assert port_objects == jax_objects
+    docs = {pkg: json.loads(s3_server.objects[f"bkt/same/{pkg}/.snapshot_metadata"]) for pkg in ("jax", "port")}
+    assert docs["port"]["manifest"] == docs["jax"]["manifest"]
+
+
+def test_port_s3_plugin_imports_and_runs_without_requests(s3_server, monkeypatch):
+    """The card's machine has no ``requests``: the port's plugin is the
+    standard library's alone."""
+    import torchsnapshot_tpu_torch.storage_plugins as plugins_pkg
+    import torchsnapshot_tpu_torch.storage_plugins.s3 as original
+
+    name = "torchsnapshot_tpu_torch.storage_plugins.s3"
+    monkeypatch.setitem(sys.modules, "requests", None)
+    monkeypatch.delitem(sys.modules, name)  # put back at teardown
+    monkeypatch.setattr(plugins_pkg, "s3", original)
+    fresh = importlib.import_module(name)
+    assert fresh is not original
+    with pytest.raises(ImportError):
+        import requests  # noqa: F401
+    from torchsnapshot_tpu_torch.io_types import ReadIO, WriteIO
+
+    plugin = fresh.S3StoragePlugin("bkt/no-requests")
+    try:
+        payload = bytes(range(256)) * 64
+        plugin.sync_write(WriteIO(path="p.bin", buf=payload))
+        read_io = ReadIO(path="p.bin")
+        plugin.sync_read(read_io)
+        assert bytes(read_io.buf) == payload
+    finally:
+        plugin.sync_close()

@@ -12,7 +12,8 @@ either package and either package reads them:
   as ``casx://<algo>/<hex>@<n>+<hex>@<n>+...`` (0.6.0); slab members keep
   their byte range into the chunk;
 - :class:`CASWriterPlugin` hashes every staged payload, writes a chunk the
-  root does not hold yet (durably: temp file, fsync, rename) and records a
+  root does not hold yet (durably: a temp file, fsync and rename on fs; one
+  PUT on S3, which is atomic and durable when acknowledged) and records a
   pure reference otherwise, against a :class:`DigestIndex` seeded from
   the root's committed manifests (or the digest-index sidecar either
   package's manager left);

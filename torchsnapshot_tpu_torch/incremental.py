@@ -1,20 +1,23 @@
 """Incremental snapshots: unchanged payloads are linked, not rewritten.
 
-Counterpart of ``torchsnapshot_tpu/incremental.py`` for local storage.
+Counterpart of ``torchsnapshot_tpu/incremental.py``.
 ``Snapshot.take(..., incremental_from=base)`` wraps the take's storage:
 every payload's staged bytes are hashed and, when the digest equals the
-base snapshot's entry at the same relative path, the base's file is hard
-linked into the new snapshot instead of written.  Every snapshot stays
-self-contained (links are real directory entries), so removing the base
-is safe.  Slabs dedup whole: their locations are deterministic (a digest
-of the member paths, batcher.py), and a slab matches when every member's
-digest equals the base's at the same byte range.  A mismatch, a missing
+base snapshot's entry at the same relative path, the base's object is
+duplicated into the new snapshot without moving its bytes through this
+host: a hard link on fs, a server-side copy on S3 (CopyObject, or
+UploadPartCopy over 5 GiB; same bucket only).  Every snapshot stays
+self-contained, so removing the base is safe.  Slabs dedup whole: their
+locations are deterministic (a digest of the member paths, batcher.py),
+and a slab matches when every member's digest equals the base's at the
+same byte range.  A mismatch, a missing
 base file or a backend that cannot link falls back to a normal write.
 
 The base may have been written by either package.  With ``TPUSNAP_CAS``
 on, the CAS digest index already dedups against every committed step
-(the base included) by content, so this wrapper steps aside.  Server-side
-copies on object stores wait for those backends.
+(the base included) by content, so this wrapper steps aside.  A base on
+another backend scheme or, on an object store, in another bucket is
+ignored with a warning.
 """
 
 from __future__ import annotations
@@ -104,9 +107,15 @@ class IncrementalStoragePlugin(StoragePlugin):
             unchanged = await asyncio.get_running_loop().run_in_executor(
                 self._get_executor(), _matches
             )
-            if unchanged and await self._inner.copy_from_sibling(self._base_root, write_io.path):
-                self.links += 1
-                return
+            if unchanged:
+                try:
+                    copied = await self._inner.copy_from_sibling(self._base_root, write_io.path)
+                except Exception as e:  # noqa: BLE001 — the payload is written instead
+                    logger.debug("Incremental copy of %s failed (%s); writing normally", write_io.path, e)
+                    copied = False
+                if copied:
+                    self.links += 1
+                    return
         await self._inner.write(write_io)
 
     async def read(self, read_io: ReadIO) -> None:
@@ -126,13 +135,15 @@ class IncrementalStoragePlugin(StoragePlugin):
 
     async def close(self) -> None:
         if self.links:
-            logger.info("Incremental snapshot: %d payloads hard-linked from the base", self.links)
+            logger.info(
+                "Incremental snapshot: %d payloads deduplicated (hard link / server-side copy)", self.links
+            )
         await self._inner.close()
 
 
 def linked_payloads(storage: Optional[StoragePlugin]) -> Optional[int]:
-    """Payloads the take's incremental wrapper hard-linked, or None when
-    its storage stack has none."""
+    """Payloads the take's incremental wrapper linked or copied server-side,
+    or None when its storage stack has none."""
     for _ in range(8):
         if storage is None:
             return None
@@ -167,6 +178,19 @@ def maybe_wrap_incremental(
             parse_url(target_path)[0],
         )
         return storage
+    if target_path is not None and base_scheme == "s3":
+        # Object-store copies are same-bucket only: catch a mismatch once
+        # here instead of hashing every payload and refusing every copy.
+        base_bucket = base_root.partition("/")[0]
+        target_bucket = parse_url(target_path)[1].partition("/")[0]
+        if base_bucket != target_bucket:
+            logger.warning(
+                "incremental_from ignored: base bucket %s != target bucket %s "
+                "(server-side copy is same-bucket only)",
+                base_bucket,
+                target_bucket,
+            )
+            return storage
     from .snapshot import Snapshot
 
     try:

@@ -12,7 +12,10 @@ process.
 The host data plane's knobs are the JAX package's too: micro-batched
 fused writes (``TPUSNAP_NATIVE_BATCH``), direct I/O (``TPUSNAP_DIRECT_IO``),
 the adaptive into-read (``TPUSNAP_PARALLEL_READ_WAYS``) and sanitizer
-builds of the native library (``TPUSNAP_NATIVE_SANITIZE``).
+builds of the native library (``TPUSNAP_NATIVE_SANITIZE``).  So are the
+object store's: ``TPUSNAP_S3_ENDPOINT``, the multipart threshold and part
+size, and ``TPUSNAP_CLOUD_PARALLEL_MIN_BYTES``, the smallest read that
+fans out across ranged GETs.
 ``TPUSNAP_NATIVE=0`` selects the JAX package's pure-Python data plane,
 which this package does not have (its native library is required), so it
 stays in :data:`UNIMPLEMENTED_KNOBS`: :func:`warn_unimplemented_knobs`
@@ -80,6 +83,10 @@ NATIVE_BATCH_ENV_VAR = _ENV_PREFIX + "NATIVE_BATCH"
 PARALLEL_READ_WAYS_ENV_VAR = _ENV_PREFIX + "PARALLEL_READ_WAYS"
 NATIVE_ENV_VAR = _ENV_PREFIX + "NATIVE"
 NATIVE_SANITIZE_ENV_VAR = _ENV_PREFIX + "NATIVE_SANITIZE"
+S3_ENDPOINT_ENV_VAR = _ENV_PREFIX + "S3_ENDPOINT"
+S3_MULTIPART_THRESHOLD_ENV_VAR = _ENV_PREFIX + "S3_MULTIPART_THRESHOLD_BYTES"
+S3_MULTIPART_PART_ENV_VAR = _ENV_PREFIX + "S3_MULTIPART_PART_BYTES"
+CLOUD_PARALLEL_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CLOUD_PARALLEL_MIN_BYTES"
 
 # The JAX package's knobs this package reads nothing of: there is no
 # pure-Python data plane to switch to.
@@ -131,6 +138,9 @@ _DEFAULT_REGRESSION_WINDOW = 50
 _DEFAULT_NATIVE_BATCH = 8
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
+# Smallest object-store read that fans out across concurrent ranged GETs
+# (storage_plugins/_ranged.py).
+_DEFAULT_CLOUD_PARALLEL_MIN_BYTES = 64 * 1024 * 1024
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -182,10 +192,14 @@ def get_io_retries() -> int:
     return max(0, _get_int_env(IO_RETRIES_ENV_VAR, _DEFAULT_IO_RETRIES))
 
 
-def get_retry_base_s() -> float:
-    """Base of the jittered exponential backoff (retry.backoff_s)."""
+def get_retry_base_s(default: Optional[float] = None) -> float:
+    """Base of the jittered exponential backoff (retry.backoff_s).  The
+    variable, when set, overrides every layer's base, a caller's calibrated
+    ``default`` included; unset, ``default`` wins, then 0.2 s."""
     val = os.environ.get(RETRY_BASE_S_ENV_VAR)
-    return float(val) if val is not None else _DEFAULT_RETRY_BASE_S
+    if val is not None:
+        return float(val)
+    return default if default is not None else _DEFAULT_RETRY_BASE_S
 
 
 def get_native_threads() -> int:
@@ -236,6 +250,33 @@ def get_native_sanitize() -> str:
             f"(supported: {', '.join(_SUPPORTED_SANITIZERS)})"
         )
     return val
+
+
+def get_cloud_parallel_min_bytes() -> int:
+    """Smallest S3 read that fans out across concurrent ranged requests
+    (storage_plugins/_ranged.py)."""
+    return _get_int_env(
+        CLOUD_PARALLEL_MIN_BYTES_ENV_VAR, _DEFAULT_CLOUD_PARALLEL_MIN_BYTES
+    )
+
+
+def get_s3_endpoint() -> Optional[str]:
+    """Override for the S3 endpoint URL (minio, a fake server); None derives
+    the AWS endpoint from the bucket region."""
+    val = os.environ.get(S3_ENDPOINT_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_s3_multipart_threshold_bytes(default: int) -> int:
+    """Object size above which the s3 plugin switches to multipart upload;
+    the plugin passes its AWS-bound default."""
+    return _get_int_env(S3_MULTIPART_THRESHOLD_ENV_VAR, default)
+
+
+def get_s3_multipart_part_bytes(default: int) -> int:
+    """Part size for s3 multipart uploads (AWS bounds: >=5 MB, <=10k
+    parts)."""
+    return _get_int_env(S3_MULTIPART_PART_ENV_VAR, default)
 
 
 def checksum_enabled() -> bool:
@@ -689,6 +730,12 @@ def override_direct_io(enabled: bool) -> Generator[None, None, None]:
 @contextmanager
 def override_parallel_read_ways(value: int) -> Generator[None, None, None]:
     with override_env(PARALLEL_READ_WAYS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_cloud_parallel_min_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(CLOUD_PARALLEL_MIN_BYTES_ENV_VAR, str(value)):
         yield
 
 

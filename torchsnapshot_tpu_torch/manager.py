@@ -1,11 +1,13 @@
 """SnapshotManager: step-numbered snapshots with retention.
 
-Counterpart of ``torchsnapshot_tpu/manager.py`` on ``fs`` and ``memory``
-roots, with the same layout, markers, journal and history files, so either
-package's manager manages a root the other wrote: the training-loop layer
-over the Snapshot primitives — step-numbered directories under one root,
-retention of the last N *committed* snapshots, latest-step discovery,
-async saves, last-good fallback on resume, and garbage collection.
+Counterpart of ``torchsnapshot_tpu/manager.py`` on ``fs``, ``s3`` and
+``memory`` roots (any backend that lists, through its plugin's
+``list_dir``/``delete_dir``), with the same layout, markers, journal and
+history files, so either package's manager manages a root the other
+wrote: the training-loop layer over the Snapshot primitives —
+step-numbered directories under one root, retention of the last N
+*committed* snapshots, latest-step discovery, async saves, last-good
+fallback on resume, and garbage collection.
 
 Layout: ``<root>/step_<N>`` per snapshot.  A snapshot counts as committed iff
 its ``.snapshot_metadata`` exists (the commit protocol's invariant), so
@@ -154,7 +156,7 @@ class SnapshotManager:
         return storage.sync_exists(f"step_{step}/{SNAPSHOT_METADATA_FNAME}")
 
     def all_steps(self, storage=None) -> List[int]:
-        """Committed steps, ascending, on any listable backend (fs and
+        """Committed steps, ascending, on any listable backend (fs, s3 and
         memory, via each plugin's list_dir).  Pass ``storage`` to reuse an
         open plugin (avoids building a thread pool + sessions per call)."""
         own = storage is None
@@ -206,7 +208,7 @@ class SnapshotManager:
     ) -> Union[Snapshot, PendingSnapshot]:
         """``incremental=True`` deduplicates payloads unchanged since the
         latest committed snapshot instead of rewriting them (hard links on
-        fs).  In journal mode the flag
+        fs, server-side copies on S3).  In journal mode the flag
         is moot — content addressing already dedups every unchanged byte."""
         self._refuse_shared_store()
         if self._journal_mode_active():
@@ -229,8 +231,9 @@ class SnapshotManager:
         path = self.path_for_step(step)
         base: Optional[str] = None
         if incremental:
-            # Dedup is a hard link on fs; a backend without one (memory)
-            # falls back to full writes inside the wrapper.
+            # Dedup is a hard link on fs and a server-side copy on S3; a
+            # backend with neither (memory) falls back to full writes
+            # inside the wrapper.
             latest = self.latest_step()
             if latest is not None and latest != step:
                 base = self.path_for_step(latest)

@@ -36,8 +36,9 @@ Storage depth: payloads are framed with the ``TPUSNAP_COMPRESSION`` codec
 content-addressed store of the snapshot's parent directory (cas.py), split
 on content-defined edges with ``TPUSNAP_CDC`` (chunker.py), and unchanged
 leaves become references before they are staged; ``incremental_from``
-hard-links unchanged payloads of a base snapshot (incremental.py).  Reads
-resolve chunk references whatever the knobs say.
+hard-links (fs) or copies server-side (S3) unchanged payloads of a base
+snapshot (incremental.py).  Reads resolve chunk references whatever the
+knobs say.
 
 Telemetry: every committed take and async take, and every restore, writes
 a per-rank sidecar under the snapshot's ``telemetry/`` (telemetry/
@@ -137,9 +138,10 @@ class Snapshot:
         wins.
 
         ``incremental_from``: a committed base snapshot on the same
-        backend; payloads whose bytes are unchanged are hard-linked from it
-        instead of written (incremental.py).  ``storage_options``:
-        per-plugin settings overriding the environment.  ``cas_index``: a
+        backend; payloads whose bytes are unchanged are hard-linked (fs)
+        or copied server-side (S3) from it instead of written
+        (incremental.py).  ``storage_options``: per-plugin settings
+        overriding the environment (storage_plugin.py).  ``cas_index``: a
         caller-maintained ``cas.DigestIndex`` for ``TPUSNAP_CAS`` takes,
         which skips seeding it from the root's manifests.
 

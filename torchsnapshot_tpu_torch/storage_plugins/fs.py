@@ -147,7 +147,13 @@ class FSStoragePlugin(StoragePlugin):
     supports_scatter = True
     supports_write_hash = True
 
-    def __init__(self, root: str) -> None:
+    def __init__(self, root: str, storage_options=None) -> None:
+        if storage_options:
+            # No fs tunables: an unknown key must fail loudly rather than
+            # silently change nothing.
+            raise ValueError(
+                f"fs accepts no storage_options, got {sorted(storage_options)}"
+            )
         self.root = root
         knobs.get_native_sanitize()  # a typo raises, also once loaded
         self._native = NativeFileIO.get()
