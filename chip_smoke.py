@@ -141,6 +141,30 @@ calls, in phases that each print one JSON line:
                 PUT at most ``wk`` plus the ``w_gate`` chunks the rows
                 touch, every unchanged payload a server-side copy
                 (counted); step 1 restores bit-exact in place
+   GCS — tests/fake_gcs.py's FakeGCSServer in a child process on 127.0.0.1,
+                its MD5 generations memoized per stored object, finished
+                upload sessions dropped between takes and Nagle's algorithm
+                off on its sockets (the numbers are a loopback fake's in
+                Python, not GCS's), on the take phase's state:
+   gcs_take   — ``Snapshot.take("gs://smoke/take")`` at default knobs
+                (resumable uploads in 100 MiB chunks): seconds, GB/s,
+                objects and bytes stored, chunk PUTs, no session left open,
+                every model digest equal to the ``take`` phase's
+   gcs_restore — zeroed targets restored from it: bit-exact,
+                ``data_ptr()`` unchanged, ``h2d`` bytes equal to the
+                state's; the fan-out reads (ranged GETs pinned to the
+                generation) are counted; then again with
+                ``TPUSNAP_PARALLEL_READ_WAYS=1`` (one stream of 100 MiB
+                ranged GETs per read), bit-exact
+   gcs_read_object — ``embed.tokens`` onto the card
+   gcs_incremental_take — step 1 after ``mutate_step``, with
+                ``incremental_from`` the ``gcs_take`` snapshot: the bytes
+                uploaded equal to the fs ``incremental_take``'s, every
+                unchanged payload one ``rewriteTo`` copy (counted); step 1
+                restores bit-exact in place, one stream per read; both
+                roots are then deleted through the plugin
+   Each object-store phase prints its counts: uploads and chunk PUTs (or
+   PUTs and parts), GETs, fan-outs, copies and, for GCS, retries.
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -712,9 +736,12 @@ def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, eve
     if not ok:
         raise RuntimeError("incremental_take: an unchanged payload was not linked, bytes written past the "
                            "bound, or not bit-exact")
+    return written
 
 
 def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+    """The storage-depth phases; returns the payload bytes the incremental
+    take's step 1 wrote."""
     compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir)
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cas_take", False)
     async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
@@ -723,7 +750,7 @@ def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cdc_take", True)
     mutate_step(torch, app_state["model"].state_dict(), ref)
     shutil.rmtree(root)
-    incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
+    return incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
 
 
 # ---------------------------------------------------------- manager phases
@@ -1037,17 +1064,18 @@ srv.stop()
 """
 
 
-class FakeS3Child:
-    """FakeS3Server in a child process on 127.0.0.1; ``stats(prefix)`` reads
-    its counters over a pipe, ``stop()`` ends it."""
+class FakeServerChild:
+    """A fake object store (``script``: S3_CHILD or GCS_CHILD) in a child
+    process on 127.0.0.1; ``stats(prefix)`` reads its counters over a pipe,
+    ``stop()`` ends it."""
 
-    def __init__(self) -> None:
-        self.proc = subprocess.Popen([sys.executable, "-c", S3_CHILD, os.path.join(HERE, "tests")],
+    def __init__(self, script: str, name: str) -> None:
+        self.proc = subprocess.Popen([sys.executable, "-c", script, os.path.join(HERE, "tests")],
                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         self.endpoint = self.proc.stdout.readline().strip()
         if not self.endpoint.startswith("http://127.0.0.1:"):
             self.stop()
-            raise RuntimeError(f"the fake S3 server did not start: {self.endpoint!r}")
+            raise RuntimeError(f"the fake {name} server did not start: {self.endpoint!r}")
 
     def stats(self, prefix: str = "") -> dict:
         self.proc.stdin.write(prefix + "\n")
@@ -1069,7 +1097,7 @@ def model_digests(manifest):
     return {k: v for k, v in payload_digests(manifest).items() if "/model/" in k[0]}
 
 
-def s3_delete_root(server, url: str) -> int:
+def delete_root(server, url: str) -> int:
     """Delete a snapshot root through the plugin; returns the objects left."""
     from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 
@@ -1148,7 +1176,7 @@ def s3_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server
           "device": str(tokens.device), "seconds": round(read_s, 3), "bytes": tokens.numel() * 2,
           "counts": s3_counts(stats)})
     del tokens
-    left = s3_delete_root(server, url)
+    left = delete_root(server, url)
     if not ok or left:
         raise RuntimeError(f"s3_read_object: wrong bytes or not on the card; {left} objects left after delete_dir")
 
@@ -1207,7 +1235,7 @@ def s3_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, 
           "restore_s": round(seconds, 3), "restore_gbps": round(nbytes / GB / seconds, 3),
           "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "restore_counts": s3_counts(rstats),
           "server_rss_bytes": after1["rss_bytes"]})
-    left = s3_delete_root(server, root)
+    left = delete_root(server, root)
     if not ok or left:
         raise RuntimeError("s3_incremental_take: no multipart upload, an unchanged payload not copied server-side, "
                            f"bytes PUT past the bound, or not bit-exact; {left} objects left after delete_dir")
@@ -1228,13 +1256,236 @@ def s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buf
         # while a step's changed objects arrive.
         raise RuntimeError(f"s3: {memory['mem_available_bytes']} bytes of host RAM available, the fake server "
                            f"needs the state's {nbytes} and 8 GiB of slack")
-    server = FakeS3Child()
+    server = FakeServerChild(S3_CHILD, "S3")
     try:
         emit({"phase": "s3_start", "ok": True, "endpoint": server.endpoint, "n_layers": n_layers,
               "state_bytes": nbytes, **memory})
         with knobs.override_env(knobs.S3_ENDPOINT_ENV_VAR, server.endpoint):
             s3_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server, buffered_manifest, n_layers)
             s3_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, server, n_layers)
+    finally:
+        server.stop()
+
+
+# -------------------------------------------------------------- GCS phases
+#
+# The GCS backend at full size against tests/fake_gcs.py's FakeGCSServer,
+# run in a child process like the S3 fake, with each object's generation
+# computed once instead of on every request.  The numbers are those of a
+# loopback fake in Python, not of GCS.  The take's snapshot is the base of
+# the incremental phase, which deletes both roots through the plugin.
+
+GCS_BUCKET = "smoke"
+GCS_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import fake_gcs
+from fake_gcs import FakeGCSServer
+
+# The fake's generation is the MD5 of the whole object, recomputed on every
+# metadata GET and every media GET: a fanned-out 512 MB read would hash
+# 4 GB.  GCS stores an object's generation with it, so the child memoizes it
+# per stored bytes object (same values); entries of objects no longer
+# stored go at the next stats call.
+generations = {}
+md5_generation = fake_gcs._generation
+
+
+def stored_generation(data):
+    hit = generations.get(id(data))
+    if hit is None or hit[0] is not data:
+        hit = generations[id(data)] = (data, md5_generation(data))
+    return hit[1]
+
+
+fake_gcs._generation = stored_generation
+srv = FakeGCSServer()
+# The handler writes a response's headers and its body in two sends; with
+# Nagle's algorithm on, the body waits for the client's delayed ACK (about
+# 40 ms) on every response that has one.  A server sends them at once.
+srv._server.RequestHandlerClass.disable_nagle_algorithm = True
+print(srv.endpoint, flush=True)
+
+
+def rss():
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+for line in sys.stdin:  # "<prefix>": the server's counters and the objects under it
+    prefix = line.rstrip("\n")
+    with srv._lock:
+        live = {id(v) for v in srv.objects.values()}
+        for key in [k for k in generations if k not in live]:
+            generations.pop(key, None)
+        # The fake keeps every upload session, and its bytes, for good.
+        # Stats are read between takes, when no upload is in flight: a
+        # session whose object is stored whole is done and goes, any other
+        # is counted as left open.
+        open_sessions = 0
+        for sid, session in list(srv.sessions.items()):
+            stored = srv.objects.get(session["bucket"] + "/" + session["name"])
+            if stored is None or len(stored) != len(session["data"]):
+                open_sessions += 1
+            del srv.sessions[sid]
+        keys = [k for k in srv.objects if k.startswith(prefix)]
+        out = {"objects": len(keys), "bytes": sum(len(srv.objects[k]) for k in keys),
+               "chunk_puts": srv.chunk_puts, "copies": srv.copies, "downloads": srv.downloads,
+               "sessions_open": open_sessions}
+    out["rss_bytes"] = rss()
+    print(json.dumps(out), flush=True)
+srv.stop()
+"""
+
+
+def gcs_counts(stats):
+    return {k: phase_n(stats, k) for k in ("gcs_upload", "gcs_chunk_put", "gcs_get", "gcs_fanout", "gcs_copy",
+                                           "gcs_retry")}
+
+
+def gcs_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server, buffered_manifest, n_layers):
+    """gcs_take, gcs_restore (then again with one stream per read) and
+    gcs_read_object at default knobs; returns the snapshot's URL, the step 0
+    of gcs_incremental_take."""
+    url = f"gs://{GCS_BUCKET}/take"
+    before = server.stats()
+    device_sync(torch)
+    phase_stats.reset()
+    begin = time.monotonic()
+    snapshot = ts.Snapshot.take(url, app_state)
+    take_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    stored = server.stats(f"{GCS_BUCKET}/take/")
+    want, got = model_digests(buffered_manifest), model_digests(snapshot.get_manifest())
+    differ = sorted(str(k) for k in set(want) | set(got) if want.get(k) != got.get(k))
+    d2h_bytes = int(stats.get("d2h", {}).get("bytes", 0))
+    take_ok = (bool(want) and not differ and stored["sessions_open"] == 0
+               and phase_n(stats, "gcs_upload") == stored["objects"]
+               and (d2h_bytes == nbytes or DEV != "cuda"))
+    emit({"phase": "gcs_take", "ok": take_ok, "server": "tests/fake_gcs.py in a child process, loopback",
+          "n_layers": n_layers, "depth_cut": None, "seconds": round(take_s, 3), "gbps": round(nbytes / GB / take_s, 3),
+          "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
+          "chunk_puts": stored["chunk_puts"] - before["chunk_puts"], "state_bytes": nbytes, "d2h_bytes": d2h_bytes,
+          "digests_compared": len(want), "digests_differ": differ[:5], "server_rss_bytes": stored["rss_bytes"],
+          "counts": gcs_counts(stats), "phases": phase_summary(stats)})
+    if not take_ok:
+        raise RuntimeError(f"gcs_take: d2h bytes {d2h_bytes}, an upload left open, or digests differ from the take "
+                           f"phase's: {differ[:5]}")
+
+    before = server.stats()
+    seconds, mismatched, moved, stats = restore_check(torch, ts, url, app_state, ref, phase_stats)
+    after = server.stats()
+    h2d_bytes = int(stats.get("h2d_dispatch", {}).get("bytes", 0))
+    ok = (not mismatched and not moved and phase_n(stats, "gcs_fanout") > 0
+          and (h2d_bytes == nbytes or DEV != "cuda"))
+    emit({"phase": "gcs_restore", "ok": ok, "n_layers": n_layers, "seconds": round(seconds, 3),
+          "gbps": round(nbytes / GB / seconds, 3), "h2d_bytes": h2d_bytes, "state_bytes": nbytes,
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
+          "fanout_reads": phase_n(stats, "gcs_fanout"), "downloads": after["downloads"] - before["downloads"],
+          "counts": gcs_counts(stats), "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("gcs_restore: not bit-exact in place, h2d bytes differ, or no read fanned out")
+    # The same restore with one stream per read (ranged GETs of 100 MiB).
+    before = server.stats()
+    with knobs.override_parallel_read_ways(1):
+        seconds, mismatched, moved, stats = restore_check(torch, ts, url, app_state, ref, phase_stats)
+    after = server.stats()
+    ok = not mismatched and not moved and phase_n(stats, "gcs_fanout") == 0
+    emit({"phase": "gcs_restore", "ok": ok, "parallel_read_ways": 1, "seconds": round(seconds, 3),
+          "gbps": round(nbytes / GB / seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "downloads": after["downloads"] - before["downloads"], "counts": gcs_counts(stats),
+          "phases": phase_summary(stats)})
+    if not ok:
+        raise RuntimeError("gcs_restore with one stream per read: not bit-exact in place, or a read fanned out")
+
+    entry = snapshot.get_manifest()["0/model/embed/tokens"]
+    phase_stats.reset()
+    begin = time.monotonic()
+    tokens = snapshot.read_object("0/model/embed/tokens", device=DEV)
+    device_sync(torch)
+    read_s = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    ok = tokens.device.type == DEV and bit_equal(torch, tokens, ref["embed/tokens"])
+    emit({"phase": "gcs_read_object", "ok": ok, "path": "0/model/embed/tokens", "chunks": len(entry.chunks),
+          "device": str(tokens.device), "seconds": round(read_s, 3), "bytes": tokens.numel() * 2,
+          "counts": gcs_counts(stats)})
+    del tokens
+    if not ok:
+        raise RuntimeError("gcs_read_object: wrong bytes or not on the card")
+    return url
+
+
+def gcs_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, server, n_layers,
+                          fs_incremental_bytes, base_url):
+    """gcs_incremental_take: after mutate_step, step 1 with
+    incremental_from=``base_url`` (gcs_take's snapshot, the step 0): the
+    bytes uploaded exactly the fs incremental_take's, every unchanged
+    payload one rewriteTo copy; step 1 restores bit-exact (one stream per
+    read: the fan-out is gcs_restore's)."""
+    from torchsnapshot_tpu_torch import faults
+    from torchsnapshot_tpu_torch.incremental import checksums_by_location
+
+    root = f"gs://{GCS_BUCKET}/incremental"
+    model = app_state["model"].state_dict()
+    after0 = server.stats()
+    changed_bytes, _ = mutate_step(torch, model, ref)
+    device_sync(torch)
+    n_events = len(events)
+    phase_stats.reset()
+    faults.reset_write_counters()
+    with knobs.override_faults("none"):
+        begin = time.monotonic()
+        snap1 = ts.Snapshot.take(f"{root}/step_1", app_state, incremental_from=base_url)
+        step1_s = time.monotonic() - begin
+    stats1 = phase_stats.snapshot()
+    after1 = server.stats(f"{GCS_BUCKET}/incremental/step_1/")
+    uploaded = sum(n for p, n in faults.write_counters().items() if payload_file(p))
+    end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    bound = whole_chunk_bound(snap1, model, ref)
+    base = checksums_by_location(ts.Snapshot(base_url).metadata)
+    unchanged = sum(1 for loc, c in checksums_by_location(snap1.metadata).items() if base.get(loc) == c)
+    copies = after1["copies"] - after0["copies"]
+    with knobs.override_parallel_read_ways(1):
+        seconds, mismatched, moved, rstats = restore_check(torch, ts, f"{root}/step_1", app_state, ref, phase_stats)
+    mutate_step(torch, model, ref)  # back to step 0's state
+    ok = (after1["sessions_open"] == 0
+          and end["incremental_links"] == unchanged == copies > 0 and phase_n(stats1, "gcs_copy") == copies
+          and uploaded == fs_incremental_bytes and 0 < uploaded <= bound and not mismatched and not moved)
+    emit({"phase": "gcs_incremental_take", "ok": ok, "n_layers": n_layers, "base": base_url,
+          "step1_s": round(step1_s, 3), "step1_chunk_puts": after1["chunk_puts"] - after0["chunk_puts"],
+          "rewrite_copies": copies,
+          "incremental_links": end["incremental_links"], "unchanged_payloads": unchanged, "bytes_uploaded": uploaded,
+          "fs_incremental_bytes": fs_incremental_bytes, "bound_bytes": bound, "changed_bytes": changed_bytes,
+          "state_bytes": nbytes, "step1_counts": gcs_counts(stats1), "step1_phases": phase_summary(stats1),
+          "restore_parallel_read_ways": 1, "restore_s": round(seconds, 3),
+          "restore_gbps": round(nbytes / GB / seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "restore_counts": gcs_counts(rstats), "server_rss_bytes": after1["rss_bytes"]})
+    left = delete_root(server, root) + delete_root(server, base_url)
+    if not ok or left:
+        raise RuntimeError("gcs_incremental_take: an upload left open, an unchanged payload not copied by rewriteTo, "
+                           f"bytes uploaded other than the fs incremental take's {fs_incremental_bytes}, or not "
+                           f"bit-exact; {left} objects left after delete_dir")
+
+
+def gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buffered_manifest, n_layers,
+               fs_incremental_bytes):
+    """The GCS phases, on the take phase's state (the S3 phases leave it
+    so)."""
+    memory = host_memory(torch)
+    if memory["mem_available_bytes"] < 2 * nbytes + (8 << 30):
+        # The server holds the state whole, and its upload sessions hold it
+        # once more until the take's stats call drops them.
+        raise RuntimeError(f"gcs: {memory['mem_available_bytes']} bytes of host RAM available, the fake server "
+                           f"needs twice the state's {nbytes} and 8 GiB of slack")
+    server = FakeServerChild(GCS_CHILD, "GCS")
+    try:
+        emit({"phase": "gcs_start", "ok": True, "endpoint": server.endpoint, "n_layers": n_layers,
+              "state_bytes": nbytes, **memory})
+        with knobs.override_env(knobs.GCS_ENDPOINT_ENV_VAR, server.endpoint):
+            base_url = gcs_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server,
+                                       buffered_manifest, n_layers)
+            gcs_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, server, n_layers,
+                                  fs_incremental_bytes, base_url)
     finally:
         server.stop()
 
@@ -2163,9 +2414,10 @@ def run(args) -> int:
     async_phase(*common, "async_device", "device", "device")
     async_phase(*common, "async_host", "host", "host")
     del mats
-    storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
+    fs_incremental_bytes = storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers)
+    gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers, fs_incremental_bytes)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

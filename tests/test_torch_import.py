@@ -11,7 +11,18 @@ from torch_env import default_knob_env  # noqa: F401  autouse fixture
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO_ROOT, "torchsnapshot_tpu_torch")
-FORBIDDEN = ("jax", "ml_dtypes", "psutil", "aiofiles", "zstandard", "lz4", "requests", "torchsnapshot_tpu")
+FORBIDDEN = (
+    "jax",
+    "ml_dtypes",
+    "psutil",
+    "aiofiles",
+    "zstandard",
+    "lz4",
+    "requests",
+    "google.resumable_media",
+    "google.auth.transport.requests",
+    "torchsnapshot_tpu",
+)
 
 
 def test_import_leaves_forbidden_modules_unloaded():
@@ -46,6 +57,7 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch._native.build\n"
         "import torchsnapshot_tpu_torch.storage_plugins.fs\n"
         "import torchsnapshot_tpu_torch.storage_plugins.s3\n"
+        "import torchsnapshot_tpu_torch.storage_plugins.gcs\n"
         "import torchsnapshot_tpu_torch.storage_plugins._ranged\n"
         "from torchsnapshot_tpu_torch import compression\n"
         "assert compression.resolve('zstd') == 'zstd'  # the native backend\n"

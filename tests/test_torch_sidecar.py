@@ -206,14 +206,16 @@ def test_deadline_mode_drops_compression_and_sheds_sidecar(tmp_path):
     assert not (tmp_path / "deadline" / "telemetry").exists()
 
 
-@pytest.mark.parametrize("name", knobs.UNIMPLEMENTED_KNOBS)
-def test_unimplemented_knobs_warn_once_naming_themselves(tmp_path, monkeypatch, name):
-    """Each host data plane knob the port does not implement yet warns once
-    per process when set, naming itself."""
-    monkeypatch.setattr(knobs, "_warned_knobs", set())
-    with knobs.override_env(name, "1"):
-        with pytest.warns(RuntimeWarning, match=f"{name} is set but has no effect in torchsnapshot_tpu_torch"):
-            Snapshot.take(str(tmp_path / "a"), _state(1))
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            Snapshot(str(tmp_path / "a")).restore(_state(0))
+def test_unimplemented_knobs_warn_once_naming_themselves(tmp_path, monkeypatch):
+    """Each knob of the JAX package that the port does not implement yet
+    warns once per process when set, naming itself.  One case loops over
+    the tuple, so that the file's case count stays put."""
+    assert len(knobs.UNIMPLEMENTED_KNOBS) == len(set(knobs.UNIMPLEMENTED_KNOBS)) > 1
+    for i, name in enumerate(knobs.UNIMPLEMENTED_KNOBS):
+        monkeypatch.setattr(knobs, "_warned_knobs", set())
+        with knobs.override_env(name, "1"):
+            with pytest.warns(RuntimeWarning, match=f"{name} is set but has no effect in torchsnapshot_tpu_torch"):
+                Snapshot.take(str(tmp_path / f"a{i}"), _state(1))
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                Snapshot(str(tmp_path / f"a{i}")).restore(_state(0))

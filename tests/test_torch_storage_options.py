@@ -4,8 +4,8 @@ process, takes and async takes with options, unknown keys refused, the
 URL aliases), and the resolver held against the JAX package's: ``fs`` and
 ``memory`` refuse an unknown key with the same ValueError, ``faults`` is
 popped before the plugin sees the options, ``gs`` normalises to ``gcs``,
-and the same bad option fails the same ``Snapshot.take`` in both.  The
-port has no gcs backend yet: ``gs://`` raises naming it."""
+and the same bad option fails the same ``Snapshot.take`` in both; an
+unknown gcs option is refused with the JAX package's ValueError by both."""
 
 import numpy as np
 import pytest
@@ -85,8 +85,14 @@ def test_unknown_option_rejected():
         url_to_storage_plugin("/tmp/x", storage_options={"bogus": 1})
     with pytest.raises(ValueError, match="storage_options"):
         url_to_storage_plugin("memory://x", storage_options={"bogus": 1})
-    with pytest.raises(NotImplementedError, match="gcs storage backend is not ported"):
-        url_to_storage_plugin("gs://bkt/x", storage_options={"bogus": 1})
+    from torchsnapshot_tpu.storage_plugin import url_to_storage_plugin as jax_url_to_storage_plugin
+
+    messages = []
+    for resolve in (url_to_storage_plugin, jax_url_to_storage_plugin):
+        with pytest.raises(ValueError, match=r"Unknown gcs storage_options: \['bogus'\]") as excinfo:
+            resolve("gs://bkt/x", storage_options={"bogus": 1})
+        messages.append(str(excinfo.value))
+    assert messages[0] == messages[1]
 
 
 def test_parse_url_aliases():

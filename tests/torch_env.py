@@ -21,7 +21,11 @@ credentials set (the fake ignores them) and ``TPUSNAP_RETRY_BASE_S`` at
 1 ms.  ``s3_plugin`` builds port plugins on it.  At teardown every plugin
 is closed (its pools joined, its connections closed), the server is
 stopped (``stop_server``), and the server's handler threads, which live
-until their client closes the connection, are waited for, at most 5 s."""
+until their client closes the connection, are waited for, at most 5 s.
+
+``gcs_server`` and ``gcs_plugin``: the same for a fake GCS server
+(tests/fake_gcs.py) that ``TPUSNAP_GCS_ENDPOINT`` points at (requests to
+it are anonymous)."""
 
 import os
 import socket
@@ -100,6 +104,37 @@ def s3_plugin(s3_server):
 
     def make(root: str = "bkt/pre"):
         plugin = S3StoragePlugin(root=root)
+        plugins.append(plugin)
+        return plugin
+
+    yield make
+    for plugin in plugins:
+        plugin.sync_close()
+
+
+@pytest.fixture
+def gcs_server(no_leaked_threads, monkeypatch):
+    from fake_gcs import FakeGCSServer
+
+    before = set(threading.enumerate())
+    server = FakeGCSServer()
+    monkeypatch.setenv("TPUSNAP_GCS_ENDPOINT", server.endpoint)
+    monkeypatch.setenv("TPUSNAP_RETRY_BASE_S", "0.001")
+    yield server
+    stop_server(server)
+    wait_for_threads(before)
+
+
+@pytest.fixture
+def gcs_plugin(gcs_server):
+    """``make(root="bkt/pre")``: a port GCS plugin on the fake server,
+    closed at teardown."""
+    from torchsnapshot_tpu_torch.storage_plugins.gcs import GCSStoragePlugin
+
+    plugins = []
+
+    def make(root: str = "bkt/pre"):
+        plugin = GCSStoragePlugin(root=root)
         plugins.append(plugin)
         return plugin
 

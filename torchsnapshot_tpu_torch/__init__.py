@@ -6,8 +6,8 @@ package restores bit-exact through the other: ``Snapshot.take`` /
 ``async_take`` / ``restore`` / ``read_object`` on one or many
 torch.distributed ranks, with compression, content addressing and
 incremental takes, and ``SnapshotManager`` (step-numbered saves,
-retention, delta journals, last-good resume, gc) on ``fs`` and ``memory``
-roots.
+retention, delta journals, last-good resume, gc), on ``fs``, ``s3://``,
+``gs://`` and ``memory://`` roots.
 """
 
 from .integrity import ChecksumError
@@ -15,12 +15,13 @@ from .manager import SnapshotManager
 from .retry import StorageTransientError
 from .rng_state import RNGState
 from .serialization import DtypeUnavailableError, state_from_numpy
-from .snapshot import Snapshot
+from .snapshot import PendingSnapshot, Snapshot
 from .state_dict import StateDict
 from .stateful import AppState, Stateful
 
 __all__ = [
     "Snapshot",
+    "PendingSnapshot",
     "SnapshotManager",
     "Stateful",
     "AppState",
@@ -31,3 +32,5 @@ __all__ = [
     "StorageTransientError",
     "state_from_numpy",
 ]
+
+from .version import __version__

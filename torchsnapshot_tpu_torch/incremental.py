@@ -6,7 +6,7 @@ every payload's staged bytes are hashed and, when the digest equals the
 base snapshot's entry at the same relative path, the base's object is
 duplicated into the new snapshot without moving its bytes through this
 host: a hard link on fs, a server-side copy on S3 (CopyObject, or
-UploadPartCopy over 5 GiB; same bucket only).  Every snapshot stays
+UploadPartCopy over 5 GiB) and on GCS (``rewriteTo``), same bucket only.  Every snapshot stays
 self-contained, so removing the base is safe.  Slabs dedup whole: their
 locations are deterministic (a digest of the member paths, batcher.py),
 and a slab matches when every member's digest equals the base's at the
@@ -178,7 +178,7 @@ def maybe_wrap_incremental(
             parse_url(target_path)[0],
         )
         return storage
-    if target_path is not None and base_scheme == "s3":
+    if target_path is not None and base_scheme in ("s3", "gcs"):
         # Object-store copies are same-bucket only: catch a mismatch once
         # here instead of hashing every payload and refusing every copy.
         base_bucket = base_root.partition("/")[0]

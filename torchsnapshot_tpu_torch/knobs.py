@@ -14,15 +14,20 @@ fused writes (``TPUSNAP_NATIVE_BATCH``), direct I/O (``TPUSNAP_DIRECT_IO``),
 the adaptive into-read (``TPUSNAP_PARALLEL_READ_WAYS``) and sanitizer
 builds of the native library (``TPUSNAP_NATIVE_SANITIZE``).  So are the
 object store's: ``TPUSNAP_S3_ENDPOINT``, the multipart threshold and part
-size, and ``TPUSNAP_CLOUD_PARALLEL_MIN_BYTES``, the smallest read that
-fans out across ranged GETs.
-``TPUSNAP_NATIVE=0`` selects the JAX package's pure-Python data plane,
-which this package does not have (its native library is required), so it
-stays in :data:`UNIMPLEMENTED_KNOBS`: :func:`warn_unimplemented_knobs`
-warns once per process when it is set.
-``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST`` have no meaning here:
-they force the JAX package's sub-word bitcast staging, and torch moves
-every dtype's bytes through a ``view(torch.uint8)`` with no repack.
+size, ``TPUSNAP_GCS_ENDPOINT``, and ``TPUSNAP_CLOUD_PARALLEL_MIN_BYTES``,
+the smallest read that fans out across ranged GETs.
+
+Every other knob of the JAX package is named here too, so that none is
+ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
+this package does not have yet (the host cache, peers, the shared chunk
+store, tracing, metrics, the watchdog, the flight recorder, the profiler,
+fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0`` selects the JAX
+package's pure-Python data plane (this package requires its native
+library): :func:`warn_unimplemented_knobs` warns once per process for each
+one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
+``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST``: they force the JAX
+package's sub-word bitcast staging, and torch moves every dtype's bytes
+through a ``view(torch.uint8)`` with no repack.
 """
 
 from __future__ import annotations
@@ -87,10 +92,80 @@ S3_ENDPOINT_ENV_VAR = _ENV_PREFIX + "S3_ENDPOINT"
 S3_MULTIPART_THRESHOLD_ENV_VAR = _ENV_PREFIX + "S3_MULTIPART_THRESHOLD_BYTES"
 S3_MULTIPART_PART_ENV_VAR = _ENV_PREFIX + "S3_MULTIPART_PART_BYTES"
 CLOUD_PARALLEL_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CLOUD_PARALLEL_MIN_BYTES"
+GCS_ENDPOINT_ENV_VAR = _ENV_PREFIX + "GCS_ENDPOINT"
+D2H_BITCAST_ENV_VAR = _ENV_PREFIX + "D2H_BITCAST"
+H2D_BITCAST_ENV_VAR = _ENV_PREFIX + "H2D_BITCAST"
+# Knobs of the JAX package's modules that this package does not have yet.
+ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR = _ENV_PREFIX + "ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY"
+PROGRESS_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "PROGRESS_INTERVAL_S"
+TRACE_DIR_ENV_VAR = _ENV_PREFIX + "TRACE_DIR"
+METRICS_ENV_VAR = _ENV_PREFIX + "METRICS"
+STALL_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "STALL_TIMEOUT_S"
+STALL_ESCALATE_ENV_VAR = _ENV_PREFIX + "STALL_ESCALATE"
+HEARTBEAT_FILE_ENV_VAR = _ENV_PREFIX + "HEARTBEAT_FILE"
+CACHE_DIR_ENV_VAR = _ENV_PREFIX + "CACHE_DIR"
+CACHE_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CACHE_MAX_BYTES"
+FLEET_TELEMETRY_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY"
+FLEET_TELEMETRY_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY_INTERVAL_S"
+FLEET_TELEMETRY_STALE_S_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY_STALE_S"
+PEER_FETCH_ENV_VAR = _ENV_PREFIX + "PEER_FETCH"
+PEER_PORT_ENV_VAR = _ENV_PREFIX + "PEER_PORT"
+PEER_ADDR_ENV_VAR = _ENV_PREFIX + "PEER_ADDR"
+PEER_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "PEER_TIMEOUT_S"
+PEER_RETRIES_ENV_VAR = _ENV_PREFIX + "PEER_RETRIES"
+PEER_GRACE_S_ENV_VAR = _ENV_PREFIX + "PEER_GRACE_S"
+PEER_BAD_TTL_S_ENV_VAR = _ENV_PREFIX + "PEER_BAD_TTL_S"
+PEER_TRACE_MAX_SPANS_ENV_VAR = _ENV_PREFIX + "PEER_TRACE_MAX_SPANS"
+PEER_TRACE_FLUSH_S_ENV_VAR = _ENV_PREFIX + "PEER_TRACE_FLUSH_S"
+PEER_DEMOTE_FACTOR_ENV_VAR = _ENV_PREFIX + "PEER_DEMOTE_FACTOR"
+PEERD_ACCESS_LOG_ENV_VAR = _ENV_PREFIX + "PEERD_ACCESS_LOG"
+PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "PEERD_ACCESS_LOG_MAX_BYTES"
+STORE_QUARANTINE_S_ENV_VAR = _ENV_PREFIX + "STORE_QUARANTINE_S"
+BLACKBOX_DIR_ENV_VAR = _ENV_PREFIX + "BLACKBOX"
+BLACKBOX_SLOTS_ENV_VAR = _ENV_PREFIX + "BLACKBOX_SLOTS"
+BLACKBOX_SLOT_BYTES_ENV_VAR = _ENV_PREFIX + "BLACKBOX_SLOT_BYTES"
+PROFILE_DIR_ENV_VAR = _ENV_PREFIX + "PROFILE"
+PROFILE_HZ_ENV_VAR = _ENV_PREFIX + "PROFILE_HZ"
 
-# The JAX package's knobs this package reads nothing of: there is no
-# pure-Python data plane to switch to.
-UNIMPLEMENTED_KNOBS = (NATIVE_ENV_VAR,)
+# The JAX package's knobs this package reads nothing of: the modules that
+# read them are not ported yet (each leaves this tuple when its module
+# lands), and there is no pure-Python data plane to switch to.
+UNIMPLEMENTED_KNOBS = (
+    NATIVE_ENV_VAR,
+    ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR,
+    PROGRESS_INTERVAL_S_ENV_VAR,
+    TRACE_DIR_ENV_VAR,
+    METRICS_ENV_VAR,
+    STALL_TIMEOUT_S_ENV_VAR,
+    STALL_ESCALATE_ENV_VAR,
+    HEARTBEAT_FILE_ENV_VAR,
+    CACHE_DIR_ENV_VAR,
+    CACHE_MAX_BYTES_ENV_VAR,
+    FLEET_TELEMETRY_ENV_VAR,
+    FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
+    FLEET_TELEMETRY_STALE_S_ENV_VAR,
+    PEER_FETCH_ENV_VAR,
+    PEER_PORT_ENV_VAR,
+    PEER_ADDR_ENV_VAR,
+    PEER_TIMEOUT_S_ENV_VAR,
+    PEER_RETRIES_ENV_VAR,
+    PEER_GRACE_S_ENV_VAR,
+    PEER_BAD_TTL_S_ENV_VAR,
+    PEER_TRACE_MAX_SPANS_ENV_VAR,
+    PEER_TRACE_FLUSH_S_ENV_VAR,
+    PEER_DEMOTE_FACTOR_ENV_VAR,
+    PEERD_ACCESS_LOG_ENV_VAR,
+    PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR,
+    STORE_QUARANTINE_S_ENV_VAR,
+    BLACKBOX_DIR_ENV_VAR,
+    BLACKBOX_SLOTS_ENV_VAR,
+    BLACKBOX_SLOT_BYTES_ENV_VAR,
+    PROFILE_DIR_ENV_VAR,
+    PROFILE_HZ_ENV_VAR,
+)
+# Knobs of the JAX package with no meaning in torch (sub-word bitcast
+# staging); set or not, they change nothing here.
+MEANINGLESS_IN_TORCH_KNOBS = (D2H_BITCAST_ENV_VAR, H2D_BITCAST_ENV_VAR)
 _warned_knobs: Set[str] = set()
 _warned_lock = threading.Lock()
 
@@ -264,6 +339,13 @@ def get_s3_endpoint() -> Optional[str]:
     """Override for the S3 endpoint URL (minio, a fake server); None derives
     the AWS endpoint from the bucket region."""
     val = os.environ.get(S3_ENDPOINT_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_gcs_endpoint() -> Optional[str]:
+    """Override for the GCS JSON/upload API base URL (a fake server, private
+    service connect); None uses the public endpoints with credentials."""
+    val = os.environ.get(GCS_ENDPOINT_ENV_VAR, "").strip()
     return val or None
 
 

@@ -128,8 +128,8 @@ class Snapshot:
         replicated: Optional[List[str]] = None,
         incremental_from: Optional[str] = None,
         storage_options: Optional[Dict[str, Any]] = None,
-        cas_index: Optional["cas.DigestIndex"] = None,
         manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
+        cas_index: Optional["cas.DigestIndex"] = None,
     ) -> "Snapshot":
         """Collective over ``pg`` (default: ``PGWrapper.from_torch()``).
         ``replicated``: globs of logical paths that hold the same value on
@@ -139,7 +139,7 @@ class Snapshot:
 
         ``incremental_from``: a committed base snapshot on the same
         backend; payloads whose bytes are unchanged are hard-linked (fs)
-        or copied server-side (S3) from it instead of written
+        or copied server-side (S3, GCS) from it instead of written
         (incremental.py).  ``storage_options``: per-plugin settings
         overriding the environment (storage_plugin.py).  ``cas_index``: a
         caller-maintained ``cas.DigestIndex`` for ``TPUSNAP_CAS`` takes,
@@ -251,8 +251,8 @@ class Snapshot:
         replicated: Optional[List[str]] = None,
         incremental_from: Optional[str] = None,
         storage_options: Optional[Dict[str, Any]] = None,
-        cas_index: Optional["cas.DigestIndex"] = None,
         manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
+        cas_index: Optional["cas.DigestIndex"] = None,
     ) -> "PendingSnapshot":
         """Returns once the app state is snapshot-stable; storage I/O and the
         metadata commit continue on a background thread.  The caller may
@@ -607,8 +607,8 @@ class Snapshot:
         self,
         path: str,
         obj_out: Optional[Any] = None,
-        device: Device = None,
         memory_budget_bytes: Optional[int] = None,
+        device: Device = None,
     ) -> Any:
         """Random access to one value; ``path`` is ``"<rank>/<logical_path>"``.
         Not collective: any rank may call it alone, for any saved rank.
@@ -669,7 +669,7 @@ class Snapshot:
         return dict(self.metadata.manifest)
 
     def get_state_dict_for_key(
-        self, key: str, device: Device = None, replicate_from_rank0: bool = False
+        self, key: str, replicate_from_rank0: bool = False, device: Device = None
     ) -> Dict[str, Any]:
         """Materialize the state dict saved under an app-state key for this
         rank, without a target stateful; tensors land on ``device`` (default

@@ -1,9 +1,8 @@
 """URL → storage plugin resolver (counterpart of
 ``torchsnapshot_tpu/storage_plugin.py``): ``fs`` (the default when the URL
-has no scheme), ``s3`` and ``memory`` (a test fake) built in; third-party
-plugins through the ``torchsnapshot_tpu_torch.storage_plugins`` entry-point
-group.  ``gs://``/``gcs://`` resolve to ``gcs``, which this package does not
-have yet, and raise naming it.
+has no scheme), ``s3``, ``gcs`` (``gs://`` or ``gcs://``) and ``memory`` (a
+test fake) built in; third-party plugins through the
+``torchsnapshot_tpu_torch.storage_plugins`` entry-point group.
 
 ``storage_options`` travel from the Snapshot APIs into the plugin's
 constructor and override its environment configuration for that call.
@@ -67,6 +66,10 @@ def _resolve_plugin(
         from .storage_plugins.s3 import S3StoragePlugin
 
         return S3StoragePlugin(root=path, storage_options=storage_options)
+    if protocol == "gcs":
+        from .storage_plugins.gcs import GCSStoragePlugin
+
+        return GCSStoragePlugin(root=path, storage_options=storage_options)
     if protocol == "memory":
         from .storage_plugins.memory import MemoryStoragePlugin
 
@@ -75,12 +78,6 @@ def _resolve_plugin(
                 f"memory accepts no storage_options, got {sorted(storage_options)}"
             )
         return MemoryStoragePlugin(root=path)
-    if protocol == "gcs":
-        raise NotImplementedError(
-            f"{url_path}: the gcs storage backend is not ported to "
-            "torchsnapshot_tpu_torch yet (fs, s3 and memory are)"
-        )
-
     for ep in entry_points(group="torchsnapshot_tpu_torch.storage_plugins"):
         if ep.name != protocol:
             continue
