@@ -97,6 +97,12 @@ calls, in phases that each print one JSON line:
                 ``step_2`` (step 1's state): its model entries equal the
                 sync take's (leaves of identical bytes may reference each
                 other's equal range), restore bit-exact
+   replicate_cas_chain — ``copy_snapshot(verify=True)`` of that root's
+                step 0, then step 1, into a new fs root: step 0 copies its
+                chunks, step 1 exactly the chunks it references and step 0
+                does not (their bytes as cas_take's new-chunk bytes), the
+                rest skipped; each audit clean and timed apart; step 1's
+                replica restores bit-exact in place
    cdc_take   — cas_take with ``TPUSNAP_CDC=1``: step 1's new bytes are
                 bounded by the changed bytes plus two maximum-size chunks
                 per changed region
@@ -165,6 +171,22 @@ calls, in phases that each print one JSON line:
                 roots are then deleted through the plugin
    Each object-store phase prints its counts: uploads and chunk PUTs (or
    PUTs and parts), GETs, fan-outs, copies and, for GCS, retries.
+   replication — ``copy_snapshot`` of a fresh fs take of the state, each
+                copy's audit (``verify=True``) timed apart from it:
+   replicate_fs_link — fs to fs: every payload a hard link to its source
+                inode, the marker byte-equal, the audit's ``ok`` equal to
+                the checksummed payload items; bit-exact in-place restore
+   replicate_fs_stream — ``force_stream=True``: no inode shared, the RSS
+                high-water growth over the copy at most the 2 GiB byte
+                budget plus one 512 MiB payload; bit-exact restore; one
+                flipped byte of the replica is exactly one corrupt item in
+                ``integrity.audit`` (naming it) and ``ChecksumError`` from
+                ``restore``; the replica is then removed
+   replicate_s3 — fs to ``s3://smoke/replica`` (the fake S3 child; its
+                audit one GET per read), then within the bucket to
+                ``replica2``: one server-side copy per payload, only the
+                marker PUT, bit-exact in-place restore (one GET per read);
+                needs host RAM for three times the state
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -745,6 +767,7 @@ def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir)
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cas_take", False)
     async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
+    replicate_cas_chain_phase(torch, ts, phase_stats, app_state, ref, root, workdir)
     mutate_step(torch, app_state["model"].state_dict(), ref)  # back to step 0's state
     shutil.rmtree(root)
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cdc_take", True)
@@ -965,7 +988,7 @@ def manager_async_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, n
     storage = url_to_storage_plugin(root)
     try:
         seg = journal.read_segment_metadata(storage, 5)
-        base_view = journal.view_of(journal._read_metadata(storage, "step_3/.snapshot_metadata").manifest)
+        base_view = journal.view_of(journal.read_metadata(storage, "step_3/.snapshot_metadata").manifest)
     finally:
         storage.sync_close()
     with knobs.override_cas(True):
@@ -1488,6 +1511,269 @@ def gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, bu
                                   fs_incremental_bytes, base_url)
     finally:
         server.stop()
+
+
+# ------------------------------------------------------ replication phases
+#
+# copy_snapshot at full size: a fresh fs take replicated by hard links and
+# streamed, then to the fake S3 and within its bucket; a CAS root chunk by
+# chunk runs inside the storage phases, on cas_take's root.  Each copy's
+# audit (verify=True) is timed apart from the copy by wrapping
+# integrity.audit, which copy_snapshot calls through its module.
+
+REPLICATE_COUNTED = ("native_read", "checksum", "native_write_hash", "s3_put", "s3_copy", "s3_get")
+STREAM_RSS_SLACK = 512 << 20  # over the copy's 2 GiB budget: one payload (chunks are at most 512 MB)
+
+
+def timed_copy(ts, phase_stats, src, dst, audit_env=None, **kwargs):
+    """``copy_snapshot(src, dst, **kwargs)``, with every audit it runs timed
+    apart (under ``audit_env()`` when given): (copy seconds less the audits,
+    audit seconds, audit results, phase stats)."""
+    import contextlib
+
+    from torchsnapshot_tpu_torch import integrity
+
+    real = integrity.audit
+    audits = []
+
+    def audit(storage, metadata, io_concurrency=4):
+        begin = time.monotonic()
+        with (audit_env or contextlib.nullcontext)():
+            result = real(storage, metadata, io_concurrency=io_concurrency)
+        audits.append((time.monotonic() - begin, result))
+        return result
+
+    integrity.audit = audit
+    phase_stats.reset()
+    try:
+        begin = time.monotonic()
+        ts.copy_snapshot(src, dst, **kwargs)
+        total_s = time.monotonic() - begin
+    finally:
+        integrity.audit = real
+    audit_s = sum(a for a, _ in audits)
+    return total_s - audit_s, audit_s, [r for _, r in audits], phase_stats.snapshot()
+
+
+def replicate_counts(stats):
+    return {k: {"n": phase_n(stats, k), "bytes": int(stats.get(k, {}).get("bytes", 0))} for k in REPLICATE_COUNTED}
+
+
+def checksummed_items(metadata) -> int:
+    from torchsnapshot_tpu_torch import integrity
+
+    return sum(1 for c in integrity.payload_checksums(metadata).values() if c)
+
+
+def payload_locations(metadata):
+    from torchsnapshot_tpu_torch.manifest import iter_payload_entries
+
+    return sorted({e.location for _, e in iter_payload_entries(metadata.manifest)})
+
+
+def same_inode(a: str, b: str) -> bool:
+    return os.stat(a).st_ino == os.stat(b).st_ino
+
+
+def read_file(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir):
+    """replicate_fs_link and replicate_fs_stream from a fresh fs take of the
+    state; returns the take's path (the S3 phase's source)."""
+    from torchsnapshot_tpu_torch import integrity
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    src = os.path.join(workdir, "replicate_src")
+    device_sync(torch)
+    begin = time.monotonic()
+    metadata = ts.Snapshot.take(src, app_state).metadata
+    take_s = time.monotonic() - begin
+    items = checksummed_items(metadata)
+    locations = payload_locations(metadata)
+    payload_bytes = dir_bytes(src)
+    marker = read_file(os.path.join(src, ".snapshot_metadata"))
+
+    dst = os.path.join(workdir, "replicate_link")
+    copy_s, audit_s, audits, stats = timed_copy(ts, phase_stats, src, dst, verify=True)
+    linked = sum(same_inode(os.path.join(src, loc), os.path.join(dst, loc)) for loc in locations)
+    marker_equal = read_file(os.path.join(dst, ".snapshot_metadata")) == marker
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, dst, app_state, ref, phase_stats)
+    ok = (linked == len(locations) > 0 and marker_equal and audits == [(items, 0, 0, [])]
+          and not mismatched and not moved)
+    emit({"phase": "replicate_fs_link", "ok": ok, "source_take_s": round(take_s, 3), "state_bytes": nbytes,
+          "payload_bytes": payload_bytes, "payloads": len(locations), "linked": linked,
+          "marker_byte_equal": marker_equal, "copy_s": round(copy_s, 3), "audit_s": round(audit_s, 3),
+          "audit_gbps": round(payload_bytes / GB / audit_s, 3) if audit_s else None,
+          "audit_ok": audits[0][0] if audits else None, "checksummed_items": items,
+          "counts": replicate_counts(stats), "restore_s": round(seconds, 3), "bit_exact": not mismatched,
+          "data_ptr_unchanged": not moved, "phases": phase_summary(stats)})
+    shutil.rmtree(dst)
+    if not ok:
+        raise RuntimeError("replicate_fs_link: a payload not linked, the marker differs, the audit was not "
+                           "clean over every checksummed item, or the replica did not restore bit-exact")
+
+    dst = os.path.join(workdir, "replicate_stream")
+    watermark = RSSWatermark()
+    with RSSSampler(watermark):
+        copy_s, audit_s, audits, stats = timed_copy(ts, phase_stats, src, dst, verify=True, force_stream=True)
+    rss_bound = (2 << 30) + STREAM_RSS_SLACK
+    linked = sum(same_inode(os.path.join(src, loc), os.path.join(dst, loc)) for loc in locations)
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, dst, app_state, ref, phase_stats)
+    # One flipped byte in the replica's largest payload file.
+    victim = max(locations, key=lambda loc: os.path.getsize(os.path.join(dst, loc)))
+    with open(os.path.join(dst, victim), "r+b") as f:
+        f.seek(os.path.getsize(os.path.join(dst, victim)) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x40]))
+    storage = url_to_storage_plugin(dst)
+    try:
+        begin = time.monotonic()
+        flipped_ok, corrupt, unreadable, problems = integrity.audit(storage, metadata)
+        flipped_audit_s = time.monotonic() - begin
+    finally:
+        storage.sync_close()
+    try:
+        ts.Snapshot(dst).restore(app_state)
+        raised = None
+    except ts.ChecksumError as e:
+        raised = str(e)
+    model = app_state["model"].state_dict()
+    damaged = [p for p in ref if not bit_equal(torch, get_leaf(model, p), ref[p])]
+    recovered = True
+    if damaged:  # the failed restore overwrote part of the state: put it back from the source
+        _, bad, _, _ = restore_check(torch, ts, src, app_state, ref, phase_stats)
+        recovered = not bad
+    ok = (linked == 0 and watermark.delta <= rss_bound and audits == [(items, 0, 0, [])] and not mismatched
+          and not moved and (flipped_ok, corrupt, unreadable) == (items - 1, 1, 0) and len(problems) == 1
+          and victim in problems[0] and raised is not None and recovered)
+    emit({"phase": "replicate_fs_stream", "ok": ok, "force_stream": True, "payload_bytes": payload_bytes,
+          "payloads": len(locations), "linked": linked, "copy_s": round(copy_s, 3),
+          "copy_gbps": round(payload_bytes / GB / copy_s, 3), "audit_s": round(audit_s, 3),
+          "audit_ok": audits[0][0] if audits else None, "checksummed_items": items,
+          "rss_growth_bytes": watermark.delta, "rss_bound_bytes": rss_bound, "counts": replicate_counts(stats),
+          "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "flipped": victim, "flipped_audit": [flipped_ok, corrupt, unreadable], "flipped_audit_s":
+          round(flipped_audit_s, 3), "problems": problems[:2], "checksum_error": raised,
+          "leaves_overwritten_by_failed_restore": len(damaged), "recovered_from_source": recovered,
+          "phases": phase_summary(stats)})
+    shutil.rmtree(dst)
+    if not ok:
+        raise RuntimeError("replicate_fs_stream: a payload linked, RSS past the byte budget, an unclean audit, "
+                           "no bit-exact restore, or the flipped byte not caught as one corrupt item")
+    return src
+
+
+def replicate_s3_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, src, n_layers):
+    """replicate_s3: the fs take copied to the fake S3 (verify=True, the
+    audit one GET per read), then within the bucket to another prefix: one
+    server-side copy per payload and no payload byte PUT; the second
+    replica restores bit-exact in place."""
+    memory = host_memory(torch)
+    if memory["mem_available_bytes"] < 3 * nbytes:
+        raise RuntimeError(f"replicate_s3: {memory['mem_available_bytes']} bytes of host RAM available, "
+                           f"less than three times the state's {nbytes}")
+    metadata = ts.Snapshot(src).metadata
+    items = checksummed_items(metadata)
+    locations = payload_locations(metadata)
+    payload_bytes = dir_bytes(src)
+    marker_bytes = os.path.getsize(os.path.join(src, ".snapshot_metadata"))
+    server = FakeServerChild(S3_CHILD, "S3")
+    try:
+        with knobs.override_env(knobs.S3_ENDPOINT_ENV_VAR, server.endpoint):
+            url = f"s3://{S3_BUCKET}/replica"
+            before = server.stats()
+            copy_s, audit_s, audits, stats = timed_copy(
+                ts, phase_stats, src, url, verify=True, audit_env=lambda: knobs.override_parallel_read_ways(1))
+            stored = server.stats(f"{S3_BUCKET}/replica/")
+            put = stored["put_bytes"] - before["put_bytes"]
+            ok = (stored["objects"] == len(locations) + 1 and stored["bytes"] == payload_bytes + marker_bytes
+                  and put == stored["bytes"] and audits == [(items, 0, 0, [])] and phase_n(stats, "s3_fanout") == 0)
+            emit({"phase": "replicate_s3", "ok": ok, "route": "fs_to_s3", "n_layers": n_layers,
+                  "server": "tests/fake_s3.py in a child process, loopback", "payload_bytes": payload_bytes,
+                  "objects_stored": stored["objects"], "bytes_stored": stored["bytes"], "bytes_put": put,
+                  "copy_s": round(copy_s, 3), "copy_gbps": round(payload_bytes / GB / copy_s, 3),
+                  "audit_s": round(audit_s, 3), "audit_ok": audits[0][0] if audits else None,
+                  "checksummed_items": items, "counts": replicate_counts(stats), "server_rss_bytes":
+                  stored["rss_bytes"], **memory, "phases": phase_summary(stats)})
+            if not ok:
+                raise RuntimeError("replicate_s3 (fs to s3): objects or bytes stored differ from the source's, "
+                                   "or the audit was not clean")
+            url2 = f"s3://{S3_BUCKET}/replica2"
+            before = server.stats()
+            copy_s, _, _, stats = timed_copy(ts, phase_stats, url, url2)
+            after = server.stats(f"{S3_BUCKET}/replica2/")
+            copies, put = after["copies"] - before["copies"], after["put_bytes"] - before["put_bytes"]
+            # One GET per read, as s3_restore's second form: the fan-out was
+            # timed there, and against this fake it only costs.
+            with knobs.override_parallel_read_ways(1):
+                seconds, mismatched, moved, rstats = restore_check(torch, ts, url2, app_state, ref, phase_stats)
+            ok = (copies == len(locations) == phase_n(stats, "s3_copy") and put == marker_bytes
+                  and after["bytes"] == payload_bytes + marker_bytes and not mismatched and not moved)
+            emit({"phase": "replicate_s3", "ok": ok, "route": "s3_to_s3_same_bucket", "copy_s": round(copy_s, 3),
+                  "restore_parallel_read_ways": 1,
+                  "server_side_copies": copies, "payloads": len(locations), "bytes_put": put,
+                  "marker_bytes": marker_bytes, "counts": replicate_counts(stats), "restore_s": round(seconds, 3),
+                  "restore_gbps": round(nbytes / GB / seconds, 3), "bit_exact": not mismatched,
+                  "data_ptr_unchanged": not moved, "restore_counts": s3_counts(rstats),
+                  "phases": phase_summary(stats)})
+            left = delete_root(server, url) + delete_root(server, url2)
+            if not ok or left:
+                raise RuntimeError("replicate_s3 (s3 to s3): a payload not copied server-side, payload bytes "
+                                   f"PUT, or not bit-exact; {left} objects left after delete_dir")
+    finally:
+        server.stop()
+
+
+def replicate_cas_chain_phase(torch, ts, phase_stats, app_state, ref, root, workdir):
+    """replicate_cas_chain: cas_take's step 0, then step 1, copied to a new
+    fs root with verify=True; step 1's copy adds exactly the chunks step 1
+    references and step 0 does not, and restores bit-exact in place (the
+    state is at step 1)."""
+    from torchsnapshot_tpu_torch import cas
+
+    refs = {s: cas.referenced_chunk_relpaths(ts.Snapshot(os.path.join(root, s)).metadata.manifest)
+            for s in ("step_0", "step_1")}
+    new_chunks = refs["step_1"] - refs["step_0"]
+    new_bytes = sum(os.path.getsize(os.path.join(root, rel)) for rel in new_chunks)
+    dst_root = os.path.join(workdir, "replicate_cas")
+    copy0_s, audit0_s, audits0, stats0 = timed_copy(ts, phase_stats, os.path.join(root, "step_0"),
+                                                    os.path.join(dst_root, "step_0"), verify=True)
+    chunks0 = chunks_on_disk(dst_root)
+    copy1_s, audit1_s, audits1, stats1 = timed_copy(ts, phase_stats, os.path.join(root, "step_1"),
+                                                    os.path.join(dst_root, "step_1"), verify=True)
+    chunks1 = chunks_on_disk(dst_root)
+    added = set(chunks1) - set(chunks0)
+    added_bytes = sum(chunks1[rel] for rel in added)
+    seconds, mismatched, moved, rstats = restore_check(torch, ts, os.path.join(dst_root, "step_1"), app_state, ref,
+                                                       phase_stats)
+    clean = all(a[1:] == (0, 0, []) and a[0] > 0 for a in audits0 + audits1)
+    ok = (set(chunks0) == refs["step_0"] and added == new_chunks and added_bytes == new_bytes and clean
+          and len(audits0) == len(audits1) == 1 and not mismatched and not moved)
+    emit({"phase": "replicate_cas_chain", "ok": ok, "step0_chunks": len(refs["step_0"]),
+          "step0_chunks_copied": len(chunks0), "step0_copy_s": round(copy0_s, 3), "step0_audit_s":
+          round(audit0_s, 3), "step0_audit_ok": audits0[0][0] if audits0 else None,
+          "step1_chunks_copied": len(added), "step1_chunks_skipped": len(refs["step_1"]) - len(added),
+          "step1_new_chunks": len(new_chunks), "step1_copied_bytes": added_bytes, "step1_new_chunk_bytes": new_bytes,
+          "step1_copy_s": round(copy1_s, 3), "step1_audit_s": round(audit1_s, 3),
+          "step1_audit_ok": audits1[0][0] if audits1 else None, "step0_counts": replicate_counts(stats0),
+          "step1_counts": replicate_counts(stats1), "restore_s": round(seconds, 3), "bit_exact": not mismatched,
+          "data_ptr_unchanged": not moved})
+    shutil.rmtree(dst_root)
+    if not ok:
+        raise RuntimeError("replicate_cas_chain: step 1's copy added other chunks than step 1's new ones, an "
+                           "audit was not clean, or the replica did not restore bit-exact")
+
+
+def replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir, n_layers):
+    src = replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir)
+    try:
+        replicate_s3_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, src, n_layers)
+    finally:
+        shutil.rmtree(src)
 
 
 # --------------------------------------------------- host data plane phases
@@ -2418,6 +2704,7 @@ def run(args) -> int:
     manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers)
     gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers, fs_incremental_bytes)
+    replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, args.workdir, n_layers)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

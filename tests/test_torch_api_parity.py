@@ -22,7 +22,7 @@ from torch_env import default_knob_env, no_leaked_threads  # noqa: F401  fixture
 pytestmark = pytest.mark.usefixtures("no_leaked_threads")
 
 # Exported by the JAX package and owed by a later slice of the port.
-NOT_PORTED_EXPORTS = {"copy_snapshot"}
+NOT_PORTED_EXPORTS = set()
 
 
 def _positional(fn):

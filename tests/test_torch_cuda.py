@@ -420,3 +420,23 @@ def test_cuda_unhashed_adaptive_restore_in_place(tmp_path, cuda_device, monkeypa
         assert ("native_read" in stats) == (ways == "8")
     assert "fs_read" in stats  # the reads below the threshold, at least
 
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_copy_restores_in_place(tmp_path, cuda_device):
+    """``copy_snapshot(force_stream=True, verify=True)`` fs → fs of a CUDA
+    state: the replica's payloads are files of their own, it audits clean
+    before its marker lands, and it restores bit-exact in place on the card."""
+    import os
+
+    from torchsnapshot_tpu_torch import copy_snapshot
+
+    state = _state(cuda_device)
+    src, dst = tmp_path / "src", tmp_path / "dst"
+    snapshot = Snapshot.take(str(src), {"m": StateDict(state)})
+    copy_snapshot(str(src), str(dst), force_stream=True, verify=True)
+    locations = {e.location for e in snapshot.get_manifest().values() if getattr(e, "location", None)}
+    assert locations
+    for loc in locations:
+        assert os.stat(dst / loc).st_ino != os.stat(src / loc).st_ino
+    _restore_in_place_and_check(dst, state)

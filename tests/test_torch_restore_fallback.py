@@ -111,3 +111,16 @@ def test_transient_error_reraises_without_fallback(tmp_path, events):
             mgr.restore_latest(dst)
     assert not [e for e in events if e.name == "restore_latest.fallback"]
     np.testing.assert_array_equal(dst["m"]["w"].numpy(), np.zeros(1024, np.float32))
+
+
+def test_transient_error_on_the_marker_reraises_without_fallback(tmp_path, events):
+    """The same for the commit marker's read: a transient failure there is
+    not a missing or unreadable marker."""
+    root = tmp_path / "ckpts"
+    mgr = SnapshotManager(str(root))
+    mgr.save(1, _state(1))
+    mgr.save(2, _state(2))
+    with knobs.override_env(knobs.IO_RETRIES_ENV_VAR, "0"), knobs.override_faults("read:1+:transient@*.snapshot_metadata"):
+        with pytest.raises(StorageTransientError):
+            mgr.restore_latest(_state(0))
+    assert not [e for e in events if e.name == "restore_latest.fallback"]

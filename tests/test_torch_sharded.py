@@ -642,6 +642,19 @@ def parity_restore_jax_snapshot_4():
     _parity_restore_jax_snapshot(4)
 
 
+@run_with_procs(nproc=2, gloo=True)
+def parity_take_2():
+    """2 ranks take the parity tensors as DTensors of the 2-rank target
+    layouts (Shard(1), Shard(0), Replicate())."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    targets = _parity_targets(2)
+    for name, dt in targets.items():
+        offsets, sizes = staging_box(dt)
+        dt.to_local().copy_(parity_value(name)[tuple(slice(o, o + s) for o, s in zip(offsets, sizes))])
+    Snapshot.take(os.environ["TPUSNAP_TEST_SNAPSHOT"], {"m": StateDict(targets)}, pg=make_test_pg())
+
+
 @run_with_procs(nproc=4, gloo=True)
 def parity_take_for_jax():
     """4 ranks take the parity tensors as DTensors: HSDP, a two-axis

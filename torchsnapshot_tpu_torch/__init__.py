@@ -6,12 +6,14 @@ package restores bit-exact through the other: ``Snapshot.take`` /
 ``async_take`` / ``restore`` / ``read_object`` on one or many
 torch.distributed ranks, with compression, content addressing and
 incremental takes, and ``SnapshotManager`` (step-numbered saves,
-retention, delta journals, last-good resume, gc), on ``fs``, ``s3://``,
-``gs://`` and ``memory://`` roots.
+retention, delta journals, last-good resume, gc), and ``copy_snapshot``
+(replication between any two backends), on ``fs``, ``s3://``, ``gs://``
+and ``memory://`` roots.
 """
 
 from .integrity import ChecksumError
 from .manager import SnapshotManager
+from .replication import copy_snapshot
 from .retry import StorageTransientError
 from .rng_state import RNGState
 from .serialization import DtypeUnavailableError, state_from_numpy
@@ -31,6 +33,7 @@ __all__ = [
     "DtypeUnavailableError",
     "StorageTransientError",
     "state_from_numpy",
+    "copy_snapshot",
 ]
 
 from .version import __version__

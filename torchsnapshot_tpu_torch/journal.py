@@ -102,14 +102,14 @@ def orphan_segments(storage: StoragePlugin) -> List[int]:
     return _segments(storage, committed=False)
 
 
-def _read_metadata(storage: StoragePlugin, path: str) -> SnapshotMetadata:
+def read_metadata(storage: StoragePlugin, path: str) -> SnapshotMetadata:
     read_io = ReadIO(path=path)
     storage.sync_read(read_io)
     return SnapshotMetadata.from_json(bytes(read_io.buf).decode("utf-8"))
 
 
 def read_segment_metadata(storage: StoragePlugin, step: int) -> SnapshotMetadata:
-    return _read_metadata(storage, f"{segment_dirname(step)}/{SNAPSHOT_METADATA_FNAME}")
+    return read_metadata(storage, f"{segment_dirname(step)}/{SNAPSHOT_METADATA_FNAME}")
 
 
 # --------------------------------------------------------------- delta math
@@ -228,7 +228,7 @@ def merged_metadata(storage: StoragePlugin, step: int) -> Tuple[SnapshotMetadata
         return seg_md, {}
     base_step = info["base_step"]
     try:
-        base_md = _read_metadata(storage, f"step_{base_step}/{SNAPSHOT_METADATA_FNAME}")
+        base_md = read_metadata(storage, f"step_{base_step}/{SNAPSHOT_METADATA_FNAME}")
     except Exception as e:
         raise JournalReplayError(f"seg_{step}: base step_{base_step} unreadable ({e})") from e
     if base_md.journal is not None:
@@ -290,7 +290,7 @@ def load_state(storage: StoragePlugin, committed_steps: List[int]) -> JournalSta
     base = committed_steps[-1] if committed_steps else None
     if base is None:
         return JournalState(None, [], {}, 1)
-    base_md = _read_metadata(storage, f"step_{base}/{SNAPSHOT_METADATA_FNAME}")
+    base_md = read_metadata(storage, f"step_{base}/{SNAPSHOT_METADATA_FNAME}")
     if base_md.journal is not None:
         raise JournalReplayError(f"step_{base} unexpectedly carries journal metadata")
     view = view_of(base_md.manifest)

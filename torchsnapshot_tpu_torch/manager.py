@@ -28,6 +28,7 @@ are logged as in the JAX package).
 
 from __future__ import annotations
 
+import bisect
 import logging
 import os
 import re
@@ -486,16 +487,20 @@ class SnapshotManager:
         def _adopt_segment() -> None:
             # Rank 0, post-commit: fold the committed delta into the
             # in-memory state and account it.  Compaction runs separately,
-            # once no journal save is in flight.
+            # once no journal save is in flight.  Overlapping async saves
+            # may commit out of step order: the view stays the newest
+            # step's and the segments stay sorted, so the fold lands on
+            # the newest segment.
             with self._journal_lock:
                 st = self._journal_state
                 if st is None or "delta" not in holder:
                     return
                 info = holder["delta"].journal
-                st.view = holder["view"]
-                st.segments.append(step)
+                if not st.segments or step > st.segments[-1]:
+                    st.view = holder["view"]
+                    st.world_size = holder["world_size"]
+                bisect.insort(st.segments, step)
                 st.delta_bytes += int(info.get("delta_bytes", 0))
-                st.world_size = holder["world_size"]
             log_event(
                 Event(
                     name="journal.commit",

@@ -734,7 +734,9 @@ class Snapshot:
             read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
             try:
                 storage.sync_read(read_io)
-            except OSError as e:
+            except Exception as e:  # an object store's 404 is no OSError
+                if retry_policy.is_transient(e):
+                    raise  # says nothing of the snapshot: restore_latest must not fall back
                 raise RuntimeError(
                     f"{self.path} does not appear to be a valid snapshot: "
                     f"missing or unreadable {SNAPSHOT_METADATA_FNAME} ({e}). "
