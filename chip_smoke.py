@@ -187,6 +187,24 @@ calls, in phases that each print one JSON line:
                 ``replica2``: one server-side copy per payload, only the
                 marker PUT, bit-exact in-place restore (one GET per read);
                 needs host RAM for three times the state
+   shared store — two tenant roots A and B, each
+                ``SnapshotManager(root, store=S, max_to_keep=1)``, on one
+                store S; S, A and B are removed at the end:
+   store_tenants — A.save(0) writes the state's chunks into S; B.save(0)
+                of the same state writes no chunk byte (it adopts A's);
+                after ``mutate_step`` B.save(1) writes exactly the chunks
+                step 1 adds, A.save(1) none; both prune step 0.  Per save:
+                wall, the ``take.end`` chunk bytes and the byte meter's
+                bytes under ``S/cas/``; the ledger files; ``tenant_usage``'s
+                logical and physical bytes
+   store_sweep — once the journals naming step-0 chunks are past the
+                liveness grace, ``gc`` of A at
+                ``TPUSNAP_STORE_QUARANTINE_S=0`` condemns, then deletes,
+                exactly the step-0 versions of the changed chunks (chunks
+                and bytes); ``store.chunk_classification`` accounts for
+                every chunk left; a fresh ``Snapshot(...).restore`` of each
+                tenant's step 1, no knob set, resolves through the root's
+                ``.store`` pointer, bit-exact in place
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -1776,6 +1794,163 @@ def replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref
         shutil.rmtree(src)
 
 
+# ------------------------------------------------------ shared store phases
+#
+# Two tenant roots A and B share one store S: SnapshotManager(root, store=S,
+# max_to_keep=1), the configuration of many fine-tunes of one frozen
+# backbone.  The state is the full one; S, A and B are removed at the end.
+
+
+def store_refs(ts, root, step):
+    from torchsnapshot_tpu_torch import cas
+
+    return cas.referenced_chunk_relpaths(ts.Snapshot(os.path.join(root, f"step_{step}")).metadata.manifest)
+
+
+def store_save(torch, mgr, step, app_state, events, phase_stats):
+    """One manager save, metered: its wall, the chunk bytes its CAS writer
+    wrote (``take.end``), the bytes the byte meter saw land under the
+    store's ``cas/``, and the ``store.sweep`` events of its prune."""
+    from torchsnapshot_tpu_torch import faults
+
+    device_sync(torch)
+    n_events = len(events)
+    faults.reset_write_counters()
+    phase_stats.reset()
+    begin = time.monotonic()
+    snap = mgr.save(step, app_state)
+    wall = time.monotonic() - begin
+    stats = phase_stats.snapshot()
+    new_events = events[n_events:]
+    cas_stats = [e.metadata for e in new_events if e.name == "take.end"][-1]["cas"]
+    return snap, {
+        "step": step, "wall_s": round(wall, 3), "chunk_bytes_written": cas_stats["physical_bytes_written"],
+        "chunk_bytes_metered": sum(n for p, n in faults.write_counters().items() if p.startswith("cas/")),
+        "chunks_written": cas_stats["chunks_written"], "adopted_bytes": cas_stats["adopted_bytes"],
+        "dedup_hits": cas_stats["dedup_hits"], "prestage_hits": cas_stats["prestage_hits"],
+        "prune_sweeps": [e.metadata for e in new_events if e.name == "store.sweep"],
+        "phases": phase_summary(stats)}
+
+
+def store_tenants_phase(torch, ts, knobs, phase_stats, app_state, ref, events, workdir):
+    """store_tenants: A.save(0) writes the state's chunks into S; B.save(0)
+    of the same state writes no chunk byte; after the step change B.save(1)
+    writes exactly the chunks step 1 adds, and A.save(1) none; both prune
+    step 0.  Returns (store, roots, step-0 chunks, step-1 chunks, the end of
+    the last take whose journal names step-0 chunks)."""
+    from torchsnapshot_tpu_torch import store
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+
+    S, A, B = (os.path.join(workdir, name) for name in ("store_S", "tenant_A", "tenant_B"))
+    model = app_state["model"].state_dict()
+    saves = []
+    with knobs.override_faults("none"):
+        ma = SnapshotManager(A, max_to_keep=1, store=S)
+        mb = SnapshotManager(B, max_to_keep=1, store=S)
+        _, rec = store_save(torch, ma, 0, app_state, events, phase_stats)
+        saves.append(dict(rec, tenant="A"))
+        refs0 = store_refs(ts, A, 0)
+        sizes = {rel: os.path.getsize(os.path.join(S, rel)) for rel in refs0}
+        _, rec = store_save(torch, mb, 0, app_state, events, phase_stats)
+        saves.append(dict(rec, tenant="B"))
+        step0_journaled_at = time.time()
+        changed, _ = mutate_step(torch, model, ref)
+        snap1, rec = store_save(torch, mb, 1, app_state, events, phase_stats)
+        saves.append(dict(rec, tenant="B"))
+        refs1 = store_refs(ts, B, 1)
+        new_chunks = refs1 - refs0
+        new_bytes = sum(os.path.getsize(os.path.join(S, rel)) for rel in new_chunks)
+        bound = whole_chunk_bound(snap1, model, ref)
+        _, rec = store_save(torch, ma, 1, app_state, events, phase_stats)
+        saves.append(dict(rec, tenant="A"))
+    usage = store.tenant_usage(S)
+    ledger = sorted(os.path.relpath(os.path.join(d, f), S) for d, _, fs in os.walk(os.path.join(S, "ledger"))
+                    for f in fs)
+    points = [sorted(os.listdir(r)) for r in (A, B)]
+    state_bytes = sum(sizes.values())
+    ok = (saves[0]["chunk_bytes_written"] == saves[0]["chunk_bytes_metered"] == state_bytes > 0
+          and saves[1]["chunk_bytes_written"] == saves[1]["chunk_bytes_metered"] == 0
+          and saves[2]["chunk_bytes_written"] == saves[2]["chunk_bytes_metered"] == new_bytes
+          and 0 < new_bytes <= bound
+          and saves[3]["chunk_bytes_written"] == saves[3]["chunk_bytes_metered"] == 0
+          and store_refs(ts, A, 1) == refs1 and len(ledger) == 4
+          and usage["physical_bytes"] == state_bytes + new_bytes
+          and all(t["logical_bytes"] == sum(sizes.get(c, 0) for c in refs1 - new_chunks) + new_bytes
+                  for t in usage["tenants"].values())
+          and all("step_0" not in names and "step_1" in names for names in points))
+    emit({"phase": "store_tenants", "ok": ok, "max_to_keep": 1, "saves": saves, "changed_bytes": changed,
+          "step0_chunks": len(refs0), "step0_chunk_bytes": state_bytes, "step1_new_chunks": len(new_chunks),
+          "step1_new_chunk_bytes": new_bytes, "bound_bytes": bound, "ledger_files": ledger,
+          "tenant_usage": {"logical_bytes": usage["logical_bytes"], "physical_bytes": usage["physical_bytes"],
+                           "chunks": usage["chunks"], "dedup_ratio": usage["dedup_ratio"],
+                           "tenants": {t["root"]: {k: t[k] for k in ("logical_bytes", "exclusive_bytes", "chunks")}
+                                       for t in usage["tenants"].values()}},
+          "root_files": points})
+    if not ok:
+        raise RuntimeError("store_tenants: a save wrote other chunk bytes than its new chunks (B's step 0 and A's "
+                           "step 1 must write none), or the ledger, usage or retention is wrong")
+    return S, (A, B), refs0, refs1, sizes, step0_journaled_at
+
+
+def store_sweep_phase(torch, ts, knobs, phase_stats, app_state, ref, S, roots, refs0, refs1, sizes,
+                      step0_journaled_at):
+    """store_sweep: once the journals naming step-0 chunks are past the
+    liveness grace, A.gc() at TPUSNAP_STORE_QUARANTINE_S=0 condemns, then
+    deletes, exactly the step-0 versions of the changed chunks; every chunk
+    left is classified referenced; a fresh Snapshot(...).restore of each
+    tenant's step 1, with no knob set, resolves through the root's .store
+    pointer and is bit-exact in place.  Removes S and the roots."""
+    from torchsnapshot_tpu_torch import cas, store
+    from torchsnapshot_tpu_torch.manager import SnapshotManager
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    A, B = roots
+    stale = sorted(refs0 - refs1)
+    stale_bytes = sum(sizes[c] for c in stale)
+    # A reference journal protects its chunks for the liveness grace after
+    # its take; gc waits it out, as a user's later gc would find it.
+    wait_s = max(0.0, step0_journaled_at + store._liveness_grace() + 0.5 - time.time())
+    time.sleep(wait_s)
+    with knobs.override_store_quarantine_s(0.0):
+        begin = time.monotonic()
+        removed_steps, swept, _ = SnapshotManager(A, max_to_keep=1, store=S).gc_detail(apply=True)
+        gc_s = time.monotonic() - begin
+    storage = url_to_storage_plugin(S)
+    try:
+        present = cas.list_chunk_relpaths(storage)
+        quarantined = store.quarantined_chunk_relpaths(storage)
+    finally:
+        storage.sync_close()
+    cls = store.chunk_classification(S)
+    restores = []
+    for root in roots:
+        seconds, mismatched, moved, rstats = restore_check(torch, ts, os.path.join(root, "step_1"), app_state, ref,
+                                                           phase_stats)
+        restores.append({"root": os.path.basename(root), "restore_s": round(seconds, 3), "bit_exact": not mismatched,
+                         "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
+                         "phases": phase_summary(rstats)})
+    ok = (removed_steps == [] and swept == stale and len(stale) > 0 and quarantined == []
+          and set(present) == refs1 and cls["referenced"] == sorted(refs1) and cls["orphan"] == []
+          and cls["condemned"] == [] and knobs.get_store_url() is None
+          and all(r["bit_exact"] and r["data_ptr_unchanged"] for r in restores))
+    emit({"phase": "store_sweep", "ok": ok, "quarantine_s": 0.0, "ledger_wait_s": round(wait_s, 3),
+          "gc_s": round(gc_s, 4), "condemned_and_deleted": swept, "expected_chunks": stale,
+          "condemned_and_deleted_bytes": sum(sizes[c] for c in swept if c in sizes),
+          "expected_bytes": stale_bytes, "chunks_left": len(present), "classification":
+          {k: len(v) for k, v in cls.items()}, "restores": restores})
+    for path in (S, *roots):
+        shutil.rmtree(path)
+    if not ok:
+        raise RuntimeError("store_sweep: gc reclaimed other chunks than the unreferenced step-0 versions, a chunk "
+                           "is unclassified, or a tenant's restore through .store was not bit-exact in place")
+
+
+def store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, workdir):
+    S, roots, refs0, refs1, sizes, journaled_at = store_tenants_phase(torch, ts, knobs, phase_stats, app_state, ref,
+                                                                      events, workdir)
+    store_sweep_phase(torch, ts, knobs, phase_stats, app_state, ref, S, roots, refs0, refs1, sizes, journaled_at)
+
+
 # --------------------------------------------------- host data plane phases
 #
 # Direct I/O, the adaptive read strategy and micro-batched fused writes, at
@@ -2705,6 +2880,7 @@ def run(args) -> int:
     s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers)
     gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers, fs_incremental_bytes)
     replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, args.workdir, n_layers)
+    store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

@@ -187,21 +187,27 @@ def test_orphan_chunk_is_verified_before_reuse(tmp_path):
 
 
 def test_shared_store_and_journal_segments_are_refused(tmp_path, monkeypatch):
-    """TPUSNAP_STORE (the shared chunk store) is not ported and is refused,
-    naming it, by a CAS take and by the manager.  A 0.5.0 journal segment
-    is read (its chunk references seed the index) but a direct restore of
-    it is refused: only the manager's replay restores a delta."""
+    """With TPUSNAP_STORE set a CAS take lands its chunks under the shared
+    store, not the root, and restores through the knob; the manager's
+    store= does the same and leaves the root's .store pointer, which a
+    restore with no knob set resolves through.  A 0.5.0 journal segment is
+    read (its chunk references seed the index) but a direct restore of it
+    is refused: only the manager's replay restores a delta."""
     from torchsnapshot_tpu_torch.manager import SnapshotManager
 
-    monkeypatch.setenv("TPUSNAP_STORE", str(tmp_path / "store"))
-    with knobs.override_cas(True), pytest.raises(NotImplementedError, match="shared chunk store"):
+    store = tmp_path / "store"
+    monkeypatch.setenv("TPUSNAP_STORE", str(store))
+    with knobs.override_cas(True), knobs.override_batching_disabled(True):
         Snapshot.take(str(tmp_path / "root" / "step_1"), _state(1))
-    with pytest.raises(NotImplementedError, match="shared chunk store"):
-        SnapshotManager(str(tmp_path / "root")).save(1, _state(1))
-    with pytest.raises(NotImplementedError, match="shared chunk store"):
-        SnapshotManager(str(tmp_path / "root"), store=str(tmp_path / "store"))
-    assert not (tmp_path / "store").exists()
+    assert _chunk_files(tmp_path / "root") == []
+    assert len(_chunk_files(store)) == 2
+    _assert_roundtrip(str(tmp_path / "root" / "step_1"), 1)
     monkeypatch.delenv("TPUSNAP_STORE")
+    with knobs.override_batching_disabled(True):
+        SnapshotManager(str(tmp_path / "root2"), store=str(store)).save(2, _state(2))
+    assert _chunk_files(tmp_path / "root2") == []
+    assert len(_chunk_files(store)) == 3  # the frozen chunk is shared
+    _assert_roundtrip(str(tmp_path / "root2" / "step_2"), 2)
     doc = SnapshotMetadata(version="0.5.0", world_size=1, journal={"base_step": 1}).to_json()
     assert SnapshotMetadata.from_json(doc).journal == {"base_step": 1}
     (tmp_path / "root" / "seg_2").mkdir(parents=True)

@@ -337,19 +337,33 @@ def test_index_sidecar_v2_roundtrip(tmp_path, monkeypatch):
 
 
 def test_shared_store_is_refused_naming_it(tmp_path, monkeypatch):
-    """The shared chunk store is not ported: store=, TPUSNAP_STORE and a
-    root's .store pointer each raise, naming it, and write nothing."""
+    """The shared chunk store is no longer refused: store=, TPUSNAP_STORE
+    and a root's .store pointer each send the save's chunks to the store
+    (none under the root), and gc of a pointer root runs the store sweep."""
+    from torchsnapshot_tpu_torch import store as store_mod
+
+    store = tmp_path / "store"
     root = tmp_path / "ckpts"
-    with pytest.raises(NotImplementedError, match="shared chunk store"):
-        SnapshotManager(str(root), store=str(tmp_path / "store"))
-    monkeypatch.setenv("TPUSNAP_STORE", str(tmp_path / "store"))
-    with pytest.raises(NotImplementedError, match="shared chunk store"):
-        SnapshotManager(str(root)).save(1, _state(1))
+    SnapshotManager(str(root), store=str(store)).save(1, _state(1))
+    assert json.loads((root / ".store").read_text()) == {"store": str(store)}
+    monkeypatch.setenv("TPUSNAP_STORE", str(store))
+    SnapshotManager(str(tmp_path / "knob")).save(1, _state(2))
     monkeypatch.delenv("TPUSNAP_STORE")
-    root.mkdir()
-    (root / ".store").write_text(json.dumps({"store": str(tmp_path / "store")}))
-    mgr = SnapshotManager(str(root))
-    for call in (lambda: mgr.save(1, _state(1)), lambda: mgr.gc(apply=False)):
-        with pytest.raises(NotImplementedError, match="shared chunk store"):
-            call()
-    assert sorted(os.listdir(root)) == [".store"]
+    pointer_root = tmp_path / "pointer"
+    pointer_root.mkdir()
+    (pointer_root / ".store").write_text(json.dumps({"store": str(store)}))
+    mgr = SnapshotManager(str(pointer_root))
+    mgr.save(1, _state(3))
+    assert mgr.gc(apply=False) == []
+    for r in (root, tmp_path / "knob", pointer_root):
+        assert not (r / "cas").exists()
+    plugin = url_to_storage_plugin(str(store))
+    try:
+        assert len(store_mod.registered_tenants(plugin)) == 3
+    finally:
+        plugin.sync_close()
+    assert store_mod.chunk_classification(str(store))["orphan"] == []
+    for r, v in ((root, 1), (tmp_path / "knob", 2), (pointer_root, 3)):
+        dst = _state(0)
+        assert SnapshotManager(str(r)).restore_latest(dst) == 1
+        assert torch.equal(dst["m"]["w"], torch.full((8,), float(v)))

@@ -23,9 +23,13 @@ either package and either package reads them:
   before batching, compression and the write pipeline.
 
 The manager (manager.py) persists the index as a root sidecar, lists the
-chunks present and sweeps those no committed manifest references.  Not in
-this package yet: repack and export, and the shared chunk store
-(``TPUSNAP_STORE``), which a CAS take refuses.
+chunks present and sweeps those no committed manifest references.  With a
+shared chunk store (store.py: ``TPUSNAP_STORE``, or a root's ``.store``
+pointer on the read side) the chunks live under the store instead, the
+writer holds a :class:`~.store.StoreWriterContext` (a refreshed lease and
+the reference journal appended before the commit), and index hits are
+probed once per take, since another tenant's sweep may have removed them.
+Not in this package yet: repack and export.
 
 Trust: a hit against the seeded index trusts committed manifests (chunks
 are immutable once visible).  A chunk that exists but no committed
@@ -537,12 +541,22 @@ class CASWriterPlugin(StoragePlugin):
     supports_scatter = False
 
     def __init__(
-        self, inner: StoragePlugin, root: StoragePlugin, index: DigestIndex, algo: str
+        self,
+        inner: StoragePlugin,
+        root: StoragePlugin,
+        index: DigestIndex,
+        algo: str,
+        store_ctx: Optional[Any] = None,
     ) -> None:
         self._inner = inner
         self._root = root
         self._index = index
         self._algo = algo
+        # Shared-store mode: the writer lease and the pre-commit journal
+        # append ride this context, and ``_verified`` holds the keys probed
+        # present this take (one probe per key per take).
+        self._store_ctx = store_ctx
+        self._verified: Set[str] = set()
         self._lock = threading.Lock()
         self.relocations: Dict[str, str] = {}
         self.dedup_hits = 0
@@ -668,12 +682,13 @@ class CASWriterPlugin(StoragePlugin):
         unindexed chunk → durable write, deleting debris on failure."""
         key = _digest_key(algo, hexdigest)
         relpath = chunk_relpath(algo, hexdigest)
-        if key in self._index:
+        if key in self._index and await self._index_hit_valid(key, relpath):
             self._count_dedup(nbytes, cdc)
             return
         if await self._probe_existing(relpath, digest, executor):
             self._index.add(key)
             with self._lock:
+                self._verified.add(key)
                 self.adopted_chunks += 1
                 self.adopted_bytes += nbytes
             self._count_dedup(nbytes, cdc)
@@ -692,8 +707,33 @@ class CASWriterPlugin(StoragePlugin):
             raise
         self._index.add(key)
         with self._lock:
+            self._verified.add(key)
             self.chunks_written += 1
             self.bytes_written += nbytes
+
+    async def _index_hit_valid(self, key: str, relpath: str) -> bool:
+        """Whether an index hit may be trusted without I/O: always per root
+        (only this root's manager sweeps it, and its sweeps discard the keys
+        they remove).  In a shared store another tenant's sweep may have
+        condemned a chunk this index (or its persisted sidecar) still
+        lists, so the first hit per key probes the store; a miss discards
+        the key, and the caller re-writes the chunk durably rather than
+        reference a missing one."""
+        if self._store_ctx is None:
+            return True
+        with self._lock:
+            if key in self._verified:
+                return True
+        try:
+            present = await self._root.exists(relpath)
+        except Exception:  # noqa: BLE001 — unknown: treat as absent, re-write
+            present = False
+        if present:
+            with self._lock:
+                self._verified.add(key)
+            return True
+        self._index.discard(key)
+        return False
 
     def _count_dedup(self, nbytes: int, cdc: bool) -> None:
         with self._lock:
@@ -759,6 +799,11 @@ class CASWriterPlugin(StoragePlugin):
 
     async def close(self) -> None:
         self._emit_summary()
+        if self._store_ctx is not None:
+            # Ends the writer lease: the sweep's writer fence stops waiting
+            # on this take (its references are journaled or committed, or
+            # it never committed).
+            self._store_ctx.close()
         try:
             await self._inner.close()
         finally:
@@ -799,19 +844,14 @@ def maybe_wrap_cas_writes(
     """Wrap a take's storage for content-addressed writes when
     ``TPUSNAP_CAS`` is on and the snapshot has a parent directory for the
     store; otherwise return ``storage``.  ``index``: a caller-maintained
-    :class:`DigestIndex` (skips seeding)."""
+    :class:`DigestIndex` (skips seeding).  With ``TPUSNAP_STORE`` set the
+    chunks go to the shared store, the index still seeded from the
+    snapshot's own root (its tenant)."""
     from . import knobs
     from .storage_plugin import url_to_storage_plugin
 
     if not knobs.cas_enabled():
         return storage
-    if knobs.get_store_url() is not None:
-        raise NotImplementedError(
-            "TPUSNAP_STORE is set: the shared chunk store (store.py) is not "
-            "ported to torchsnapshot_tpu_torch yet; unset TPUSNAP_STORE to "
-            "keep chunks under the snapshot's root, or take with "
-            "torchsnapshot_tpu"
-        )
     algo = knobs.get_cas_algo()
     root_url = parent_root_url(path)
     if root_url is None:
@@ -821,11 +861,35 @@ def maybe_wrap_cas_writes(
             path,
         )
         return storage
-    root = url_to_storage_plugin(root_url, storage_options)
+    store_url = knobs.get_store_url()
+    if store_url is None:
+        root = url_to_storage_plugin(root_url, storage_options)
+        if index is None:
+            index = load_or_seed_index(root_url, root, algo)
+        logger.debug("CAS writes for %s (root %s, %d indexed chunks)", path, root_url, len(index))
+        return CASWriterPlugin(inner=storage, root=root, index=index, algo=algo)
+    from . import store
+
+    # No read fallback on the write side: a per-root chunk the store lacks
+    # reads as a miss, so the writer re-writes it into the store.
+    root = store.StoreResolver(url_to_storage_plugin(store_url, storage_options))
     if index is None:
-        index = load_or_seed_index(root_url, root, algo)
-    logger.debug("CAS writes for %s (root %s, %d indexed chunks)", path, root_url, len(index))
-    return CASWriterPlugin(inner=storage, root=root, index=index, algo=algo)
+        tenant_root = url_to_storage_plugin(root_url, storage_options)
+        try:
+            index = load_or_seed_index(root_url, tenant_root, algo)
+        finally:
+            tenant_root.sync_close()
+    store_ctx = store.StoreWriterContext(root, store_url, root_url)
+    try:
+        store_ctx.start()
+    except BaseException:
+        store_ctx.close()
+        root.sync_close()
+        raise
+    logger.debug(
+        "CAS writes for %s (shared store %s, tenant root %s, %d indexed chunks)", path, store_url, root_url, len(index)
+    )
+    return CASWriterPlugin(inner=storage, root=root, index=index, algo=algo, store_ctx=store_ctx)
 
 
 def maybe_wrap_cas_reads(
@@ -835,25 +899,31 @@ def maybe_wrap_cas_reads(
     storage_options: Optional[Dict[str, Any]] = None,
 ) -> StoragePlugin:
     """Wrap a snapshot's storage so chunk locations resolve, when its
-    manifest references any."""
+    manifest references any: against ``TPUSNAP_STORE`` when set, else the
+    store the root's ``.store`` pointer names (with the root as the read
+    fallback, for chunks a root in mid migration still holds), else the
+    root."""
     if not manifest_uses_cas(metadata.manifest):
         return storage
-    from . import knobs
+    from . import knobs, store
     from .storage_plugin import url_to_storage_plugin
 
-    if knobs.get_store_url() is not None:
-        raise NotImplementedError(
-            "TPUSNAP_STORE is set: the shared chunk store (store.py) is not "
-            "ported to torchsnapshot_tpu_torch yet; unset it to read chunks "
-            "from the snapshot's root"
-        )
     root_url = parent_root_url(snapshot_path)
     if root_url is None:
         raise RuntimeError(
             f"{snapshot_path} references content-addressed chunks but has no "
             "parent directory to resolve the cas/ store from"
         )
-    return CASReaderPlugin(inner=storage, root=url_to_storage_plugin(root_url, storage_options))
+    root = url_to_storage_plugin(root_url, storage_options)
+    try:
+        store_url = knobs.get_store_url() or store.read_store_pointer(root)
+        if store_url is None:
+            return CASReaderPlugin(inner=storage, root=root)
+        resolver = store.StoreResolver(url_to_storage_plugin(store_url, storage_options), fallback=root)
+    except BaseException:
+        root.sync_close()
+        raise
+    return CASReaderPlugin(inner=storage, root=resolver)
 
 
 def find_writer(storage: Optional[StoragePlugin]) -> Optional[CASWriterPlugin]:
@@ -887,6 +957,12 @@ def apply_relocations(storage: StoragePlugin, entries: Dict[str, Any]) -> None:
             writer._index.record_payload(
                 entry.checksum, entry.location, getattr(entry, "byte_range", None)
             )
+    if writer._store_ctx is not None:
+        # Journal every chunk the manifest will reference BEFORE the commit
+        # marker lands, prestage-only takes (no relocation, every leaf an
+        # already-committed chunk) included: the sweep's ledger check
+        # protects exactly those dedup decisions through the commit window.
+        writer._store_ctx.append_refs(referenced_chunk_relpaths(entries))
 
 
 def writer_stats(storage: StoragePlugin) -> Optional[Dict[str, int]]:
@@ -994,6 +1070,30 @@ def prestage_delta_skip(
     kept: List[Any] = []
     probed = hits = hit_bytes = 0
     record_checksums = integrity.save_checksums_enabled()
+
+    def _store_hit_valid(location: str) -> bool:
+        # Shared-store mode: a payload-map hit may name chunks another
+        # tenant's sweep removed since this index was built.  Probe each
+        # chunk once per take (the writer's ``_verified``); a miss discards
+        # the key, so the leaf goes through the write pipeline and lands.
+        for rel in chunk_relpaths_of_location(location):
+            key = key_for_relpath(rel)
+            if key is None:
+                continue
+            with writer._lock:
+                if key in writer._verified:
+                    continue
+            try:
+                present = writer._root.sync_exists(rel)
+            except Exception:  # noqa: BLE001 — unknown: treat as absent
+                present = False
+            if not present:
+                index.discard(key)
+                return False
+            with writer._lock:
+                writer._verified.add(key)
+        return True
+
     # In request order, so the slab grouping downstream stays deterministic.
     for wr in write_reqs:
         res = results[id(wr)]
@@ -1003,6 +1103,8 @@ def prestage_delta_skip(
         entry, digest, nbytes = res
         probed += 1
         hit = index.lookup_payload(digest)
+        if hit is not None and writer._store_ctx is not None and not _store_hit_valid(hit[0]):
+            hit = index.lookup_payload(digest)  # its keys are gone: None
         if hit is None:
             writer.note_prestaged(wr.path, digest, nbytes)
             kept.append(wr)

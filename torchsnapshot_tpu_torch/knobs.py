@@ -19,8 +19,7 @@ the smallest read that fans out across ranged GETs.
 
 Every other knob of the JAX package is named here too, so that none is
 ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
-this package does not have yet (the host cache, peers, the shared chunk
-store, tracing, metrics, the watchdog, the flight recorder, the profiler,
+this package does not have yet (the host cache, peers, tracing, metrics, the watchdog, the flight recorder, the profiler,
 fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0`` selects the JAX
 package's pure-Python data plane (this package requires its native
 library): :func:`warn_unimplemented_knobs` warns once per process for each
@@ -156,7 +155,6 @@ UNIMPLEMENTED_KNOBS = (
     PEER_DEMOTE_FACTOR_ENV_VAR,
     PEERD_ACCESS_LOG_ENV_VAR,
     PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR,
-    STORE_QUARANTINE_S_ENV_VAR,
     BLACKBOX_DIR_ENV_VAR,
     BLACKBOX_SLOTS_ENV_VAR,
     BLACKBOX_SLOT_BYTES_ENV_VAR,
@@ -506,7 +504,11 @@ def get_staging_threads() -> int:
 
 def cas_enabled() -> bool:
     """Whether takes write payloads into the root's content-addressed
-    chunk store (``TPUSNAP_CAS``, cas.py)."""
+    chunk store (``TPUSNAP_CAS``, cas.py).  A value pinned for the calling
+    thread (:func:`override_in_thread`) comes before the environment."""
+    val = _thread_value(CAS_ENV_VAR)
+    if val is not None:
+        return val not in ("0", "", "false", "False")
     return _get_flag_env(CAS_ENV_VAR, "0")
 
 
@@ -543,11 +545,34 @@ def get_cdc_params() -> Tuple[int, int, int]:
     return min_b, avg_b, max_b
 
 
+# The quarantine grace of the shared chunk store (store.py): the window
+# between a sweep's condemn phase (orphan chunks moved into
+# <store>/quarantine/<epoch>/) and its delete phase, long enough that a take
+# which deduped against a chunk mid-condemnation has committed (the delete
+# phase then restores the chunk) or re-written it.
+_DEFAULT_STORE_QUARANTINE_S = 60.0
+
+
 def get_store_url() -> Optional[str]:
-    """The shared chunk store (``TPUSNAP_STORE``), or None.  Not ported:
-    CAS takes and the manager refuse it (cas.py, manager.py)."""
-    val = os.environ.get(STORE_ENV_VAR, "").strip()
-    return val or None
+    """The shared chunk store (``TPUSNAP_STORE``), or None (per-root CAS).
+    When set, CAS takes write chunks to
+    ``<store>/cas/<algo>/<digest[:2]>/<digest>`` instead of the root's own
+    ``cas/``, and the manager's GC becomes the ledger-fenced two-phase store
+    sweep (store.py).  A value pinned for the calling thread
+    (:func:`override_in_thread`) comes before the environment."""
+    val = _thread_value(STORE_ENV_VAR)
+    if val is None:
+        val = os.environ.get(STORE_ENV_VAR, "")
+    return val.strip() or None
+
+
+def get_store_quarantine_s() -> float:
+    """Seconds a condemned chunk sits in ``<store>/quarantine/<epoch>/``
+    before the sweep's delete phase may remove it (after re-checking the
+    store-wide referenced set).  0 makes it eligible at once, which is safe
+    only with no concurrent writer."""
+    val = os.environ.get(STORE_QUARANTINE_S_ENV_VAR)
+    return max(0.0, float(val)) if val is not None else _DEFAULT_STORE_QUARANTINE_S
 
 
 def sidecar_enabled() -> bool:
@@ -626,6 +651,35 @@ def override_env(name: str, value: Optional[str]) -> Generator[None, None, None]
             os.environ.pop(name, None)
         else:
             os.environ[name] = prev
+
+
+# Values pinned for one thread by override_in_thread: {env var: value}.
+_thread_local = threading.local()
+
+
+def _thread_value(name: str) -> Optional[str]:
+    return getattr(_thread_local, "values", {}).get(name)
+
+
+@contextmanager
+def override_in_thread(name: str, value: str) -> Generator[None, None, None]:
+    """Pin one knob for the calling thread only, ahead of the environment
+    (read by :func:`get_store_url` and :func:`cas_enabled`).  The manager
+    pins its store and content addressing for each take this way, so two
+    managers saving in two threads neither see nor leave behind each
+    other's setting, as ``os.environ`` overrides would."""
+    values = getattr(_thread_local, "values", None)
+    if values is None:
+        values = _thread_local.values = {}
+    prev = values.get(name)
+    values[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            values.pop(name, None)
+        else:
+            values[name] = prev
 
 
 @contextmanager
@@ -824,4 +878,16 @@ def override_cloud_parallel_min_bytes(value: int) -> Generator[None, None, None]
 @contextmanager
 def override_native_sanitize(value: Optional[str]) -> Generator[None, None, None]:
     with override_env(NATIVE_SANITIZE_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_store(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(STORE_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_store_quarantine_s(value: float) -> Generator[None, None, None]:
+    with override_env(STORE_QUARANTINE_S_ENV_VAR, str(value)):
         yield

@@ -20,15 +20,19 @@ through the content-addressed store; a rank-0 compactor periodically folds
 base + segments into a fresh full step.  ``restore_latest``/``restore_at``
 replay segments over their base transparently.
 
-Not in this package yet: the shared chunk store (``store=`` /
-``TPUSNAP_STORE`` / a root's ``.store`` pointer), which the manager
-refuses with ``NotImplementedError``, and the metrics registry (events
-are logged as in the JAX package).
+Shared store (``store=`` / ``TPUSNAP_STORE`` / the root's ``.store``
+pointer, store.py): saves force content addressing on and land chunks
+under ``<store>/cas/``; retention and ``gc`` reclaim them through the
+store's two-phase sweep.
+
+Not in this package yet: the metrics registry (events are logged as in the
+JAX package).
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import logging
 import os
 import re
@@ -41,6 +45,7 @@ from . import cas as cas_mod
 from . import journal as journal_mod
 from . import knobs
 from . import retry
+from . import store as store_mod
 from .event import Event
 from .event_handlers import log_event
 from .io_types import ReadIO, WriteIO
@@ -56,22 +61,6 @@ logger = logging.getLogger(__name__)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _INFLIGHT_RE = re.compile(r"^\.inflight_(step|seg)_(\d+)\.json$")
-# A root that joined a shared chunk store carries this durable pointer.
-_STORE_POINTER_FNAME = ".store"
-_STORE_REFUSAL = (
-    "the shared chunk store (store.py) is not ported to "
-    "torchsnapshot_tpu_torch yet; keep chunks under the root (unset "
-    "TPUSNAP_STORE, pass no store=), or manage a store-backed root with "
-    "torchsnapshot_tpu"
-)
-
-
-def _liveness_grace() -> float:
-    """Stamp age past which an in-flight marker's writer is presumed dead:
-    the store-side lease grace, or 10 s when liveness detection is off
-    (the JAX package's ``store._liveness_grace``)."""
-    grace = knobs.get_lease_grace_s()
-    return grace if grace > 0 else 10.0
 
 
 def _pid_alive(pid: Optional[int]) -> bool:
@@ -101,18 +90,21 @@ class SnapshotManager:
         Change detection is digest-based, over the native library this
         package requires.
 
-        ``store``: a shared multi-tenant chunk store; not ported, so any
-        value raises ``NotImplementedError``, as does ``TPUSNAP_STORE`` or
-        a root's ``.store`` pointer at the first save or gc."""
+        ``store``: the URL of a shared multi-tenant chunk store (store.py):
+        saves force content addressing on and land chunks under
+        ``<store>/cas/`` instead of ``<root>/cas/``, deduplicating across
+        every root that shares the store.  ``None`` (default) follows
+        ``TPUSNAP_STORE``, then the root's durable ``.store`` pointer (a
+        root that once joined a store keeps resolving against it)."""
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError("max_to_keep must be >= 1")
-        if store is not None:
-            raise NotImplementedError(f"SnapshotManager(store=...): {_STORE_REFUSAL}")
         self.root = root.rstrip("/")
         self.max_to_keep = max_to_keep
         self._pg = pg or PGWrapper.from_torch()
         self._journal = journal
-        self._store_checked = False
+        self._store = store.rstrip("/") if store else None
+        self._store_resolved = store is not None
+        self._store_joined = False
         # Per-save in-flight marker refresher threads (satellite: store-
         # side lease stamps).  Keyed by (step, kind); each rewrites its
         # marker's "stamp" at the lease interval so a reader anywhere can
@@ -181,23 +173,48 @@ class SnapshotManager:
 
     # ----------------------------------------------------------------- save
 
-    def _refuse_shared_store(self) -> None:
-        """Raise ``NotImplementedError`` when this root would save into a
-        shared chunk store: ``TPUSNAP_STORE`` is set, or the root carries
-        the durable ``.store`` pointer of a root that joined one.  The
-        pointer is read once per manager."""
-        if knobs.get_store_url() is not None:
-            raise NotImplementedError(f"TPUSNAP_STORE is set: {_STORE_REFUSAL}")
-        if self._store_checked:
+    def _resolve_store_url(self) -> Optional[str]:
+        """The shared store URL this root saves into, or None: the
+        constructor's, else ``TPUSNAP_STORE``, else the root's durable
+        ``.store`` pointer.  Resolved once and cached."""
+        if not self._store_resolved:
+            self._store_resolved = True
+            url = knobs.get_store_url()
+            if url is None:
+                try:
+                    storage = url_to_storage_plugin(self.root)
+                    try:
+                        url = store_mod.read_store_pointer(storage)
+                    finally:
+                        storage.sync_close()
+                except Exception:  # noqa: BLE001 — unreadable: a per-root CAS
+                    url = None
+            self._store = url.rstrip("/") if url else None
+        return self._store
+
+    def _ensure_store_joined(self, store_url: str) -> None:
+        """Rank 0, once per manager: durably point the root at its store
+        (readers resolve chunks through the pointer with no knob set) and
+        register the tenant (what puts this root's manifests into the
+        sweep's referenced set).  Best-effort: the take's writer context
+        registers again, so a transient failure here costs nothing."""
+        if self._store_joined or self._pg.get_rank() != 0:
             return
-        storage = url_to_storage_plugin(self.root)
+        self._store_joined = True
         try:
-            pointer = storage.sync_exists(_STORE_POINTER_FNAME)
-        finally:
-            storage.sync_close()
-        if pointer:
-            raise NotImplementedError(f"{self.root} is backed by a shared chunk store: {_STORE_REFUSAL}")
-        self._store_checked = True
+            root_storage = url_to_storage_plugin(self.root)
+            try:
+                if store_mod.read_store_pointer(root_storage) != store_url:
+                    store_mod.write_store_pointer(root_storage, store_url)
+            finally:
+                root_storage.sync_close()
+            store_storage = url_to_storage_plugin(store_url)
+            try:
+                store_mod.register_tenant(store_storage, self.root)
+            finally:
+                store_storage.sync_close()
+        except Exception:  # noqa: BLE001 — the take's writer context registers
+            logger.warning("failed to join shared store %s", store_url, exc_info=True)
 
     def save(
         self,
@@ -211,10 +228,19 @@ class SnapshotManager:
         latest committed snapshot instead of rewriting them (hard links on
         fs, server-side copies on S3).  In journal mode the flag
         is moot — content addressing already dedups every unchanged byte."""
-        self._refuse_shared_store()
-        if self._journal_mode_active():
-            return self._save_journal(step, app_state, replicated, async_)
-        return self._save_full(step, app_state, replicated, async_, incremental)
+        store_url = self._resolve_store_url()
+        with contextlib.ExitStack() as pins:
+            if store_url is not None:
+                # Store mode forces content addressing on (chunks are what
+                # the tenants share) and pins the store for the take's
+                # write-path wrapping, for this thread only: managers of
+                # other roots may save in other threads of the process.
+                self._ensure_store_joined(store_url)
+                pins.enter_context(knobs.override_in_thread(knobs.STORE_ENV_VAR, store_url))
+                pins.enter_context(knobs.override_in_thread(knobs.CAS_ENV_VAR, "1"))
+            if self._journal_mode_active():
+                return self._save_journal(step, app_state, replicated, async_)
+            return self._save_full(step, app_state, replicated, async_, incremental)
 
     def _journal_mode_active(self) -> bool:
         # No hashless fallback: the native library this package requires
@@ -934,7 +960,7 @@ class SnapshotManager:
             return True
         stamp = doc.get("stamp")
         if isinstance(stamp, (int, float)):
-            return time.time() - float(stamp) > _liveness_grace()
+            return time.time() - float(stamp) > store_mod._liveness_grace()
         return False
 
     def _enforce_inflight_guard(self, storage, force: bool) -> None:
@@ -1325,7 +1351,6 @@ class SnapshotManager:
         """:meth:`gc` plus the orphan chunk relpaths and the journal
         segments swept (or, dry-run, that WOULD be) — one scan of the
         root, not one per report line."""
-        self._refuse_shared_store()
         if not apply:
             storage = url_to_storage_plugin(self.root)
             try:
@@ -1343,6 +1368,7 @@ class SnapshotManager:
                     chunks = []
             finally:
                 storage.sync_close()
+            chunks = chunks + self._store_sweep(apply=False, force=force)
             return orphans, chunks, sorted(orphan_segs)
         storage = url_to_storage_plugin(self.root)
         try:
@@ -1413,9 +1439,35 @@ class SnapshotManager:
             # an index (without one, staleness self-detects on load).
             if removed_segs and self._digest_index is not None:
                 self._persist_digest_index(storage)
+            # The shared store's half: its two-phase sweep (condemn the
+            # unreferenced chunks into quarantine, delete past-grace
+            # epochs).  The per-root sweep above sees only <root>/cas/, the
+            # per-root chunks of a root in mid migration.
+            store_swept = self._store_sweep(apply=True, force=force)
+            if store_swept:
+                self._sync_index_after_sweep(storage, store_swept)
+                swept = swept + store_swept
         finally:
             storage.sync_close()
         return orphans, swept, sorted(removed_segs)
+
+    def _store_sweep(self, apply: bool, force: bool) -> List[str]:
+        """The shared store's two-phase sweep when this root is store-backed:
+        the chunk relpaths condemned or deleted (or, dry run, condemnable).
+        A live foreign sweep makes it a no-op: one sweeper at a time, and the
+        other tenant's sweep covers the store."""
+        store_url = self._resolve_store_url()
+        if store_url is None:
+            return []
+        try:
+            report = store_mod.sweep(store_url, apply=apply, force=force)
+        except store_mod.StoreSweepBusyError:
+            logger.info("store sweep skipped: another tenant's sweep of %s looks live", store_url)
+            return []
+        except Exception:  # noqa: BLE001 — gc stays best-effort on the store
+            logger.warning("shared-store sweep of %s failed; chunks remain gc-able", store_url, exc_info=True)
+            return []
+        return sorted(set(report["condemned"]) | set(report["deleted"]))
 
     # -------------------------------------------------------------- chunk gc
 
@@ -1491,6 +1543,32 @@ class SnapshotManager:
         in-flight marker from ANOTHER process defers the sweep entirely
         (its uncommitted take may have dedup-hit a candidate); the
         requeued candidates sweep at the next trigger."""
+        store_url = self._resolve_store_url()
+        if store_url is not None:
+            # Store-backed root: the candidates live under <store>/cas/, and
+            # reclamation is the store's two-phase sweep restricted to them.
+            # Condemnation quarantines rather than deletes, so a sibling
+            # tenant's in-flight dedup hit stays resurrectable; a busy store
+            # (a foreign sweep live) re-queues the candidates.
+            try:
+                report = store_mod.sweep(store_url, candidates=candidates)
+                swept = sorted(set(report["condemned"]) | set(report["deleted"]))
+                if swept:
+                    storage = url_to_storage_plugin(self.root)
+                    try:
+                        self._sync_index_after_sweep(storage, swept)
+                    finally:
+                        storage.sync_close()
+            except store_mod.StoreSweepBusyError:
+                logger.info("store chunk sweep deferred: another tenant's sweep of %s looks live", store_url)
+                with self._chunk_gc_lock:
+                    self._deferred_chunk_candidates |= candidates
+            except Exception:  # noqa: BLE001 — orphans stay for gc
+                logger.warning(
+                    "store chunk reclamation failed; orphan chunks remain GC-able (SnapshotManager.gc)",
+                    exc_info=True,
+                )
+            return
         try:
             storage = url_to_storage_plugin(self.root)
             try:
