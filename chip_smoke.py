@@ -205,6 +205,28 @@ calls, in phases that each print one JSON line:
                 every chunk left; a fresh ``Snapshot(...).restore`` of each
                 tenant's step 1, no knob set, resolves through the root's
                 ``.store`` pointer, bit-exact in place
+   host cache — ``TPUSNAP_CACHE_DIR`` on ``<workdir>/cache``, origin metered
+                by ``TPUSNAP_FAULTS=none`` (payload files only); free disk
+                checked first, every directory removed after:
+   cache_cold — the state taken anew (the take phase's snapshot is gone),
+                then a fresh ``Snapshot(...).restore`` in place: origin
+                payload bytes equal to the payload on disk, to the miss
+                bytes and to the bytes cached; the ``cache_populate`` phase;
+                bit-exact
+   cache_warm — the same restore again: 0 origin payload bytes, hit bytes
+                equal to cache_cold's miss bytes, the ``cache_read`` phase
+                (from the page cache: the files were just written),
+                bit-exact; ``read_object`` of ``embed.tokens`` onto the card
+                all from the cache
+   cache_corrupt — 4 bytes flipped in the largest cache data file, its size
+                kept: the next restore re-fetches exactly that entry's bytes
+                from origin and stays bit-exact
+   cache_two_workers — two spawned processes (the port, no JAX) restore one
+                snapshot onto the card at once through one fresh cache:
+                full width, ``CACHE_WORKER_LAYERS`` layers (n_layers and
+                depth_cut printed), seeded values checked in each; summed
+                origin bytes at most 1.25x the logical bytes, hit + miss
+                twice them
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -1951,6 +1973,206 @@ def store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, workdir)
     store_sweep_phase(torch, ts, knobs, phase_stats, app_state, ref, S, roots, refs0, refs1, sizes, journaled_at)
 
 
+# ---------------------------------------------------- host cache phases
+#
+# The serving tier: TPUSNAP_CACHE_DIR=<workdir>/cache, origin metered by the
+# fault wrapper (TPUSNAP_FAULTS=none; dot-files and telemetry/ left out).
+# The take phase's snapshot is gone by now (each phase keeps the disk under
+# two copies of the state), so cache_cold takes the same state anew.
+
+CACHE_WORKERS = 2
+CACHE_WORKER_LAYERS = 8  # full width; the parent holds state, reference and their takes on the card
+
+
+def origin_payload_bytes(faults) -> int:
+    return sum(n for p, n in faults.read_counters().items() if payload_file(p))
+
+
+def cached_restore(torch, ts, knobs, phase_stats, path, app_state, ref, cache_dir):
+    """restore_check through the cache at ``cache_dir``, metered: (seconds,
+    mismatched, moved, phase stats, origin payload bytes, cache totals)."""
+    from torchsnapshot_tpu_torch import cache, faults
+
+    with knobs.override_cache_dir(cache_dir), knobs.override_faults("none"):
+        faults.reset_read_counters()
+        cache.reset_process_stats()
+        seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
+        return seconds, mismatched, moved, stats, origin_payload_bytes(faults), cache.process_stats()
+
+
+def cache_data_files(cache_dir):
+    """{data file: size} of the cache's complete entries."""
+    out = {}
+    for dirpath, _, files in os.walk(os.path.join(cache_dir, "objects")):
+        for name in files:
+            if not name.endswith((".meta", ".lock")) and ".tmp." not in name:
+                out[os.path.join(dirpath, name)] = os.path.getsize(os.path.join(dirpath, name))
+    return out
+
+
+def cache_main_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir):
+    """cache_cold, cache_warm and cache_corrupt on the full state."""
+    from torchsnapshot_tpu_torch import cache, faults
+
+    snap_path, cache_dir = os.path.join(workdir, "cache_snap"), os.path.join(workdir, "cache")
+    free_disk = shutil.disk_usage(workdir).free
+    if free_disk < 2 * nbytes + (4 << 30):
+        raise RuntimeError(f"cache phases: {free_disk} B of free disk cannot hold the snapshot and its cache")
+    device_sync(torch)
+    begin = time.monotonic()
+    ts.Snapshot.take(snap_path, app_state)
+    take_s = time.monotonic() - begin
+    on_disk = dir_bytes(snap_path)
+
+    seconds, bad, moved, stats, origin, totals = cached_restore(torch, ts, knobs, phase_stats, snap_path, app_state,
+                                                                ref, cache_dir)
+    cached = cache_data_files(cache_dir)
+    cold_ok = (not bad and not moved and origin == on_disk == totals["miss_bytes"] and totals["hit_bytes"] == 0
+               and sum(cached.values()) == on_disk)
+    emit({"phase": "cache_cold", "ok": cold_ok, "take_s": round(take_s, 3), "restore_s": round(seconds, 3),
+          "gbps": round(nbytes / GB / seconds, 3), "state_bytes": nbytes, "payload_bytes_on_disk": on_disk,
+          "origin_payload_bytes": origin, "miss_bytes": totals["miss_bytes"], "misses": totals["misses"],
+          "hit_bytes": totals["hit_bytes"], "cache_entries": len(cached), "cache_bytes": sum(cached.values()),
+          "cache_populate": stats.get("cache_populate"), "bit_exact": not bad, "data_ptr_unchanged": not moved,
+          "mismatched": bad[:5], "free_disk_bytes": free_disk, "phases": phase_summary(stats)})
+    if not cold_ok:
+        raise RuntimeError("cache_cold: not bit-exact in place, or origin bytes, miss bytes and cached bytes differ "
+                           "from the snapshot's payload")
+    cold_miss = totals["miss_bytes"]
+
+    seconds, bad, moved, stats, origin, totals = cached_restore(torch, ts, knobs, phase_stats, snap_path, app_state,
+                                                                ref, cache_dir)
+    with knobs.override_cache_dir(cache_dir), knobs.override_faults("none"):
+        faults.reset_read_counters()
+        cache.reset_process_stats()
+        begin = time.monotonic()
+        tokens = ts.Snapshot(snap_path).read_object("0/model/embed/tokens", device=DEV)
+        device_sync(torch)
+        read_s = time.monotonic() - begin
+        read = {"path": "0/model/embed/tokens", "seconds": round(read_s, 3), "origin_payload_bytes":
+                origin_payload_bytes(faults), "hit_bytes": cache.process_stats()["hit_bytes"],
+                "bit_exact": bit_equal(torch, tokens, ref["embed/tokens"]), "device": str(tokens.device)}
+    del tokens
+    warm_ok = (not bad and not moved and origin == 0 and totals["miss_bytes"] == 0 and totals["hit_bytes"] == cold_miss
+               and read["bit_exact"] and read["origin_payload_bytes"] == 0
+               and read["hit_bytes"] == 2 * get_leaf(app_state["model"].state_dict(), "embed/tokens").numel())
+    emit({"phase": "cache_warm", "ok": warm_ok, "restore_s": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+          "origin_payload_bytes": origin, "hit_bytes": totals["hit_bytes"], "hits": totals["hits"],
+          "miss_bytes": totals["miss_bytes"], "cold_miss_bytes": cold_miss, "cache_read": stats.get("cache_read"),
+          "page_cache": "warm: cache_cold wrote these files just before, so the hits read from the page cache",
+          "bit_exact": not bad, "data_ptr_unchanged": not moved, "mismatched": bad[:5], "read_object": read,
+          "phases": phase_summary(stats)})
+    if not warm_ok:
+        raise RuntimeError("cache_warm: origin was read, hit bytes differ from cache_cold's miss bytes, or a "
+                           "result is not bit-exact")
+
+    victim, victim_bytes = max(cache_data_files(cache_dir).items(), key=lambda kv: kv[1])
+    with open(victim, "r+b") as f:  # 4 bytes flipped, the size kept
+        f.seek(victim_bytes // 2)
+        flipped = bytes(b ^ 0xFF for b in f.read(4))
+        f.seek(victim_bytes // 2)
+        f.write(flipped)
+    seconds, bad, moved, stats, origin, totals = cached_restore(torch, ts, knobs, phase_stats, snap_path, app_state,
+                                                                ref, cache_dir)
+    corrupt_ok = (not bad and not moved and origin == victim_bytes == totals["miss_bytes"]
+                  and totals["hit_bytes"] == cold_miss - victim_bytes and os.path.getsize(victim) == victim_bytes)
+    emit({"phase": "cache_corrupt", "ok": corrupt_ok, "restore_s": round(seconds, 3), "corrupted_entry_bytes": victim_bytes,
+          "flipped_bytes": 4, "origin_payload_bytes": origin, "miss_bytes": totals["miss_bytes"],
+          "hit_bytes": totals["hit_bytes"], "bit_exact": not bad, "data_ptr_unchanged": not moved,
+          "mismatched": bad[:5], "phases": phase_summary(stats)})
+    for path in (snap_path, cache_dir):
+        shutil.rmtree(path)
+    if not corrupt_ok:
+        raise RuntimeError("cache_corrupt: the corrupted entry was not re-fetched alone, or the restore is not "
+                           "bit-exact")
+
+
+def seeded_params(torch, n_layers: int, seed: int, zero: bool = False):
+    """The parameter set at ``n_layers`` on the card, each tensor filled by
+    ``seeded_fill`` (zeros with ``zero``)."""
+    params: dict = {}
+    for path, shape, _ in llama_shapes(n_layers):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
+        if not zero:
+            seeded_fill(torch, t, tensor_seed(seed, path), shape, [0] * len(shape))
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    return params
+
+
+def cache_worker_entry(snap, cache_dir, seed, n_layers, conn) -> None:
+    """A spawned serving worker on the card: restore ``snap`` through the
+    cache at ``cache_dir`` into zeroed tensors, check them against the
+    seeded values, send its numbers (or its traceback) to the parent."""
+    import traceback
+
+    try:
+        import torch
+
+        if DEV == "cuda":
+            torch.cuda.set_device(0)
+        sys.path.insert(0, HERE)
+        import torchsnapshot_tpu_torch as ts
+        from torchsnapshot_tpu_torch import cache, faults, knobs
+
+        params = seeded_params(torch, n_layers, seed, zero=True)
+        device_sync(torch)
+        with knobs.override_cache_dir(cache_dir), knobs.override_faults("none"):
+            begin = time.monotonic()
+            ts.Snapshot(snap).restore({"model": ts.StateDict(params)})
+            device_sync(torch)
+            seconds = time.monotonic() - begin
+            origin = origin_payload_bytes(faults)
+        bad = []
+        for path, shape, _ in llama_shapes(n_layers):
+            node = params
+            for key in path:
+                node = node[key]
+            if not seeded_fill(torch, node, tensor_seed(seed, path), shape, [0] * len(shape), check=True):
+                bad.append("/".join(path))
+        conn.send({"ok": True, "result": {"restore_s": seconds, "origin_payload_bytes": origin, "mismatched": bad,
+                                          "jax_imported": "jax" in sys.modules, **cache.process_stats()}})
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        conn.send({"ok": False, "error": traceback.format_exc()})
+
+
+def cache_two_workers_phase(torch, ts, knobs, args):
+    """cache_two_workers: CACHE_WORKERS processes restore one snapshot onto
+    the card at once through one fresh cache directory."""
+    n_layers = min(CACHE_WORKER_LAYERS, args.n_layers)
+    snap_path, cache_dir = os.path.join(args.workdir, "serve_snap"), os.path.join(args.workdir, "serve_cache")
+    logical = state_bytes(n_layers)
+    ts.Snapshot.take(snap_path, {"model": ts.StateDict(seeded_params(torch, n_layers, args.seed))})
+    if DEV == "cuda":
+        torch.cuda.empty_cache()  # the workers' restores get the freed memory
+    begin = time.monotonic()
+    workers = spawn_collect(cache_worker_entry, [(snap_path, cache_dir, args.seed, n_layers)] * CACHE_WORKERS,
+                            "cache_two_workers", "worker")
+    wall = time.monotonic() - begin
+    origin = sum(w["origin_payload_bytes"] for w in workers)
+    miss = sum(w["miss_bytes"] for w in workers)
+    hit = sum(w["hit_bytes"] for w in workers)
+    ok = (miss <= 1.25 * logical and hit + miss == CACHE_WORKERS * logical and origin == miss
+          and all(not w["mismatched"] and not w["jax_imported"] for w in workers))
+    emit({"phase": "cache_two_workers", "ok": ok, "workers": CACHE_WORKERS, "n_layers": n_layers,
+          "depth_cut": n_layers != N_LAYERS, "logical_bytes": logical, "wall_s": round(wall, 3),
+          "origin_payload_bytes": origin, "miss_bytes": miss, "hit_bytes": hit,
+          "origin_over_logical": round(miss / logical, 4), "bound": "miss <= 1.25 x logical, hit + miss = 2 x logical",
+          "per_worker": [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in w.items()} for w in workers]})
+    for path in (snap_path, cache_dir):
+        shutil.rmtree(path)
+    if not ok:
+        raise RuntimeError("cache_two_workers: origin bytes over 1.25x the logical bytes, hit + miss not twice "
+                           "them, or a worker's tensors differ from the seeded values")
+
+
+def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
+    cache_main_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args.workdir)
+    cache_two_workers_phase(torch, ts, knobs, args)
+
+
 # --------------------------------------------------- host data plane phases
 #
 # Direct I/O, the adaptive read strategy and micro-batched fused writes, at
@@ -2520,14 +2742,24 @@ def dist_launch(torch, job: str, world: int, args):
     """Run ``job`` on ``world`` spawned ranks; every rank's result, by rank.
     A rank that fails, dies or times out fails the phase, and every rank
     still running is stopped."""
+    port = free_port()
+    return spawn_collect(dist_entry, [(job, rank, world, port, args.seed, args.workdir) for rank in range(world)],
+                         job, "rank")
+
+
+def spawn_collect(target, arg_tuples, label: str, who: str):
+    """Run ``target(*args, conn)`` in one spawned process per tuple; each
+    sends one message on ``conn``.  Every process's result, in order.  One
+    that fails, dies or times out fails the phase, and every process still
+    running is stopped."""
     import torch.multiprocessing as tmp
 
     ctx = tmp.get_context("spawn")
-    port = free_port()
+    world = len(arg_tuples)
     procs, conns = [], []
-    for rank in range(world):
+    for proc_args in arg_tuples:
         parent, child = ctx.Pipe()
-        p = ctx.Process(target=dist_entry, args=(job, rank, world, port, args.seed, args.workdir, child))
+        p = ctx.Process(target=target, args=(*proc_args, child))
         p.start()
         procs.append(p)
         conns.append(parent)
@@ -2556,7 +2788,7 @@ def dist_launch(torch, job: str, world: int, args):
         if rank not in results and rank not in errors:
             errors[rank] = "timed out" if time.monotonic() >= deadline else "stopped after a peer failed"
     if errors:
-        raise RuntimeError(f"{job}: " + "; ".join(f"rank {r}: {e}" for r, e in sorted(errors.items())))
+        raise RuntimeError(f"{label}: " + "; ".join(f"{who} {r}: {e}" for r, e in sorted(errors.items())))
     return [results[r] for r in range(world)]
 
 
@@ -2881,6 +3113,7 @@ def run(args) -> int:
     gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers, fs_incremental_bytes)
     replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, args.workdir, n_layers)
     store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir)
+    cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

@@ -103,8 +103,8 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     assert unimplemented | meaningless <= port_names and not unimplemented & meaningless
     read = port_names - unimplemented - meaningless
     assert meaningless == {"TPUSNAP_D2H_BITCAST", "TPUSNAP_H2D_BITCAST"}
-    assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS"} <= read
-    assert {"TPUSNAP_CACHE_DIR", "TPUSNAP_PEER_FETCH", "TPUSNAP_NATIVE"} <= unimplemented
+    assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS", "TPUSNAP_CACHE_DIR", "TPUSNAP_CACHE_MAX_BYTES"} <= read
+    assert {"TPUSNAP_PEER_FETCH", "TPUSNAP_NATIVE"} <= unimplemented
 
 
 @pytest.mark.parametrize("value", ["", "  http://127.0.0.1:9/  "])

@@ -76,6 +76,8 @@ CDC_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MIN_BYTES"
 CDC_AVG_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_AVG_BYTES"
 CDC_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CDC_MAX_BYTES"
 STORE_ENV_VAR = _ENV_PREFIX + "STORE"
+CACHE_DIR_ENV_VAR = _ENV_PREFIX + "CACHE_DIR"
+CACHE_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CACHE_MAX_BYTES"
 SIDECAR_ENV_VAR = _ENV_PREFIX + "SIDECAR"
 JOURNAL_ENV_VAR = _ENV_PREFIX + "JOURNAL"
 JOURNAL_MAX_SEGMENTS_ENV_VAR = _ENV_PREFIX + "JOURNAL_MAX_SEGMENTS"
@@ -102,8 +104,6 @@ METRICS_ENV_VAR = _ENV_PREFIX + "METRICS"
 STALL_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "STALL_TIMEOUT_S"
 STALL_ESCALATE_ENV_VAR = _ENV_PREFIX + "STALL_ESCALATE"
 HEARTBEAT_FILE_ENV_VAR = _ENV_PREFIX + "HEARTBEAT_FILE"
-CACHE_DIR_ENV_VAR = _ENV_PREFIX + "CACHE_DIR"
-CACHE_MAX_BYTES_ENV_VAR = _ENV_PREFIX + "CACHE_MAX_BYTES"
 FLEET_TELEMETRY_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY"
 FLEET_TELEMETRY_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY_INTERVAL_S"
 FLEET_TELEMETRY_STALE_S_ENV_VAR = _ENV_PREFIX + "FLEET_TELEMETRY_STALE_S"
@@ -138,8 +138,6 @@ UNIMPLEMENTED_KNOBS = (
     STALL_TIMEOUT_S_ENV_VAR,
     STALL_ESCALATE_ENV_VAR,
     HEARTBEAT_FILE_ENV_VAR,
-    CACHE_DIR_ENV_VAR,
-    CACHE_MAX_BYTES_ENV_VAR,
     FLEET_TELEMETRY_ENV_VAR,
     FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
     FLEET_TELEMETRY_STALE_S_ENV_VAR,
@@ -403,6 +401,22 @@ def get_partial_read_min_saved_bytes() -> int:
             PARTIAL_READ_MIN_SAVED_ENV_VAR, _DEFAULT_PARTIAL_READ_MIN_SAVED_BYTES
         ),
     )
+
+
+def get_cache_dir() -> Optional[str]:
+    """Directory of the shared host chunk cache (``cache.py``), or None:
+    caching off (the default; restores read storage directly).  Point every
+    co-located worker at the same directory, so that a snapshot's payloads
+    cross from origin once per host, not once per process."""
+    val = os.environ.get(CACHE_DIR_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_cache_max_bytes() -> int:
+    """LRU byte bound on the cache directory; eviction (oldest access
+    first) runs now and then after populates.  0 (the default) is
+    unbounded: the operator owns the disk."""
+    return max(0, _get_int_env(CACHE_MAX_BYTES_ENV_VAR, 0))
 
 
 def get_store_addr() -> Optional[str]:
@@ -890,4 +904,16 @@ def override_store(value: Optional[str]) -> Generator[None, None, None]:
 @contextmanager
 def override_store_quarantine_s(value: float) -> Generator[None, None, None]:
     with override_env(STORE_QUARANTINE_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_cache_dir(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(CACHE_DIR_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_cache_max_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(CACHE_MAX_BYTES_ENV_VAR, str(value)):
         yield

@@ -62,7 +62,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from . import cas, device_staging, io_preparer, journal, knobs, phase_stats, preemption, retry as retry_policy, staging
+from . import cache, cas, device_staging, io_preparer, journal, knobs, phase_stats, preemption, retry as retry_policy, staging
 from .batcher import batch_read_requests, batch_write_requests
 from .dist_store import LinearBarrier, StorePeerError, acquire_op_lease, release_op_lease
 from .event import Event
@@ -705,9 +705,12 @@ class Snapshot:
     # --------------------------------------------------------------- helpers
 
     def _wrap_reads(self, storage: StoragePlugin, metadata: SnapshotMetadata) -> StoragePlugin:
-        """Chunk references resolve against the root's store.  A journal
-        delta segment holds partial state and is refused outside the
-        manager's replay, which sets the merged metadata on the handle."""
+        """Chunk references resolve against the root's store, and with
+        ``TPUSNAP_CACHE_DIR`` set payloads read through the shared host
+        cache, outside the CAS reader so that chunk digests are its keys.
+        A journal delta segment holds partial state and is refused outside
+        the manager's replay, which sets the merged metadata on the
+        handle."""
         if metadata.journal is not None:
             raise RuntimeError(
                 f"{self.path} is a journal delta segment (manifest version "
@@ -716,7 +719,8 @@ class Snapshot:
                 "the journal over its base snapshot"
             )
         try:
-            return cas.maybe_wrap_cas_reads(storage, self.path, metadata, self._storage_options)
+            storage = cas.maybe_wrap_cas_reads(storage, self.path, metadata, self._storage_options)
+            return cache.maybe_wrap_cache_reads(storage, metadata)
         except BaseException:
             storage.sync_close()
             raise
@@ -1240,9 +1244,10 @@ def _write_sidecar(
     extra: Optional[Dict[str, Any]] = None,
 ) -> None:
     """This rank's telemetry sidecar of a committed take or a restore,
-    with the CAS writer's stats and the journal summary of a committed
-    segment.  Best-effort: a failure is logged at debug and never fails
-    the operation (``TPUSNAP_SIDECAR=0`` and deadline mode skip it)."""
+    with the CAS writer's stats, a restore's host-cache hits and misses
+    and the journal summary of a committed segment.  Best-effort: a
+    failure is logged at debug and never fails the operation
+    (``TPUSNAP_SIDECAR=0`` and deadline mode skip it)."""
     if not tsidecar.enabled():
         return
     try:
@@ -1256,6 +1261,10 @@ def _write_sidecar(
         if cas_stats is not None:
             # Logical against physical bytes: what dedup saved this rank.
             doc_extra["cas"] = cas_stats
+        cache_stats = cache.reader_stats(storage)
+        if cache_stats is not None:
+            # Bytes served from the host cache against bytes from origin.
+            doc_extra["cache"] = cache_stats
         if committed_md is not None and committed_md.journal is not None:
             doc_extra["journal"] = journal.sidecar_summary(committed_md.journal)
         tsidecar.write(
