@@ -227,6 +227,28 @@ calls, in phases that each print one JSON line:
                 depth_cut printed), seeded values checked in each; summed
                 origin bytes at most 1.25x the logical bytes, hit + miss
                 twice them
+   peer tier — port ``PeerDaemon``s, each in a spawned process advertising
+                127.0.0.1 on a FileStore registry under the work
+                directory, serving an 8-layer cut of the same widths taken
+                with ``TPUSNAP_CAS=1`` to spawned workers on the card
+                (``TPUSNAP_PEER_FETCH=1``, each with a fresh cache, a 60 s
+                peer timeout); each phase removes its directories:
+   peer_restore — daemon A serves a cache warmed by ``cache.warm_snapshot``,
+                daemon B an empty one: the worker's restore reads 0 origin
+                payload bytes, its peer hit bytes equal the chunk bytes on
+                disk, no reject, bit-exact against the seeded values, no
+                ``jax`` imported; wall s and GB/s
+   peer_fault — B stopped, ``TPUSNAP_FAULTS=peer:2:peer_truncated``:
+                exactly one reject, peer hit bytes > 0, peer hit plus origin
+                bytes equal to the chunk bytes, bit-exact
+   peer_rollout — a CAS ``SnapshotManager`` root saves step 1, then step 2
+                with ``wk`` refilled; two daemons serve it;
+                ``peerd.rollout_fleet(root, step, canary=1)`` for step 1
+                (all of it the delta) and step 2: each ``ok``, the canary's
+                delta from origin once, the fleet host's peer hit bytes
+                equal to the delta and its cache miss bytes 0; a worker
+                restores step 2 from the fleet host's cache with 0 origin
+                payload bytes, bit-exact
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -2102,38 +2124,42 @@ def seeded_params(torch, n_layers: int, seed: int, zero: bool = False):
     return params
 
 
-def cache_worker_entry(snap, cache_dir, seed, n_layers, conn) -> None:
-    """A spawned serving worker on the card: restore ``snap`` through the
-    cache at ``cache_dir`` into zeroed tensors, check them against the
-    seeded values, send its numbers (or its traceback) to the parent."""
+def restore_worker_entry(snap, knob_env, seed, n_layers, refilled, conn) -> None:
+    """A spawned worker on the card: with the knobs of ``knob_env`` set,
+    restore ``snap`` into zeroed tensors, check them against the seeded
+    values (the paths in ``refilled`` at ``seed + 1``), send its numbers
+    (or its traceback) to the parent."""
     import traceback
 
     try:
+        os.environ.update(knob_env)
         import torch
 
         if DEV == "cuda":
             torch.cuda.set_device(0)
         sys.path.insert(0, HERE)
         import torchsnapshot_tpu_torch as ts
-        from torchsnapshot_tpu_torch import cache, faults, knobs
+        from torchsnapshot_tpu_torch import cache, faults, peer, phase_stats
 
         params = seeded_params(torch, n_layers, seed, zero=True)
         device_sync(torch)
-        with knobs.override_cache_dir(cache_dir), knobs.override_faults("none"):
-            begin = time.monotonic()
-            ts.Snapshot(snap).restore({"model": ts.StateDict(params)})
-            device_sync(torch)
-            seconds = time.monotonic() - begin
-            origin = origin_payload_bytes(faults)
+        begin = time.monotonic()
+        ts.Snapshot(snap).restore({"model": ts.StateDict(params)})
+        device_sync(torch)
+        seconds = time.monotonic() - begin
+        origin = origin_payload_bytes(faults)
         bad = []
         for path, shape, _ in llama_shapes(n_layers):
             node = params
             for key in path:
                 node = node[key]
-            if not seeded_fill(torch, node, tensor_seed(seed, path), shape, [0] * len(shape), check=True):
+            path_seed = seed + 1 if "/".join(path) in refilled else seed
+            if not seeded_fill(torch, node, tensor_seed(path_seed, path), shape, [0] * len(shape), check=True):
                 bad.append("/".join(path))
         conn.send({"ok": True, "result": {"restore_s": seconds, "origin_payload_bytes": origin, "mismatched": bad,
-                                          "jax_imported": "jax" in sys.modules, **cache.process_stats()}})
+                                          "jax_imported": "jax" in sys.modules, **cache.process_stats(),
+                                          "peer": peer.process_stats(),
+                                          "phases": phase_summary(phase_stats.snapshot())}})
     except BaseException:  # noqa: BLE001 — the parent fails the phase
         conn.send({"ok": False, "error": traceback.format_exc()})
 
@@ -2148,7 +2174,8 @@ def cache_two_workers_phase(torch, ts, knobs, args):
     if DEV == "cuda":
         torch.cuda.empty_cache()  # the workers' restores get the freed memory
     begin = time.monotonic()
-    workers = spawn_collect(cache_worker_entry, [(snap_path, cache_dir, args.seed, n_layers)] * CACHE_WORKERS,
+    knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_FAULTS": "none"}
+    workers = spawn_collect(restore_worker_entry, [(snap_path, knob_env, args.seed, n_layers, ())] * CACHE_WORKERS,
                             "cache_two_workers", "worker")
     wall = time.monotonic() - begin
     origin = sum(w["origin_payload_bytes"] for w in workers)
@@ -2160,7 +2187,8 @@ def cache_two_workers_phase(torch, ts, knobs, args):
           "depth_cut": n_layers != N_LAYERS, "logical_bytes": logical, "wall_s": round(wall, 3),
           "origin_payload_bytes": origin, "miss_bytes": miss, "hit_bytes": hit,
           "origin_over_logical": round(miss / logical, 4), "bound": "miss <= 1.25 x logical, hit + miss = 2 x logical",
-          "per_worker": [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in w.items()} for w in workers]})
+          "per_worker": [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in w.items()
+                          if k not in ("peer", "phases")} for w in workers]})
     for path in (snap_path, cache_dir):
         shutil.rmtree(path)
     if not ok:
@@ -2171,6 +2199,256 @@ def cache_two_workers_phase(torch, ts, knobs, args):
 def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
     cache_main_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args.workdir)
     cache_two_workers_phase(torch, ts, knobs, args)
+
+
+# ------------------------------------------------------------ peer phases
+#
+# The peer tier on an 8-layer cut of the Llama-3-8B widths taken with
+# TPUSNAP_CAS=1 (peers serve only digest-addressed chunks): port daemons,
+# each in a spawned process advertising 127.0.0.1 on a FileStore registry
+# under the work directory, serve their caches to spawned workers that
+# restore onto the card.  A peer fetch reads a whole chunk (up to 512 MiB)
+# before the first byte is checked, and 16 run at once against one daemon
+# on 8 cores, hence a 60 s peer timeout.
+
+PEER_LAYERS = 8
+PEER_TIMEOUT_S = "60"
+DAEMON_TIMEOUT_S = 120
+
+
+def peer_daemon_entry(cache_dir, root, knob_env, conn) -> None:
+    """A spawned port PeerDaemon: sends its address, serves until the
+    parent sends ``stop``, closes (tombstone, shutdown, joined thread) and
+    acknowledges."""
+    import traceback
+
+    try:
+        os.environ.update(knob_env)
+        sys.path.insert(0, HERE)
+        from torchsnapshot_tpu_torch import peerd
+
+        daemon = peerd.PeerDaemon(root=root, cache_dir=cache_dir, advertise="127.0.0.1")
+        conn.send({"ok": True, "addr": daemon.start(), "jax_imported": "jax" in sys.modules})
+        try:
+            conn.recv()
+        finally:
+            daemon.close()
+        conn.send({"ok": True})
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        conn.send({"ok": False, "error": traceback.format_exc()})
+
+
+class PeerDaemons:
+    """Port daemons in spawned processes, one per cache directory:
+    ``addrs[i]`` serves ``cache_dirs[i]``.  ``stop(i)`` closes one and
+    waits for it; leaving the block stops the rest.  A daemon that fails,
+    dies or does not answer in time raises."""
+
+    def __init__(self, cache_dirs, root, knob_env):
+        import torch.multiprocessing as tmp
+
+        ctx = tmp.get_context("spawn")
+        self.procs, self.conns, self.addrs = [], [], []
+        for cache_dir in cache_dirs:
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=peer_daemon_entry, args=(cache_dir, root, knob_env, child))
+            proc.start()
+            self.procs.append(proc)
+            self.conns.append(parent)
+
+    def _answer(self, i):
+        if not self.conns[i].poll(DAEMON_TIMEOUT_S):
+            raise RuntimeError(f"peer daemon {i}: no answer in {DAEMON_TIMEOUT_S} s (exit code {self.procs[i].exitcode})")
+        msg = self.conns[i].recv()
+        if not msg["ok"]:
+            raise RuntimeError(f"peer daemon {i}: {msg['error']}")
+        return msg
+
+    def __enter__(self):
+        try:
+            for i in range(len(self.procs)):
+                msg = self._answer(i)
+                if msg["jax_imported"]:
+                    raise RuntimeError(f"peer daemon {i} imported jax")
+                self.addrs.append(msg["addr"])
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def stop(self, i):
+        proc = self.procs[i]
+        if proc.is_alive():
+            self.conns[i].send("stop")
+            self._answer(i)
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise RuntimeError(f"peer daemon {i} did not exit")
+
+    def __exit__(self, exc_type, exc, tb):
+        errors = []
+        for i, proc in enumerate(self.procs):
+            try:
+                self.stop(i)
+            except Exception as e:  # noqa: BLE001 — every daemon is stopped, then the first error raised
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+                errors.append(e)
+        if errors and exc_type is None:
+            raise errors[0]
+
+
+def peer_restore_worker(snap, cache_dir, kv, faults_spec, seed, label, refilled=()):
+    """One spawned worker on the card restoring ``snap`` peer-first through
+    the fresh cache ``cache_dir``: its numbers."""
+    knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_STORE_PATH": kv, "TPUSNAP_PEER_FETCH": "1",
+                "TPUSNAP_FAULTS": faults_spec, "TPUSNAP_PEER_TIMEOUT_S": PEER_TIMEOUT_S}
+    return spawn_collect(restore_worker_entry, [(snap, knob_env, seed, PEER_LAYERS, tuple(refilled))], label,
+                         "worker")[0]
+
+
+def peer_worker_line(w):
+    return {"restore_s": round(w["restore_s"], 3), "origin_payload_bytes": w["origin_payload_bytes"],
+            "peer": w["peer"], "cache_hit_bytes": w["hit_bytes"], "cache_miss_bytes": w["miss_bytes"],
+            "bit_exact": not w["mismatched"], "mismatched": w["mismatched"][:5], "jax_imported": w["jax_imported"],
+            "phases": w["phases"]}
+
+
+def peer_fetch_phases(torch, ts, knobs, args):
+    """peer_restore, then peer_fault, on one CAS snapshot: daemon A serves
+    a cache warmed through ``cache.warm_snapshot``, daemon B an empty one.
+    B is stopped before peer_fault, so that the fault's 2nd peer fetch is
+    A's (a fetch from B is a 404, which a truncation cannot touch)."""
+    from torchsnapshot_tpu_torch import cache, peerd
+
+    work = os.path.join(args.workdir, "peer")
+    root, kv = os.path.join(work, "root"), os.path.join(work, "kv")
+    snap_path = os.path.join(root, "step_1")
+    logical = state_bytes(PEER_LAYERS)
+    params = seeded_params(torch, PEER_LAYERS, args.seed)
+    device_sync(torch)
+    begin = time.monotonic()
+    with knobs.override_cas(True):
+        ts.Snapshot.take(snap_path, {"model": ts.StateDict(params)})
+    take_s = time.monotonic() - begin
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()  # the workers' restores get the freed memory
+    chunk_bytes = dir_bytes(os.path.join(root, "cas"))
+    md = ts.Snapshot(snap_path).metadata
+    cache_a = os.path.join(work, "cache_a")
+    begin = time.monotonic()
+    with knobs.override_cache_dir(cache_a):
+        storage = peerd._rollout_storage(snap_path, md)
+        try:
+            warmed = cache.warm_snapshot(storage, md)
+        finally:
+            storage.sync_close()
+    warm_s = time.monotonic() - begin
+    with PeerDaemons([cache_a, os.path.join(work, "cache_b")], None, {"TPUSNAP_STORE_PATH": kv}) as daemons:
+        begin = time.monotonic()
+        w = peer_restore_worker(snap_path, os.path.join(work, "cache_restore"), kv, "none", args.seed, "peer_restore")
+        wall = time.monotonic() - begin
+        shutil.rmtree(os.path.join(work, "cache_restore"))
+        ok = (w["origin_payload_bytes"] == 0 and w["peer"]["hit_bytes"] == chunk_bytes and w["peer"]["rejects"] == 0
+              and w["peer"]["misses"] == 0 and not w["mismatched"] and not w["jax_imported"])
+        emit({"phase": "peer_restore", "ok": ok, "n_layers": PEER_LAYERS, "depth_cut": PEER_LAYERS != N_LAYERS,
+              "logical_bytes": logical, "payload_chunk_bytes": chunk_bytes, "take_s": round(take_s, 3),
+              "warm_a_s": round(warm_s, 3), "warm_a_bytes": warmed["bytes"], "worker_wall_s": round(wall, 3),
+              "gbps": round(logical / GB / w["restore_s"], 3), "daemons": daemons.addrs,
+              "registered": ["a: warmed", "b: empty"], **peer_worker_line(w)})
+        if not ok:
+            raise RuntimeError("peer_restore: origin was read, peer hit bytes differ from the chunk bytes, a reject, "
+                               "or the worker's tensors differ from the seeded values")
+
+        daemons.stop(1)
+        w = peer_restore_worker(snap_path, os.path.join(work, "cache_fault"), kv, "peer:2:peer_truncated", args.seed,
+                                "peer_fault")
+        shutil.rmtree(os.path.join(work, "cache_fault"))
+        hit = w["peer"]["hit_bytes"]
+        ok = (w["peer"]["rejects"] == 1 and hit > 0 and hit + w["origin_payload_bytes"] == chunk_bytes
+              and not w["mismatched"] and not w["jax_imported"])
+        emit({"phase": "peer_fault", "ok": ok, "faults": "peer:2:peer_truncated", "registered": ["a: warmed"],
+              "payload_chunk_bytes": chunk_bytes, "gbps": round(logical / GB / w["restore_s"], 3),
+              **peer_worker_line(w)})
+        if not ok:
+            raise RuntimeError("peer_fault: not exactly one reject, no peer hit, peer and origin bytes do not add up "
+                               "to the chunk bytes, or the worker's tensors differ from the seeded values")
+    shutil.rmtree(work)
+
+
+def peer_rollout_phase(torch, ts, knobs, args):
+    """peer_rollout: a CAS SnapshotManager root saves step 1 and step 2
+    (``wk`` refilled); two daemons serve it; ``rollout_fleet`` rolls out
+    step 1 (all of it the delta), then step 2 (the delta: ``wk``'s
+    chunk); a worker restores step 2 from the fleet host's cache."""
+    from torchsnapshot_tpu_torch import peerd
+
+    work = os.path.join(args.workdir, "peer")
+    root, kv = os.path.join(work, "root"), os.path.join(work, "kv")
+    cache_dirs = [os.path.join(work, "cache_a"), os.path.join(work, "cache_b")]
+    wk = ("layers", "attn", "wk")
+    params = seeded_params(torch, PEER_LAYERS, args.seed)
+    knob_env = {"TPUSNAP_STORE_PATH": kv, "TPUSNAP_PEER_FETCH": "1", "TPUSNAP_PEER_TIMEOUT_S": PEER_TIMEOUT_S}
+    saves, rollouts = [], []
+    with PeerDaemons(cache_dirs, root, knob_env) as daemons, knobs.override_store_path(kv), knobs.override_cas(True):
+        mgr = ts.SnapshotManager(root)
+        for step in (1, 2):
+            if step == 2:
+                t = get_leaf(params, "/".join(wk))
+                seeded_fill(torch, t, tensor_seed(args.seed + 1, wk), t.shape, [0] * t.dim())
+            device_sync(torch)
+            begin = time.monotonic()
+            mgr.save(step, {"model": ts.StateDict(params)})
+            saves.append(round(time.monotonic() - begin, 3))
+            _, _, md, prev_md = peerd.resolve_rollout_target(root, step)
+            delta_bytes = sum(n for _, n in peerd.delta_locations(md, prev_md))
+            begin = time.monotonic()
+            out = peerd.rollout_fleet(root, step, canary=1)
+            wall = time.monotonic() - begin
+            canary = out["canary_results"][0].get("warm") or {}
+            fleet = (out.get("fleet_results") or [{}])[0].get("warm") or {}
+            ok = (out["ok"] and out["step"] == step and canary.get("delta_bytes") == delta_bytes > 0
+                  and canary["cache"]["miss_bytes"] == delta_bytes and canary["peer"]["hit_bytes"] == 0
+                  and fleet.get("delta_bytes") == delta_bytes and fleet["peer"]["hit_bytes"] == delta_bytes
+                  and fleet["cache"]["miss_bytes"] == 0)
+            rollouts.append({"step": step, "ok": ok, "wall_s": round(wall, 3), "delta_bytes": delta_bytes,
+                             "canary": out["canaries"], "fleet": out["fleet"], "canary_warm": canary,
+                             "fleet_warm": fleet, "canary_verify": out.get("canary_verify"),
+                             "aborted": out.get("aborted"), "errors": [r.get("error") for r in
+                                                                     out["canary_results"] + out.get("fleet_results", [])
+                                                                     if not r.get("ok")]})
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        fleet_cache = cache_dirs[daemons.addrs.index(rollouts[-1]["fleet"][0])] if rollouts[-1]["fleet"] else None
+    if fleet_cache is None:
+        raise RuntimeError(f"peer_rollout: no fleet host: {rollouts[-1]}")
+    w = spawn_collect(restore_worker_entry, [(os.path.join(root, "step_2"), {"TPUSNAP_CACHE_DIR": fleet_cache,
+                                                                            "TPUSNAP_FAULTS": "none"},
+                                              args.seed, PEER_LAYERS, ("/".join(wk),))], "peer_rollout", "worker")[0]
+    ok = all(r["ok"] for r in rollouts) and w["origin_payload_bytes"] == 0 and not w["mismatched"] \
+        and not w["jax_imported"]
+    emit({"phase": "peer_rollout", "ok": ok, "n_layers": PEER_LAYERS, "save_s": saves, "rollouts": rollouts,
+          "restore_from_fleet_cache": {"restore_s": round(w["restore_s"], 3), "gbps":
+                                       round(state_bytes(PEER_LAYERS) / GB / w["restore_s"], 3),
+                                       "origin_payload_bytes": w["origin_payload_bytes"],
+                                       "cache_hit_bytes": w["hit_bytes"], "cache_miss_bytes": w["miss_bytes"],
+                                       "bit_exact": not w["mismatched"], "mismatched": w["mismatched"][:5],
+                                       "jax_imported": w["jax_imported"]}})
+    shutil.rmtree(work)
+    if not ok:
+        raise RuntimeError("peer_rollout: a rollout failed or moved other bytes than its delta (canary from origin "
+                           "once, fleet host from the canary), or the restore from the fleet host's cache read "
+                           "origin or differs from the seeded values")
+
+
+def peer_phases(torch, ts, knobs, args):
+    peer_fetch_phases(torch, ts, knobs, args)
+    peer_rollout_phase(torch, ts, knobs, args)
 
 
 # --------------------------------------------------- host data plane phases
@@ -3114,6 +3392,7 @@ def run(args) -> int:
     replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, args.workdir, n_layers)
     store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir)
     cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args)
+    peer_phases(torch, ts, knobs, args)
     event_handlers.unregister_event_handler(events.append)
 
     # 8. yardsticks for the take/restore rates.

@@ -104,7 +104,37 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     read = port_names - unimplemented - meaningless
     assert meaningless == {"TPUSNAP_D2H_BITCAST", "TPUSNAP_H2D_BITCAST"}
     assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS", "TPUSNAP_CACHE_DIR", "TPUSNAP_CACHE_MAX_BYTES"} <= read
-    assert {"TPUSNAP_PEER_FETCH", "TPUSNAP_NATIVE"} <= unimplemented
+    assert set(PEER_KNOBS) <= read
+    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 20
+    assert {"TPUSNAP_PEER_TRACE_MAX_SPANS", "TPUSNAP_PEERD_ACCESS_LOG", "TPUSNAP_NATIVE"} <= unimplemented
+
+
+# The peer tier's knobs, each with a value to set and its getter's name.
+PEER_KNOBS = {
+    "TPUSNAP_PEER_FETCH": ("1", "peer_fetch_enabled"),
+    "TPUSNAP_PEER_PORT": ("8997", "get_peer_port"),
+    "TPUSNAP_PEER_ADDR": (" 10.0.0.7:8997 ", "get_peer_addr"),
+    "TPUSNAP_PEER_TIMEOUT_S": ("0.01", "get_peer_timeout_s"),
+    "TPUSNAP_PEER_RETRIES": ("3", "get_peer_retries"),
+    "TPUSNAP_PEER_GRACE_S": ("1.5", "get_peer_grace_s"),
+    "TPUSNAP_PEER_BAD_TTL_S": ("7", "get_peer_bad_ttl_s"),
+    "TPUSNAP_PEER_DEMOTE_FACTOR": ("2.5", "get_peer_demote_factor"),
+}
+
+
+def test_peer_knobs_are_read_as_in_the_jax_package_and_do_not_warn():
+    """The eight peer knobs left ``UNIMPLEMENTED_KNOBS`` with the peer tier:
+    set, none warns, and each getter reads what the JAX package's reads
+    (and its default when unset)."""
+    import warnings
+
+    for name, (value, getter) in PEER_KNOBS.items():
+        assert getattr(port_knobs, getter)() == getattr(jax_knobs, getter)(), name
+        with port_knobs.override_env(name, value):
+            assert getattr(port_knobs, getter)() == getattr(jax_knobs, getter)(), name
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                port_knobs.warn_unimplemented_knobs()
 
 
 @pytest.mark.parametrize("value", ["", "  http://127.0.0.1:9/  "])

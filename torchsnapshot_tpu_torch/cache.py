@@ -31,8 +31,9 @@ directory, and each byte crosses from origin once per host:
 Hits are read by the native library (``native_io``), straight into the
 caller's buffer (a pinned restore buffer needs no intermediate copy).
 Installed by the snapshot read paths outside the CAS reader, so chunk
-digests are the keys; the fault wrapper sits below it, so a hit bypasses
-origin faults as it bypasses origin latency.
+digests are the keys, and inside the peer tier (peer.py), which fetches
+missing chunks from other hosts into it; the fault wrapper sits below it,
+so a hit bypasses origin faults as it bypasses origin latency.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import cas, integrity, knobs, phase_stats
+from . import cas, integrity, knobs, peer, phase_stats
 from .event import Event
 from .event_handlers import log_event
 from .io_types import ReadIO, StoragePlugin, WriteIO
@@ -493,6 +494,14 @@ class CacheReaderPlugin(StoragePlugin):
         self.miss_bytes = 0
         self._closed = False
 
+    @property
+    def store(self) -> CacheStore:
+        return self._store
+
+    @property
+    def namespace(self) -> str:
+        return self._ns
+
     @staticmethod
     def _cacheable(path: str) -> bool:
         name = path.rsplit("/", 1)[-1]
@@ -681,9 +690,11 @@ class CacheReaderPlugin(StoragePlugin):
 
 def maybe_wrap_cache_reads(storage: StoragePlugin, metadata: Any) -> StoragePlugin:
     """Wrap a snapshot's (possibly CAS-wrapped) read storage with the host
-    cache when ``TPUSNAP_CACHE_DIR`` is set.  A directory that cannot be
-    set up warns and leaves reads on origin: the cache is never needed for
-    a correct result."""
+    cache when ``TPUSNAP_CACHE_DIR`` is set, and the cache with the peer
+    tier (peer.py) when ``TPUSNAP_PEER_FETCH`` and a coordination store are
+    set: a local hit never touches the network, a miss asks the fleet
+    before origin.  A directory that cannot be set up warns and leaves
+    reads on origin: the cache is never needed for a correct result."""
     cache_dir = knobs.get_cache_dir()
     if not cache_dir:
         return storage
@@ -692,7 +703,8 @@ def maybe_wrap_cache_reads(storage: StoragePlugin, metadata: Any) -> StoragePlug
     except OSError:
         logger.warning("chunk cache disabled: cannot initialize %s", cache_dir, exc_info=True)
         return storage
-    return CacheReaderPlugin(inner=storage, store=store, namespace=snapshot_fingerprint(metadata))
+    reader = CacheReaderPlugin(inner=storage, store=store, namespace=snapshot_fingerprint(metadata))
+    return peer.maybe_wrap_peer_reads(reader)
 
 
 def find_reader(storage: StoragePlugin) -> Optional[CacheReaderPlugin]:
@@ -744,8 +756,9 @@ def warm_snapshot(
     CAS-wrapped), over a thread pool.  In-flight bytes stay under
     ``max_in_flight_bytes`` (each object is buffered whole until its
     populate lands; an object over the limit is admitted alone).  ``items``
-    narrows the warm to some locations.  Returns the totals: locations,
-    bytes, and the reader's hits and misses."""
+    narrows the warm to some locations (a rollout warms a step's delta).
+    Returns the totals: locations, bytes, the cache reader's hits and
+    misses, and, through the peer tier, its counts as ``peer_*``."""
     if items is None:
         items = payload_locations(metadata)
     limit = max(1, max_in_flight_bytes)
@@ -776,6 +789,9 @@ def warm_snapshot(
     stats = reader_stats(storage)
     if stats is not None:
         out.update(stats)
+    pstats = peer.reader_stats(storage)
+    if pstats is not None:
+        out.update({f"peer_{k}": v for k, v in pstats.items()})
     return out
 
 

@@ -11,8 +11,8 @@ A copy of ``torchsnapshot_tpu/faults.py`` with the same spec grammar and
 counters, so one ``TPUSNAP_FAULTS`` setting drives both packages.  This
 package has no metrics or flight recorder yet (telemetry is a later
 slice), so a fired rule is only logged, and its storage plugins have no
-``list``/``copy_from_sibling`` verbs yet; the ``peer`` rules wait for the
-fleet tier.
+``list``/``copy_from_sibling`` verbs yet.  The ``peer`` rules act in the
+peer client (peer.PeerClient), through :class:`PeerFaultInjector`.
 
 Configured via ``TPUSNAP_FAULTS=<spec>`` (storage_plugin.py wraps every
 plugin it resolves).  Spec grammar::
@@ -465,10 +465,7 @@ def maybe_wrap_faults(
 
 
 class PeerFaultInjector:
-    """Not used yet: this package has no peer client until it has the fleet
-    tier (peer-to-peer fetch); parsed and counted like the JAX package's.
-
-    The peer HTTP client's side of the spec: only ``op=peer`` rules,
+    """The peer HTTP client's side of the spec: only ``op=peer`` rules,
     one counter per rule per injector instance (one injector per
     PeerClient, so "the 2nd peer fetch of this operation" is
     deterministic).  ``fire(path)`` advances counters and returns the rule

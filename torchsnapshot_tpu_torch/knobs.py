@@ -17,13 +17,19 @@ object store's: ``TPUSNAP_S3_ENDPOINT``, the multipart threshold and part
 size, ``TPUSNAP_GCS_ENDPOINT``, and ``TPUSNAP_CLOUD_PARALLEL_MIN_BYTES``,
 the smallest read that fans out across ranged GETs.
 
+So are the serving tier's: the host cache (``TPUSNAP_CACHE_DIR``,
+``TPUSNAP_CACHE_MAX_BYTES``) and the peer tier (``TPUSNAP_PEER_FETCH``,
+``_PORT``, ``_ADDR``, ``_TIMEOUT_S``, ``_RETRIES``, ``_GRACE_S``,
+``_BAD_TTL_S``, ``_DEMOTE_FACTOR``).
+
 Every other knob of the JAX package is named here too, so that none is
 ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
-this package does not have yet (the host cache, peers, tracing, metrics, the watchdog, the flight recorder, the profiler,
-fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0`` selects the JAX
-package's pure-Python data plane (this package requires its native
-library): :func:`warn_unimplemented_knobs` warns once per process for each
-one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
+this package does not have yet (tracing, including the peer daemon's
+server tracer and access log, metrics, the watchdog, the flight recorder,
+the profiler, fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0``
+selects the JAX package's pure-Python data plane (this package requires
+its native library): :func:`warn_unimplemented_knobs` warns once per
+process for each one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
 ``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST``: they force the JAX
 package's sub-word bitcast staging, and torch moves every dtype's bytes
 through a ``view(torch.uint8)`` with no repack.
@@ -141,16 +147,8 @@ UNIMPLEMENTED_KNOBS = (
     FLEET_TELEMETRY_ENV_VAR,
     FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
     FLEET_TELEMETRY_STALE_S_ENV_VAR,
-    PEER_FETCH_ENV_VAR,
-    PEER_PORT_ENV_VAR,
-    PEER_ADDR_ENV_VAR,
-    PEER_TIMEOUT_S_ENV_VAR,
-    PEER_RETRIES_ENV_VAR,
-    PEER_GRACE_S_ENV_VAR,
-    PEER_BAD_TTL_S_ENV_VAR,
     PEER_TRACE_MAX_SPANS_ENV_VAR,
     PEER_TRACE_FLUSH_S_ENV_VAR,
-    PEER_DEMOTE_FACTOR_ENV_VAR,
     PEERD_ACCESS_LOG_ENV_VAR,
     PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR,
     BLACKBOX_DIR_ENV_VAR,
@@ -207,6 +205,15 @@ _DEFAULT_REGRESSION_WINDOW = 50
 # write+hash batch call; below the default 16 io slots, so a batch can form
 # from in-flight writers while the previous batch's call runs.
 _DEFAULT_NATIVE_BATCH = 8
+# Peer tier (peer.py, peerd.py): a fetch times out in seconds, because a
+# slow peer has a fallback (the next peer, then origin); a peer that served
+# corrupt bytes or ran out of retries stays out of the candidate set for a
+# minute; a peer whose latency EWMA exceeds the factor times the fleet
+# median is tried last.
+_DEFAULT_PEER_TIMEOUT_S = 5.0
+_DEFAULT_PEER_RETRIES = 1
+_DEFAULT_PEER_BAD_TTL_S = 60.0
+_DEFAULT_PEER_DEMOTE_FACTOR = 3.0
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 # Smallest object-store read that fans out across concurrent ranged GETs
@@ -417,6 +424,64 @@ def get_cache_max_bytes() -> int:
     first) runs now and then after populates.  0 (the default) is
     unbounded: the operator owns the disk."""
     return max(0, _get_int_env(CACHE_MAX_BYTES_ENV_VAR, 0))
+
+
+def peer_fetch_enabled() -> bool:
+    """Whether restore and warm reads resolve cache misses peer-first
+    (``TPUSNAP_PEER_FETCH``, default off).  It takes effect only with a
+    cache directory (fetched chunks land there) and a coordination store
+    (``TPUSNAP_STORE_PATH``/``TPUSNAP_STORE_ADDR``: daemons register there)."""
+    return _get_flag_env(PEER_FETCH_ENV_VAR, "0")
+
+
+def get_peer_port() -> int:
+    """TCP port a peer daemon binds (0, the default: an ephemeral port,
+    which the registry advertises)."""
+    return max(0, _get_int_env(PEER_PORT_ENV_VAR, 0))
+
+
+def get_peer_addr() -> Optional[str]:
+    """Advertised ``host:port`` of this host's peer daemon, when peers must
+    reach it through another interface than the one it bound."""
+    val = os.environ.get(PEER_ADDR_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_peer_timeout_s() -> float:
+    """Timeout of one peer HTTP request (at least 0.05 s)."""
+    val = os.environ.get(PEER_TIMEOUT_S_ENV_VAR)
+    return max(0.05, float(val)) if val is not None else _DEFAULT_PEER_TIMEOUT_S
+
+
+def get_peer_retries() -> int:
+    """Retries of a transient failure against one peer before the next
+    candidate; a 404 and a digest reject never retry."""
+    return max(0, _get_int_env(PEER_RETRIES_ENV_VAR, _DEFAULT_PEER_RETRIES))
+
+
+def get_peer_grace_s() -> float:
+    """Age past which a daemon's unrefreshed registry stamp drops it from
+    the candidates: ``TPUSNAP_LEASE_GRACE_S``'s value (its default when
+    liveness is off) unless set, and at least twice the lease interval."""
+    val = os.environ.get(PEER_GRACE_S_ENV_VAR)
+    if val is None:
+        grace = get_lease_grace_s()
+        return grace if grace > 0 else _DEFAULT_LEASE_GRACE_S
+    return max(float(val), 2.0 * get_lease_interval_s())
+
+
+def get_peer_bad_ttl_s() -> float:
+    """Seconds a peer stays quarantined after a digest reject or after
+    running out of retries."""
+    val = os.environ.get(PEER_BAD_TTL_S_ENV_VAR)
+    return max(0.0, float(val)) if val is not None else _DEFAULT_PEER_BAD_TTL_S
+
+
+def get_peer_demote_factor() -> float:
+    """A peer whose latency EWMA exceeds this multiple of the fleet median
+    (or whose error EWMA passes 0.5) is tried last; 0 turns demotion off."""
+    val = os.environ.get(PEER_DEMOTE_FACTOR_ENV_VAR)
+    return max(0.0, float(val)) if val is not None else _DEFAULT_PEER_DEMOTE_FACTOR
 
 
 def get_store_addr() -> Optional[str]:
@@ -916,4 +981,52 @@ def override_cache_dir(value: Optional[str]) -> Generator[None, None, None]:
 @contextmanager
 def override_cache_max_bytes(value: int) -> Generator[None, None, None]:
     with override_env(CACHE_MAX_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_store_path(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(STORE_PATH_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_peer_fetch(enabled: bool) -> Generator[None, None, None]:
+    with override_env(PEER_FETCH_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_peer_addr(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(PEER_ADDR_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_peer_timeout_s(value: float) -> Generator[None, None, None]:
+    with override_env(PEER_TIMEOUT_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peer_retries(value: int) -> Generator[None, None, None]:
+    with override_env(PEER_RETRIES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peer_grace_s(value: float) -> Generator[None, None, None]:
+    with override_env(PEER_GRACE_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peer_bad_ttl_s(value: float) -> Generator[None, None, None]:
+    with override_env(PEER_BAD_TTL_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peer_demote_factor(value: float) -> Generator[None, None, None]:
+    with override_env(PEER_DEMOTE_FACTOR_ENV_VAR, str(value)):
         yield
