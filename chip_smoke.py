@@ -48,6 +48,14 @@ calls, in phases that each print one JSON line:
                 bytes equal to the state's bytes
 6. read_object — reads the chunked ``embed.tokens`` onto the card
 7. integrity  — a flipped payload byte must raise ``ChecksumError``
+   trace_take_restore — the take and the in-place restore again with
+                ``TPUSNAP_TRACE_DIR`` and ``TPUSNAP_METRICS`` set (through
+                ``knobs.override_*``): both walls beside the untraced ones,
+                the calibrated span cost, the span count, the spans with the
+                most total time; every trace file valid, the take's ``d2h``
+                span bytes equal to the state's, the metrics' written bytes
+                equal to the payload on disk and the read bytes to what the
+                restore's read requests consumed, bit-exact
    host data plane — each phase removes its directories before the next:
    direct_io_take — ``Snapshot.take`` with ``TPUSNAP_DIRECT_IO=1``: the
                 resolved mode (1 io_uring, 2 O_DIRECT pwrite, 3 the
@@ -127,14 +135,20 @@ calls, in phases that each print one JSON line:
                 pinned_host mode (every tensor mutated after the return):
                 stall and total; its manifest equals the sync segment of
                 the same change entry by entry; bit-exact replayed restore
+   cloud_cut  — the object-store phases' state: the manager phases'
+                changes undone, then the first ``CLOUD_LAYERS`` (8) layers
+                at full width, as views of the state (5.59 GB); its fs
+                incremental take (``cloud_cut_incremental_take``, checked
+                as ``incremental_take``) gives the step 0 digests and the
+                step 1 bytes the S3 and GCS phases are held to
    S3 — tests/fake_s3.py's FakeS3Server in a child process on 127.0.0.1,
                 its MD5 ETags memoized per stored object (the numbers are
                 a loopback fake's in Python, not S3's), on
-                the take phase's state (the manager phases' changes undone);
+                ``cloud_cut``'s state;
                 each phase deletes its root through the plugin:
    s3_take    — ``Snapshot.take("s3://smoke/take")`` at default knobs:
                 seconds, GB/s, objects and bytes stored, every model
-                digest equal to the ``take`` phase's
+                digest equal to ``cloud_cut``'s step 0
    s3_restore — zeroed targets restored from it: bit-exact, ``data_ptr()``
                 unchanged, ``h2d`` bytes equal to the state's; the fan-out
                 reads (ranged GETs pinned to the ETag) are counted; then
@@ -151,11 +165,11 @@ calls, in phases that each print one JSON line:
                 its MD5 generations memoized per stored object, finished
                 upload sessions dropped between takes and Nagle's algorithm
                 off on its sockets (the numbers are a loopback fake's in
-                Python, not GCS's), on the take phase's state:
+                Python, not GCS's), on ``cloud_cut``'s state:
    gcs_take   — ``Snapshot.take("gs://smoke/take")`` at default knobs
                 (resumable uploads in 100 MiB chunks): seconds, GB/s,
                 objects and bytes stored, chunk PUTs, no session left open,
-                every model digest equal to the ``take`` phase's
+                every model digest equal to ``cloud_cut``'s step 0
    gcs_restore — zeroed targets restored from it: bit-exact,
                 ``data_ptr()`` unchanged, ``h2d`` bytes equal to the
                 state's; the fan-out reads (ranged GETs pinned to the
@@ -165,7 +179,7 @@ calls, in phases that each print one JSON line:
    gcs_read_object — ``embed.tokens`` onto the card
    gcs_incremental_take — step 1 after ``mutate_step``, with
                 ``incremental_from`` the ``gcs_take`` snapshot: the bytes
-                uploaded equal to the fs ``incremental_take``'s, every
+                uploaded equal to ``cloud_cut``'s fs step 1's, every
                 unchanged payload one ``rewriteTo`` copy (counted); step 1
                 restores bit-exact in place, one stream per read; both
                 roots are then deleted through the plugin
@@ -237,7 +251,14 @@ calls, in phases that each print one JSON line:
                 daemon B an empty one: the worker's restore reads 0 origin
                 payload bytes, its peer hit bytes equal the chunk bytes on
                 disk, no reject, bit-exact against the seeded values, no
-                ``jax`` imported; wall s and GB/s
+                ``jax`` imported; wall s and GB/s.  Traced: the worker and
+                both daemons write to one ``TPUSNAP_TRACE_DIR`` (the
+                daemons with their access logs and ``TPUSNAP_METRICS``);
+                ``merge_fleet_traces`` stitches the worker's trace id with
+                daemon A's ``peerd_handle`` spans, each parented on a
+                worker ``peer_fetch`` span; per GET the time to first byte
+                and the transfer; daemon A's ``/metrics`` count of 200
+                chunk answers must equal the worker's peer hits
    peer_fault — B stopped, ``TPUSNAP_FAULTS=peer:2:peer_truncated``:
                 exactly one reject, peer hit bytes > 0, peer hit plus origin
                 bytes equal to the chunk bytes, bit-exact
@@ -648,8 +669,17 @@ def compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workd
 
 def whole_chunk_bound(snap1, model, ref):
     """The bytes a take after ``mutate_step`` must write when payloads are
-    whole chunks: all of wk, and the chunks of w_gate the changed rows touch."""
-    entry = snap1.get_manifest()["0/model/layers/mlp/w_gate"]
+    whole chunks: the payload file holding wk (all of wk, or its whole slab
+    when wk is small enough to be batched, as at a cut depth), and the
+    chunks of w_gate the changed rows touch."""
+    from torchsnapshot_tpu_torch.manifest import iter_payload_entries
+
+    manifest = snap1.get_manifest()
+    wk = manifest["0/model/layers/attn/wk"]
+    wk_bytes = ref["layers/attn/wk"].numel() * 2
+    if getattr(wk, "location", "").startswith("batched/"):
+        wk_bytes = max(e.byte_range[1] for _, e in iter_payload_entries(manifest) if e.location == wk.location)
+    entry = manifest["0/model/layers/mlp/w_gate"]
     gate = model["layers"]["mlp"]["w_gate"]
     row_bytes = gate.numel() * 2 // gate.shape[0]
     rows = gate.numel() // gate.shape[-1]
@@ -658,7 +688,7 @@ def whole_chunk_bound(snap1, model, ref):
     hi = (r0 + n_rows) * gate.shape[-1] * 2
     touched = sum(c.sizes[0] * row_bytes for c in entry.chunks
                   if c.offsets[0] * row_bytes < hi and (c.offsets[0] + c.sizes[0]) * row_bytes > lo)
-    return ref["layers/attn/wk"].numel() * 2 + touched
+    return wk_bytes + touched
 
 
 def cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, label, cdc):
@@ -780,16 +810,18 @@ def async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
         raise RuntimeError("async_cas: manifest differs from the sync take's, wrong mode, or not bit-exact")
 
 
-def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
+def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir,
+                      label="incremental_take"):
     """incremental_take: step 1 with incremental_from=step_0 and CAS off;
     every payload whose checksum did not change is a hard link, and the
-    bytes written are within the whole-chunk bound of the change."""
+    bytes written are within the whole-chunk bound of the change.  Returns
+    (step 1's payload bytes written, step 0's manifest)."""
     from torchsnapshot_tpu_torch import faults
     from torchsnapshot_tpu_torch.incremental import checksums_by_location
 
     root = os.path.join(workdir, "incremental")
     model = app_state["model"].state_dict()
-    ts.Snapshot.take(os.path.join(root, "step_0"), app_state)
+    base_manifest = ts.Snapshot.take(os.path.join(root, "step_0"), app_state).get_manifest()
     changed_bytes, _ = mutate_step(torch, model, ref)
     device_sync(torch)
     n_events = len(events)
@@ -811,21 +843,20 @@ def incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, eve
     mutate_step(torch, app_state["model"].state_dict(), ref)  # back to step 0's state
     ok = (not mismatched and not moved and end["incremental_links"] == unchanged > 0
           and 0 < written <= bound)
-    emit({"phase": "incremental_take", "ok": ok, "step1_s": round(step1_s, 3), "hard_links": end["incremental_links"],
+    emit({"phase": label, "ok": ok, "step1_s": round(step1_s, 3), "hard_links": end["incremental_links"],
           "unchanged_payloads": unchanged, "bytes_written": written, "bound_bytes": bound,
           "changed_bytes": changed_bytes, "state_bytes": nbytes,
           "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
           "phases": phase_summary(stats)})
     shutil.rmtree(root)
     if not ok:
-        raise RuntimeError("incremental_take: an unchanged payload was not linked, bytes written past the "
+        raise RuntimeError(f"{label}: an unchanged payload was not linked, bytes written past the "
                            "bound, or not bit-exact")
-    return written
+    return written, base_manifest
 
 
 def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
-    """The storage-depth phases; returns the payload bytes the incremental
-    take's step 1 wrote."""
+    """The storage-depth phases."""
     compress_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir)
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cas_take", False)
     async_cas_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, root)
@@ -835,7 +866,7 @@ def storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
     root = cas_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, "cdc_take", True)
     mutate_step(torch, app_state["model"].state_dict(), ref)
     shutil.rmtree(root)
-    return incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
+    incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir)
 
 
 # ---------------------------------------------------------- manager phases
@@ -1098,6 +1129,10 @@ def manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events
 # through the plugin before the next starts.
 
 S3_BUCKET = "smoke"
+# The S3 and GCS phases take the first CLOUD_LAYERS layers at full width:
+# against loopback fakes in Python their rates are the fakes', not the
+# port's, and at the full depth they took a tenth of the script's limit.
+CLOUD_LAYERS = 8
 # s3_incremental_take's step 0 goes up as multipart uploads.
 S3_MULTIPART_THRESHOLD = 128 << 20
 S3_MULTIPART_PART = 32 << 20
@@ -1217,8 +1252,8 @@ def s3_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, server
     take_ok = (bool(want) and not differ and stored["uploads_open"] == 0
                and (d2h_bytes == nbytes or DEV != "cuda"))
     emit({"phase": "s3_take", "ok": take_ok, "server": "tests/fake_s3.py in a child process, loopback",
-          "n_layers": n_layers, "depth_cut": None, "seconds": round(take_s, 3), "gbps": round(nbytes / GB / take_s, 3),
-          "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
+          "n_layers": n_layers, "depth_cut": n_layers != N_LAYERS, "seconds": round(take_s, 3),
+          "gbps": round(nbytes / GB / take_s, 3), "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
           "bytes_put": stored["put_bytes"] - before["put_bytes"], "state_bytes": nbytes, "d2h_bytes": d2h_bytes,
           "digests_compared": len(want), "digests_differ": differ[:5], "server_rss_bytes": stored["rss_bytes"],
           "counts": s3_counts(stats), "phases": phase_summary(stats)})
@@ -1326,15 +1361,53 @@ def s3_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, 
                            f"bytes PUT past the bound, or not bit-exact; {left} objects left after delete_dir")
 
 
-def s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buffered_manifest, n_layers):
-    """The S3 phases, on the state of the take phase.  The manager phases
-    left it at their step 5: the patterns of steps 1-3 and 5 applied (step
-    4's was undone for ``restore_at(3)``).  Each is an XOR of the same
-    regions, so applying them again undoes them."""
+def layer_cut(ts, app_state, ref, n_layers):
+    """The state cut to its first ``n_layers`` at full width: views of the
+    stacked tensors' leading layers (so a restore lands in the full state),
+    the other leaves whole, the same ``train`` and ``rng`` statefuls; the
+    reference cut alike.  Returns (app state, reference, model bytes)."""
+    def cut(path, t):
+        return t[:n_layers] if path.startswith("layers/") else t
+
+    model: dict = {}
+    for path, t in leaves(app_state["model"].state_dict()):
+        node = model
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = cut(path, t)
+    cut_ref = {p: cut(p, t) for p, t in ref.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in cut_ref.values())
+    return {"model": ts.StateDict(model), "train": app_state["train"], "rng": app_state["rng"]}, cut_ref, nbytes
+
+
+def cloud_cut_phase(torch, ts, knobs, phase_stats, app_state, ref, events, workdir, n_layers):
+    """cloud_cut: the state the S3 and GCS phases take, the first
+    ``CLOUD_LAYERS`` layers at full width (their rates are a Python fake's,
+    not the port's).  The manager phases left the full state at their step
+    5 (the patterns of steps 1-3 and 5 applied; step 4's was undone for
+    ``restore_at(3)``); each pattern is an XOR of the same regions, so
+    applying them again restores the take phase's state.  Then the fs
+    incremental take of the cut (``cloud_cut_incremental_take``): its step
+    0's digests are what the object-store takes are held to, its step 1's
+    bytes what ``gcs_incremental_take`` must upload.  Returns (state,
+    reference, bytes, step 0 manifest, step 1 bytes)."""
     model = app_state["model"].state_dict()
     for pattern in JOURNAL_PATTERNS[:3] + JOURNAL_PATTERNS[4:]:
         mutate_step(torch, model, ref, pattern)
     device_sync(torch)
+    cut_layers = min(CLOUD_LAYERS, n_layers)
+    state, cut_ref, nbytes = layer_cut(ts, app_state, ref, cut_layers)
+    written, manifest = incremental_phase(torch, ts, knobs, phase_stats, state, cut_ref, nbytes, events, workdir,
+                                          label="cloud_cut_incremental_take")
+    emit({"phase": "cloud_cut", "ok": True, "n_layers": cut_layers, "depth_cut": cut_layers != N_LAYERS,
+          "state_bytes": nbytes, "full_state_bytes": sum(t.numel() * t.element_size() for t in ref.values()),
+          "manifest_entries": len(manifest), "incremental_step1_bytes": written})
+    return state, cut_ref, nbytes, manifest, written
+
+
+def s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buffered_manifest, n_layers):
+    """The S3 phases, on ``cloud_cut``'s state."""
     memory = host_memory(torch)
     if memory["mem_available_bytes"] < nbytes + (8 << 30):
         # The server holds one copy of the state whole, and a little more
@@ -1448,8 +1521,8 @@ def gcs_take_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, serve
                and phase_n(stats, "gcs_upload") == stored["objects"]
                and (d2h_bytes == nbytes or DEV != "cuda"))
     emit({"phase": "gcs_take", "ok": take_ok, "server": "tests/fake_gcs.py in a child process, loopback",
-          "n_layers": n_layers, "depth_cut": None, "seconds": round(take_s, 3), "gbps": round(nbytes / GB / take_s, 3),
-          "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
+          "n_layers": n_layers, "depth_cut": n_layers != N_LAYERS, "seconds": round(take_s, 3),
+          "gbps": round(nbytes / GB / take_s, 3), "objects_stored": stored["objects"], "bytes_stored": stored["bytes"],
           "chunk_puts": stored["chunk_puts"] - before["chunk_puts"], "state_bytes": nbytes, "d2h_bytes": d2h_bytes,
           "digests_compared": len(want), "digests_differ": differ[:5], "server_rss_bytes": stored["rss_bytes"],
           "counts": gcs_counts(stats), "phases": phase_summary(stats)})
@@ -1554,8 +1627,8 @@ def gcs_incremental_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
 
 def gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, buffered_manifest, n_layers,
                fs_incremental_bytes):
-    """The GCS phases, on the take phase's state (the S3 phases leave it
-    so)."""
+    """The GCS phases, on ``cloud_cut``'s state (the S3 phases leave it
+    so); ``fs_incremental_bytes`` is ``cloud_cut``'s step 1."""
     memory = host_memory(torch)
     if memory["mem_available_bytes"] < 2 * nbytes + (8 << 30):
         # The server holds the state whole, and its upload sessions hold it
@@ -2213,6 +2286,7 @@ def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
 
 PEER_LAYERS = 8
 PEER_TIMEOUT_S = "60"
+PEER_TRACE_FLUSH_S = 0.5
 DAEMON_TIMEOUT_S = 120
 
 
@@ -2228,7 +2302,7 @@ def peer_daemon_entry(cache_dir, root, knob_env, conn) -> None:
         from torchsnapshot_tpu_torch import peerd
 
         daemon = peerd.PeerDaemon(root=root, cache_dir=cache_dir, advertise="127.0.0.1")
-        conn.send({"ok": True, "addr": daemon.start(), "jax_imported": "jax" in sys.modules})
+        conn.send({"ok": True, "addr": daemon.start(), "ident": daemon.ident, "jax_imported": "jax" in sys.modules})
         try:
             conn.recv()
         finally:
@@ -2248,7 +2322,7 @@ class PeerDaemons:
         import torch.multiprocessing as tmp
 
         ctx = tmp.get_context("spawn")
-        self.procs, self.conns, self.addrs = [], [], []
+        self.procs, self.conns, self.addrs, self.idents = [], [], [], []
         for cache_dir in cache_dirs:
             parent, child = ctx.Pipe()
             proc = ctx.Process(target=peer_daemon_entry, args=(cache_dir, root, knob_env, child))
@@ -2271,6 +2345,7 @@ class PeerDaemons:
                 if msg["jax_imported"]:
                     raise RuntimeError(f"peer daemon {i} imported jax")
                 self.addrs.append(msg["addr"])
+                self.idents.append(msg["ident"])
         except BaseException:
             self.__exit__(None, None, None)
             raise
@@ -2301,13 +2376,60 @@ class PeerDaemons:
             raise errors[0]
 
 
-def peer_restore_worker(snap, cache_dir, kv, faults_spec, seed, label, refilled=()):
+def peer_restore_worker(snap, cache_dir, kv, faults_spec, seed, label, refilled=(), trace_dir=None):
     """One spawned worker on the card restoring ``snap`` peer-first through
-    the fresh cache ``cache_dir``: its numbers."""
+    the fresh cache ``cache_dir`` (traced into ``trace_dir``): its numbers."""
     knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_STORE_PATH": kv, "TPUSNAP_PEER_FETCH": "1",
                 "TPUSNAP_FAULTS": faults_spec, "TPUSNAP_PEER_TIMEOUT_S": PEER_TIMEOUT_S}
+    if trace_dir is not None:
+        knob_env["TPUSNAP_TRACE_DIR"] = trace_dir
     return spawn_collect(restore_worker_entry, [(snap, knob_env, seed, PEER_LAYERS, tuple(refilled))], label,
                          "worker")[0]
+
+
+def peer_trace_split(trace_dir, daemons):
+    """peer_restore's traces: the worker's restore file and the daemons'
+    files stitched by ``merge_fleet_traces``; per GET the client's time to
+    first byte and transfer (sums and medians); daemon A's ``peerd_handle``
+    total; the spans of A that joined the worker's trace id, with their
+    parents among the worker's ``peer_fetch`` spans; daemon A's /metrics
+    count of 200 chunk answers; every file and access log validated."""
+    import urllib.request
+
+    from torchsnapshot_tpu_torch.telemetry import trace
+
+    paths = sorted(os.path.join(trace_dir, p) for p in os.listdir(trace_dir) if p.endswith(trace.TRACE_FILE_SUFFIX))
+    docs = {}
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            docs[os.path.basename(path)] = json.load(f)
+    invalid = {name: trace.validate_trace(doc) for name, doc in docs.items() if trace.validate_trace(doc)}
+    for name in os.listdir(trace_dir):
+        if name.endswith(trace.ACCESS_LOG_SUFFIX) and trace.validate_access_log(os.path.join(trace_dir, name)):
+            invalid[name] = trace.validate_access_log(os.path.join(trace_dir, name))
+    worker = next(doc for name, doc in docs.items() if name.startswith("restore-"))
+    trace_id = worker["otherData"]["trace_id"]
+    fetches = [ev for ev in worker["traceEvents"] if ev.get("name") == "peer_fetch" and ev["args"]["status"] == "hit"]
+    fetch_ids = {f"{ev['args']['span_id']:016x}" for ev in worker["traceEvents"] if ev.get("name") == "peer_fetch"}
+    daemon_a = docs[f"peerd-{daemons.idents[0][:8]}-rank0{trace.TRACE_FILE_SUFFIX}"]
+    handles = [ev for ev in daemon_a["traceEvents"] if ev.get("name") == "peerd_handle"
+               and ev["args"].get("trace") == trace_id]
+    merged = trace.merge_fleet_traces(paths)
+    body = urllib.request.urlopen(f"http://{daemons.addrs[0]}/metrics", timeout=30).read().decode("utf-8")
+    key = 'tpusnap_peerd_requests_total{kind="chunk",status="200"} '
+    chunk_200s = next((int(float(line[len(key):])) for line in body.splitlines() if line.startswith(key)), 0)
+    ttfb = [ev["args"]["ttfb_s"] for ev in fetches] or [0.0]
+    transfer = [ev["args"]["transfer_s"] for ev in fetches] or [0.0]
+    return {"files": sorted(docs), "trace_id": trace_id, "trace_id_in_merge": trace_id in merged["otherData"]["trace_ids"],
+            "gets": len(fetches), "ttfb_s_sum": round(sum(ttfb), 3), "ttfb_s_median": round(statistics.median(ttfb), 3),
+            "transfer_s_sum": round(sum(transfer), 3), "transfer_s_median": round(statistics.median(transfer), 3),
+            "peer_fetch_s_sum": round(sum(ev["dur"] for ev in fetches) / 1e6, 3),
+            "daemon_a_handle_s_sum": round(sum(ev["dur"] for ev in handles) / 1e6, 3),
+            "daemon_a_handle_200_s_median": round(statistics.median(
+                [ev["dur"] / 1e6 for ev in handles if ev["args"]["status"] == 200] or [0.0]), 3),
+            "stitched_spans": len(handles),
+            "unparented_spans": sum(1 for ev in handles if ev["args"].get("parent") not in fetch_ids),
+            "daemon_a_chunk_200s": chunk_200s, "invalid": invalid}
 
 
 def peer_worker_line(w):
@@ -2348,21 +2470,32 @@ def peer_fetch_phases(torch, ts, knobs, args):
         finally:
             storage.sync_close()
     warm_s = time.monotonic() - begin
-    with PeerDaemons([cache_a, os.path.join(work, "cache_b")], None, {"TPUSNAP_STORE_PATH": kv}) as daemons:
+    trace_dir = os.path.join(work, "traces")
+    daemon_env = {"TPUSNAP_STORE_PATH": kv, "TPUSNAP_TRACE_DIR": trace_dir, "TPUSNAP_METRICS": "1",
+                  "TPUSNAP_PEER_TRACE_FLUSH_S": str(PEER_TRACE_FLUSH_S)}
+    with PeerDaemons([cache_a, os.path.join(work, "cache_b")], None, daemon_env) as daemons:
         begin = time.monotonic()
-        w = peer_restore_worker(snap_path, os.path.join(work, "cache_restore"), kv, "none", args.seed, "peer_restore")
+        w = peer_restore_worker(snap_path, os.path.join(work, "cache_restore"), kv, "none", args.seed, "peer_restore",
+                                trace_dir=trace_dir)
         wall = time.monotonic() - begin
         shutil.rmtree(os.path.join(work, "cache_restore"))
+        time.sleep(3 * PEER_TRACE_FLUSH_S)  # the daemons' flushers rewrite their files
+        traced = peer_trace_split(trace_dir, daemons)
         ok = (w["origin_payload_bytes"] == 0 and w["peer"]["hit_bytes"] == chunk_bytes and w["peer"]["rejects"] == 0
-              and w["peer"]["misses"] == 0 and not w["mismatched"] and not w["jax_imported"])
+              and w["peer"]["misses"] == 0 and not w["mismatched"] and not w["jax_imported"]
+              and traced["stitched_spans"] > 0 and traced["unparented_spans"] == 0 and not traced["invalid"]
+              and traced["trace_id_in_merge"]
+              and traced["daemon_a_chunk_200s"] == w["peer"]["hits"])
         emit({"phase": "peer_restore", "ok": ok, "n_layers": PEER_LAYERS, "depth_cut": PEER_LAYERS != N_LAYERS,
               "logical_bytes": logical, "payload_chunk_bytes": chunk_bytes, "take_s": round(take_s, 3),
               "warm_a_s": round(warm_s, 3), "warm_a_bytes": warmed["bytes"], "worker_wall_s": round(wall, 3),
               "gbps": round(logical / GB / w["restore_s"], 3), "daemons": daemons.addrs,
-              "registered": ["a: warmed", "b: empty"], **peer_worker_line(w)})
+              "registered": ["a: warmed", "b: empty"], "trace": traced, **peer_worker_line(w)})
         if not ok:
             raise RuntimeError("peer_restore: origin was read, peer hit bytes differ from the chunk bytes, a reject, "
-                               "or the worker's tensors differ from the seeded values")
+                               "the worker's tensors differ from the seeded values, a trace file or access log is "
+                               "invalid, no daemon span joined the worker's trace, or daemon A's /metrics counts "
+                               "other 200 chunk answers than the worker's peer hits")
 
         daemons.stop(1)
         w = peer_restore_worker(snap_path, os.path.join(work, "cache_fault"), kv, "peer:2:peer_truncated", args.seed,
@@ -2449,6 +2582,104 @@ def peer_rollout_phase(torch, ts, knobs, args):
 def peer_phases(torch, ts, knobs, args):
     peer_fetch_phases(torch, ts, knobs, args)
     peer_rollout_phase(torch, ts, knobs, args)
+
+
+# -------------------------------------------------------- telemetry phase
+#
+# The take and the restore of the full state again with tracing and metrics
+# on (telemetry/trace.py, telemetry/metrics.py), set through knobs.override_*
+# as a user sets TPUSNAP_TRACE_DIR and TPUSNAP_METRICS.
+
+TOP_SPANS = 8
+
+
+def read_pipeline_bytes(manifest) -> int:
+    """What ``tpusnap_storage_bytes_read_total`` counts for a full restore
+    of ``manifest`` (both packages count each read request's consuming
+    cost): a payload read alone counts its bytes; two or more members of
+    one slab that one app-state key restores, read as one request (those
+    below the into-place read size), count their span of the slab and their
+    own bytes again; an object counts 4096."""
+    from torchsnapshot_tpu_torch.io_preparers.array import _INTO_PLACE_MIN_BYTES
+    from torchsnapshot_tpu_torch.manifest import ObjectEntry, iter_payload_entries
+    from torchsnapshot_tpu_torch.serialization import array_nbytes
+
+    total, spans = 0, {}
+    for key, entry in iter_payload_entries(manifest):
+        if isinstance(entry, ObjectEntry):
+            total += 4096
+            continue
+        rng = entry.byte_range
+        total += rng[1] - rng[0] if rng else array_nbytes(entry.shape, entry.dtype)
+        if entry.location.startswith("batched/") and rng[1] - rng[0] < _INTO_PLACE_MIN_BYTES:
+            group = (entry.location, key.split("/")[1])  # "<rank>/<app-state key>/..."
+            lo, hi, n = spans.get(group, (rng[0], rng[1], 0))
+            spans[group] = (min(lo, rng[0]), max(hi, rng[1]), n + 1)
+    return total + sum(hi - lo for lo, hi, n in spans.values() if n > 1)
+
+
+def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir, take_s,
+                             restore_s):
+    """trace_take_restore: the state taken and restored in place again with
+    ``TPUSNAP_TRACE_DIR`` and ``TPUSNAP_METRICS`` set.  Each trace file
+    must validate; the take's ``d2h`` spans must carry the state's bytes;
+    ``tpusnap_storage_bytes_written_total`` must equal the payload bytes on
+    disk and the take's ``take.end`` bytes, ``..._read_total`` what the
+    restore's read requests consumed (``read_pipeline_bytes``); the restore
+    must be bit-exact.  Prints both walls beside the untraced ``take`` and
+    ``restore``, the calibrated span cost, the span count and the spans
+    with the most total time."""
+    from torchsnapshot_tpu_torch.telemetry import metrics, trace
+
+    snap_path, trace_dir = os.path.join(workdir, "trace_snap"), os.path.join(workdir, "traces")
+    metrics.reset()
+    spans_before = trace.spans_recorded()
+    n_events = len(events)
+    with knobs.override_trace_dir(trace_dir), knobs.override_metrics(True):
+        device_sync(torch)
+        begin = time.monotonic()
+        snapshot = ts.Snapshot.take(snap_path, app_state)
+        traced_take_s = time.monotonic() - begin
+        written = int(metrics.counter("tpusnap_storage_bytes_written_total").get())
+        seconds, mismatched, moved, _ = restore_check(torch, ts, snap_path, app_state, ref, phase_stats)
+        read = int(metrics.counter("tpusnap_storage_bytes_read_total").get())
+        ops = {a: int(metrics.counter("tpusnap_operations_total").get(action=a, outcome="success"))
+               for a in ("take", "restore")}
+    spans = trace.spans_recorded() - spans_before
+    cost = trace.calibrated_span_cost_s()
+    take_end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
+    payload = dir_bytes(snap_path)
+    want_read = read_pipeline_bytes(snapshot.get_manifest())
+    problems, totals, d2h_bytes, files = {}, {}, 0, []
+    for path in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, path), encoding="utf-8") as f:
+            doc = json.load(f)
+        problems[path] = trace.validate_trace(doc)
+        files.append(path)
+        for ev in doc["traceEvents"]:
+            if ev["ph"] != "X":
+                continue
+            totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"] / 1e6
+            if ev["name"] == "d2h" and path.startswith("take-"):
+                d2h_bytes += int(ev["args"].get("bytes", 0))
+    top = sorted(totals.items(), key=lambda kv: -kv[1])[:TOP_SPANS]
+    ok = (len(files) == 2 and not any(problems.values()) and (d2h_bytes == nbytes or DEV != "cuda")
+          and written == payload == take_end["bytes"] and read == want_read and ops == {"take": 1, "restore": 1}
+          and not mismatched and not moved)
+    emit({"phase": "trace_take_restore", "ok": ok, "take_s": round(traced_take_s, 3), "untraced_take_s": round(take_s, 3),
+          "restore_s": round(seconds, 3), "untraced_restore_s": round(restore_s, 3), "state_bytes": nbytes,
+          "trace_files": files, "validate_trace": problems, "spans": spans,
+          "calibrated_span_cost": {"per_span_s": cost["per_span_s"], "estimated_s": round(cost["estimated_s"], 6)},
+          "top_spans_s": [[name, round(t, 3)] for name, t in top], "d2h_span_bytes": d2h_bytes,
+          "metrics_written_bytes": written, "payload_bytes_on_disk": payload, "take_end_bytes": take_end["bytes"],
+          "metrics_read_bytes": read, "read_pipeline_bytes": want_read, "operations": ops,
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5]})
+    metrics.reset()
+    for path in (snap_path, trace_dir):
+        shutil.rmtree(path)
+    if not ok:
+        raise RuntimeError("trace_take_restore: a trace file is invalid, the d2h spans miss state bytes, the metrics' "
+                           "byte counters differ from the bytes written and read, or the restore is not bit-exact")
 
 
 # --------------------------------------------------- host data plane phases
@@ -3371,6 +3602,8 @@ def run(args) -> int:
     del params, w, small
     events: list = []
     event_handlers.register_event_handler(events.append)
+    trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, take_s,
+                             restore_s)
     # host data plane phases, held against the take phase's manifest.
     data_plane_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, manifest)
     g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
@@ -3385,10 +3618,15 @@ def run(args) -> int:
     async_phase(*common, "async_device", "device", "device")
     async_phase(*common, "async_host", "host", "host")
     del mats
-    fs_incremental_bytes = storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
+    storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
-    s3_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers)
-    gcs_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, manifest, n_layers, fs_incremental_bytes)
+    cut = cloud_cut_phase(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir, n_layers)
+    cut_state, cut_ref, cut_nbytes, cut_manifest, cut_incremental_bytes = cut
+    cut_layers = min(CLOUD_LAYERS, n_layers)
+    s3_phases(torch, ts, knobs, phase_stats, cut_state, cut_ref, cut_nbytes, events, cut_manifest, cut_layers)
+    gcs_phases(torch, ts, knobs, phase_stats, cut_state, cut_ref, cut_nbytes, events, cut_manifest, cut_layers,
+               cut_incremental_bytes)
+    del cut, cut_state, cut_ref
     replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, args.workdir, n_layers)
     store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir)
     cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args)

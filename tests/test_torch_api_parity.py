@@ -105,8 +105,19 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     assert meaningless == {"TPUSNAP_D2H_BITCAST", "TPUSNAP_H2D_BITCAST"}
     assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS", "TPUSNAP_CACHE_DIR", "TPUSNAP_CACHE_MAX_BYTES"} <= read
     assert set(PEER_KNOBS) <= read
-    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 20
-    assert {"TPUSNAP_PEER_TRACE_MAX_SPANS", "TPUSNAP_PEERD_ACCESS_LOG", "TPUSNAP_NATIVE"} <= unimplemented
+    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 13
+    # Read since the telemetry slice (tracing, metrics, the daemon's server
+    # tracer and access log) and the sharded-elasticity repair.
+    assert {
+        "TPUSNAP_TRACE_DIR",
+        "TPUSNAP_METRICS",
+        "TPUSNAP_PEER_TRACE_MAX_SPANS",
+        "TPUSNAP_PEER_TRACE_FLUSH_S",
+        "TPUSNAP_PEERD_ACCESS_LOG",
+        "TPUSNAP_PEERD_ACCESS_LOG_MAX_BYTES",
+        "TPUSNAP_ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY",
+    } <= read
+    assert {"TPUSNAP_NATIVE", "TPUSNAP_PROGRESS_INTERVAL_S", "TPUSNAP_PROFILE"} <= unimplemented
 
 
 # The peer tier's knobs, each with a value to set and its getter's name.

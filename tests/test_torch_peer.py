@@ -131,10 +131,13 @@ def test_daemon_http_surface(peer_env):
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{base}/chunk/{algo}/{'0' * 16}")
         assert err.value.code == 404
-        for path in ("/nonsense", "/metrics"):  # /metrics waits for the metrics registry
-            with pytest.raises(urllib.error.HTTPError) as err:
-                urllib.request.urlopen(f"{base}{path}")
-            assert err.value.code == 404
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(f"{base}/nonsense")
+        assert err.value.code == 404
+        # The metrics registry in the Prometheus text format (empty with
+        # TPUSNAP_METRICS off).
+        resp = urllib.request.urlopen(f"{base}/metrics")
+        assert resp.status == 200 and resp.headers["Content-Type"].startswith("text/plain")
 
 
 def test_registry_lease_staleness_and_tombstone(peer_env):

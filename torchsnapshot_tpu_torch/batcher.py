@@ -41,6 +41,7 @@ from .manifest import (
     TensorEntry,
 )
 from .serialization import Serializer
+from .telemetry import trace as ttrace
 
 logger = logging.getLogger(__name__)
 
@@ -81,6 +82,15 @@ def batch_write_requests(
     without joining (fs native data plane) — slabs then cost no side
     allocation.  Backends that join at write time (memory) keep the slab
     total in the staging cost so the memory budget stays honest."""
+    with ttrace.span("batch_write_plan", n_reqs=len(write_reqs)):
+        return _batch_write_requests_impl(entries, write_reqs, scatter_ok)
+
+
+def _batch_write_requests_impl(
+    entries: Manifest,
+    write_reqs: List[WriteReq],
+    scatter_ok: bool,
+) -> Tuple[Manifest, List[WriteReq]]:
     entry_index = _index_tensor_entries(entries)
     slab_threshold = knobs.get_slab_size_threshold_bytes()
 

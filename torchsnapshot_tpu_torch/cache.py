@@ -54,6 +54,7 @@ import numpy as np
 from . import cas, integrity, knobs, peer, phase_stats
 from .event import Event
 from .event_handlers import log_event
+from .telemetry import metrics as tmetrics
 from .io_types import ReadIO, StoragePlugin, WriteIO
 from .manifest import iter_payload_entries
 from .native_io import NativeFileIO
@@ -449,6 +450,7 @@ class CacheStore:
                 evicted += 1
             if evicted:
                 _add_totals(evictions=evicted, evicted_bytes=evicted_bytes)
+                tmetrics.record_cache_evicted(evicted, evicted_bytes)
                 log_event(
                     Event(
                         name="cache.evict",
@@ -549,6 +551,7 @@ class CacheReaderPlugin(StoragePlugin):
     def _record_wait(wait_s: float, path: str) -> None:
         """One finished single-flight wait on a sibling's populate."""
         phase_stats.add("cache_wait", wait_s)
+        tmetrics.record_cache_wait(wait_s)
         log_event(Event(name="cache.wait", metadata={"path": path, "wait_s": round(wait_s, 4)}))
 
     async def read(self, read_io: ReadIO) -> None:
@@ -672,6 +675,7 @@ class CacheReaderPlugin(StoragePlugin):
         if not (hits or misses):
             return
         _add_totals(hits=hits, misses=misses, hit_bytes=hit_bytes, miss_bytes=miss_bytes)
+        tmetrics.record_cache(hits, misses, hit_bytes, miss_bytes)
         if hits:
             log_event(Event(name="cache.hit", metadata={"count": hits, "bytes": hit_bytes}))
         if misses:

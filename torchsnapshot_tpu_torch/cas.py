@@ -819,7 +819,11 @@ class CASWriterPlugin(StoragePlugin):
             return
         from .event import Event
         from .event_handlers import log_event
+        from .telemetry import metrics as tmetrics
 
+        tmetrics.record_cas_dedup(stats["dedup_hits"], stats["dedup_bytes_saved"])
+        tmetrics.record_cdc(stats["cdc_chunks"], stats["cdc_dedup_hits"], stats["cdc_bytes_saved"])
+        tmetrics.record_cas_prestage(stats["prestage_hits"], stats["prestage_bytes"])
         log_event(Event(name="cas.dedup", metadata=stats))
         logger.info(
             "CAS: %d payloads deduplicated (%.1f MB saved, %d prestage-skipped), "
@@ -1058,7 +1062,9 @@ def prestage_delta_skip(
         id(wr) for wr in write_reqs if _is_device_leaf(getattr(wr.buffer_stager, "source", None))
     }
     results: Dict[int, Any] = {}
-    with phase_stats.timed("prestage_delta"):
+    from .telemetry import trace as ttrace
+
+    with ttrace.span("prestage_delta", n_reqs=len(write_reqs)), phase_stats.timed("prestage_delta"):
         host_reqs = [wr for wr in write_reqs if id(wr) not in device_ids]
         with ThreadPoolExecutor(max_workers=4, thread_name_prefix="snap_prestage") as pool:
             for wr, res in zip(host_reqs, pool.map(_probe_host, host_reqs)):

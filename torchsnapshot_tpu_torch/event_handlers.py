@@ -31,6 +31,13 @@ def _get_handlers() -> List[Callable[[Event], None]]:
     return _HANDLERS_CACHE
 
 
+def reset_handlers_cache() -> None:
+    """Forget the loaded entry-point handlers: the next ``log_event``
+    discovers them again (handlers installed after the first event)."""
+    global _HANDLERS_CACHE
+    _HANDLERS_CACHE = None
+
+
 def register_event_handler(handler: Callable[[Event], None]) -> None:
     _INPROCESS_HANDLERS.append(handler)
 

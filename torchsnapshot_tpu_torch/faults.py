@@ -76,6 +76,7 @@ from typing import List, Optional
 
 from .io_types import ReadIO, StoragePlugin, WriteIO, contiguous
 from .retry import StorageTransientError
+from .telemetry import metrics as tmetrics
 
 logger = logging.getLogger(__name__)
 
@@ -348,6 +349,7 @@ class FaultyStoragePlugin(StoragePlugin):
                 if hits and fired is None:
                     fired = rule
         if fired is not None:
+            tmetrics.record_fault(op, fired.kind)
             logger.info(
                 "fault injected: op=%s kind=%s path=%s", op, fired.kind, path
             )
@@ -494,6 +496,7 @@ class PeerFaultInjector:
                 if hits and fired is None:
                     fired = rule
         if fired is not None:
+            tmetrics.record_fault("peer", fired.kind)
             logger.info(
                 "fault injected: op=peer kind=%s path=%s", fired.kind, path
             )

@@ -53,6 +53,7 @@ from ..io_types import (
 from ..manifest import TensorEntry
 from ..serialization import Serializer
 from ..staging import begin_d2h, finish_d2h, is_cuda_tensor, pinned_empty
+from ..telemetry import metrics as tmetrics
 
 # Pieces below this read through the batcher's merged spanning reads
 # instead of into their own destination.
@@ -230,9 +231,11 @@ class ArrayBufferStager(BufferStager):
                 )
             else:
                 frame, inner = compression.encode(mv, entry.codec, level)
+            uncompressed_nbytes = mv.nbytes
             del mv, host  # the staged copy (a pinned buffer) goes back now
             entry.codec = inner
             entry.compressed_nbytes = memoryview(frame).nbytes
+            tmetrics.record_codec(inner, uncompressed_nbytes, entry.compressed_nbytes)
             mv = memoryview(frame).cast("B")
         if integrity.save_checksums_enabled():
 

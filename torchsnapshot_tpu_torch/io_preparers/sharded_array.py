@@ -55,6 +55,7 @@ from .. import compression, integrity, knobs, phase_stats, serialization, stagin
 from ..io_types import BufferConsumer, BufferType, Future, ReadReq, WriteReq
 from ..compression import is_framed
 from ..manifest import Shard, ShardedArrayEntry, TensorEntry
+from ..telemetry import trace as ttrace
 from ..serialization import Serializer
 from .array import _EXECUTOR_MIN_BYTES, _INTO_PLACE_MIN_BYTES, ArrayIOPreparer, H2DBatcher
 
@@ -143,21 +144,22 @@ class ShardedArrayIOPreparer:
         max_shard_sz = knobs.get_max_shard_size_bytes()
         shards: List[Shard] = []
         write_reqs: List[WriteReq] = []
-        for offsets, data in staging.local_shards(obj):
-            sizes = list(data.shape)
-            for p_off, p_sz in _subdivide(offsets, sizes, dtype_str, max_shard_sz):
-                if list(p_off) == list(offsets) and p_sz == sizes:
-                    piece = data
-                else:
-                    piece = data[_box_slices(p_off, p_sz, offsets)]
-                location = cls.storage_path_for_piece(storage_path, p_off)
-                tensor_entry, piece_reqs = ArrayIOPreparer.prepare_write(
-                    storage_path=location,
-                    obj=piece,
-                    is_async_snapshot=is_async_snapshot,
-                )
-                shards.append(Shard(offsets=p_off, sizes=p_sz, tensor=tensor_entry))
-                write_reqs += piece_reqs
+        with ttrace.span("plan_sharded", path=storage_path):
+            for offsets, data in staging.local_shards(obj):
+                sizes = list(data.shape)
+                for p_off, p_sz in _subdivide(offsets, sizes, dtype_str, max_shard_sz):
+                    if list(p_off) == list(offsets) and p_sz == sizes:
+                        piece = data
+                    else:
+                        piece = data[_box_slices(p_off, p_sz, offsets)]
+                    location = cls.storage_path_for_piece(storage_path, p_off)
+                    tensor_entry, piece_reqs = ArrayIOPreparer.prepare_write(
+                        storage_path=location,
+                        obj=piece,
+                        is_async_snapshot=is_async_snapshot,
+                    )
+                    shards.append(Shard(offsets=p_off, sizes=p_sz, tensor=tensor_entry))
+                    write_reqs += piece_reqs
         spec = staging.partition_spec_of(obj)
         mesh_shape, axis_names, partition_spec = spec if spec else (None, None, None)
         entry = ShardedArrayEntry(

@@ -20,13 +20,16 @@ the smallest read that fans out across ranged GETs.
 So are the serving tier's: the host cache (``TPUSNAP_CACHE_DIR``,
 ``TPUSNAP_CACHE_MAX_BYTES``) and the peer tier (``TPUSNAP_PEER_FETCH``,
 ``_PORT``, ``_ADDR``, ``_TIMEOUT_S``, ``_RETRIES``, ``_GRACE_S``,
-``_BAD_TTL_S``, ``_DEMOTE_FACTOR``).
+``_BAD_TTL_S``, ``_DEMOTE_FACTOR``).  So are telemetry's: per-operation
+traces (``TPUSNAP_TRACE_DIR``), the metrics registry (``TPUSNAP_METRICS``),
+the peer daemon's server tracer (``TPUSNAP_PEER_TRACE_MAX_SPANS``,
+``_FLUSH_S``) and access log (``TPUSNAP_PEERD_ACCESS_LOG``,
+``_MAX_BYTES``).
 
 Every other knob of the JAX package is named here too, so that none is
 ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
-this package does not have yet (tracing, including the peer daemon's
-server tracer and access log, metrics, the watchdog, the flight recorder,
-the profiler, fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0``
+this package does not have yet (the progress reporter, the watchdog, the
+flight recorder, the profiler, fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0``
 selects the JAX package's pure-Python data plane (this package requires
 its native library): :func:`warn_unimplemented_knobs` warns once per
 process for each one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
@@ -102,11 +105,11 @@ CLOUD_PARALLEL_MIN_BYTES_ENV_VAR = _ENV_PREFIX + "CLOUD_PARALLEL_MIN_BYTES"
 GCS_ENDPOINT_ENV_VAR = _ENV_PREFIX + "GCS_ENDPOINT"
 D2H_BITCAST_ENV_VAR = _ENV_PREFIX + "D2H_BITCAST"
 H2D_BITCAST_ENV_VAR = _ENV_PREFIX + "H2D_BITCAST"
-# Knobs of the JAX package's modules that this package does not have yet.
 ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR = _ENV_PREFIX + "ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY"
-PROGRESS_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "PROGRESS_INTERVAL_S"
 TRACE_DIR_ENV_VAR = _ENV_PREFIX + "TRACE_DIR"
 METRICS_ENV_VAR = _ENV_PREFIX + "METRICS"
+# Knobs of the JAX package's modules that this package does not have yet.
+PROGRESS_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "PROGRESS_INTERVAL_S"
 STALL_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "STALL_TIMEOUT_S"
 STALL_ESCALATE_ENV_VAR = _ENV_PREFIX + "STALL_ESCALATE"
 HEARTBEAT_FILE_ENV_VAR = _ENV_PREFIX + "HEARTBEAT_FILE"
@@ -137,20 +140,13 @@ PROFILE_HZ_ENV_VAR = _ENV_PREFIX + "PROFILE_HZ"
 # lands), and there is no pure-Python data plane to switch to.
 UNIMPLEMENTED_KNOBS = (
     NATIVE_ENV_VAR,
-    ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR,
     PROGRESS_INTERVAL_S_ENV_VAR,
-    TRACE_DIR_ENV_VAR,
-    METRICS_ENV_VAR,
     STALL_TIMEOUT_S_ENV_VAR,
     STALL_ESCALATE_ENV_VAR,
     HEARTBEAT_FILE_ENV_VAR,
     FLEET_TELEMETRY_ENV_VAR,
     FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
     FLEET_TELEMETRY_STALE_S_ENV_VAR,
-    PEER_TRACE_MAX_SPANS_ENV_VAR,
-    PEER_TRACE_FLUSH_S_ENV_VAR,
-    PEERD_ACCESS_LOG_ENV_VAR,
-    PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR,
     BLACKBOX_DIR_ENV_VAR,
     BLACKBOX_SLOTS_ENV_VAR,
     BLACKBOX_SLOT_BYTES_ENV_VAR,
@@ -214,6 +210,12 @@ _DEFAULT_PEER_TIMEOUT_S = 5.0
 _DEFAULT_PEER_RETRIES = 1
 _DEFAULT_PEER_BAD_TTL_S = 60.0
 _DEFAULT_PEER_DEMOTE_FACTOR = 3.0
+# A peer daemon's server tracer keeps at most this many spans between
+# flushes of its trace file, which it rewrites every few seconds.
+_DEFAULT_PEER_TRACE_MAX_SPANS = 10000
+_DEFAULT_PEER_TRACE_FLUSH_S = 5.0
+# The daemon's access log rotates to ``<path>.1`` past this size.
+_DEFAULT_PEERD_ACCESS_LOG_MAX_BYTES = 16 * 1024 * 1024
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 # Smallest object-store read that fans out across concurrent ranged GETs
@@ -482,6 +484,56 @@ def get_peer_demote_factor() -> float:
     (or whose error EWMA passes 0.5) is tried last; 0 turns demotion off."""
     val = os.environ.get(PEER_DEMOTE_FACTOR_ENV_VAR)
     return max(0.0, float(val)) if val is not None else _DEFAULT_PEER_DEMOTE_FACTOR
+
+
+def get_peer_trace_max_spans() -> int:
+    """Spans a peer daemon's server tracer buffers between flushes; past it
+    the oldest are dropped, and the trace file's ``otherData`` counts them."""
+    return max(1, _get_int_env(PEER_TRACE_MAX_SPANS_ENV_VAR, _DEFAULT_PEER_TRACE_MAX_SPANS))
+
+
+def get_peer_trace_flush_s() -> float:
+    """Seconds between a peer daemon's rewrites of its trace file under
+    ``TPUSNAP_TRACE_DIR`` (at least 0.1)."""
+    val = os.environ.get(PEER_TRACE_FLUSH_S_ENV_VAR)
+    return max(0.1, float(val)) if val is not None else _DEFAULT_PEER_TRACE_FLUSH_S
+
+
+def get_peerd_access_log() -> Optional[str]:
+    """Path of the peer daemon's JSON-lines access log, or None.  With none
+    set and a trace directory configured, the daemon logs to
+    ``<TPUSNAP_TRACE_DIR>/peerd-<pid>.access.jsonl``."""
+    val = os.environ.get(PEERD_ACCESS_LOG_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_peerd_access_log_max_bytes() -> int:
+    """Size past which the access log is renamed to ``<path>.1`` (one
+    generation kept) and a fresh file started (at least 4096)."""
+    return max(4096, _get_int_env(PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR, _DEFAULT_PEERD_ACCESS_LOG_MAX_BYTES))
+
+
+def get_trace_dir() -> Optional[str]:
+    """Directory of per-operation Chrome/Perfetto trace files
+    (``telemetry/trace.py``), or None: tracing off (the default).  Each
+    take, async_take, restore and read_object writes one
+    ``<kind>-<op>-rank<r>.trace.json`` there."""
+    val = os.environ.get(TRACE_DIR_ENV_VAR, "").strip()
+    return val or None
+
+
+def metrics_enabled() -> bool:
+    """Whether the in-process metrics registry (``telemetry/metrics.py``)
+    records, and the event bridge is installed at each operation.  Off by
+    default: every instrumentation site returns on this check."""
+    return _get_flag_env(METRICS_ENV_VAR, "0")
+
+
+def is_sharded_elasticity_root_only_enabled() -> bool:
+    """With it on, a restore reconciles sharded entries with the request
+    only when every merged sharded entry sits directly under an app-state
+    key (``key/name``); nested ones leave the manifest as it is."""
+    return _get_flag_env(ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR, "0")
 
 
 def get_store_addr() -> Optional[str]:
@@ -1029,4 +1081,46 @@ def override_peer_bad_ttl_s(value: float) -> Generator[None, None, None]:
 @contextmanager
 def override_peer_demote_factor(value: float) -> Generator[None, None, None]:
     with override_env(PEER_DEMOTE_FACTOR_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_trace_dir(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(TRACE_DIR_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_metrics(enabled: bool) -> Generator[None, None, None]:
+    with override_env(METRICS_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_peer_trace_max_spans(value: int) -> Generator[None, None, None]:
+    with override_env(PEER_TRACE_MAX_SPANS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peer_trace_flush_s(value: float) -> Generator[None, None, None]:
+    with override_env(PEER_TRACE_FLUSH_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_peerd_access_log(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(PEERD_ACCESS_LOG_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_peerd_access_log_max_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(PEERD_ACCESS_LOG_MAX_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_sharded_elasticity_root_only(enabled: bool) -> Generator[None, None, None]:
+    with override_env(ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR, "1" if enabled else None):
         yield

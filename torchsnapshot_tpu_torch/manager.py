@@ -55,6 +55,7 @@ from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
 from .telemetry import history as thistory
+from .telemetry import metrics as tmetrics
 from .telemetry import sidecar as tsidecar
 
 logger = logging.getLogger(__name__)
@@ -527,6 +528,7 @@ class SnapshotManager:
                     st.world_size = holder["world_size"]
                 bisect.insort(st.segments, step)
                 st.delta_bytes += int(info.get("delta_bytes", 0))
+            tmetrics.record_journal_segment(info.get("entries_delta", 0), info.get("delta_bytes", 0))
             log_event(
                 Event(
                     name="journal.commit",
@@ -716,6 +718,7 @@ class SnapshotManager:
                 st.base_step = target
                 st.segments = []
                 st.delta_bytes = 0
+                tmetrics.record_journal_compaction(len(removed))
                 log_event(
                     Event(
                         name="journal.compaction",
@@ -1205,7 +1208,9 @@ class SnapshotManager:
                     raise
                 if first_error is None:
                     first_error = e
+                tmetrics.record_restore_fallback(type(e).__name__)
                 if kind == "seg":
+                    tmetrics.record_journal_fallback(type(e).__name__)
                     log_event(
                         Event(
                             name="journal.fallback",
@@ -1379,6 +1384,7 @@ class SnapshotManager:
                     "GC: removing uncommitted snapshot step_%d", step
                 )
                 storage.sync_delete_dir(f"step_{step}")
+                tmetrics.record_gc("orphan_removed")
                 log_event(
                     Event(
                         name="gc.orphan_removed",
@@ -1392,6 +1398,7 @@ class SnapshotManager:
                 )
                 storage.sync_delete_dir(journal_mod.segment_dirname(seg))
                 removed_segs.append(seg)
+                tmetrics.record_gc("segment_removed")
                 log_event(
                     Event(
                         name="gc.segment_removed",
@@ -1410,6 +1417,7 @@ class SnapshotManager:
                 )
                 storage.sync_delete_dir(journal_mod.segment_dirname(seg))
                 removed_segs.append(seg)
+                tmetrics.record_gc("segment_removed")
                 log_event(
                     Event(
                         name="gc.segment_removed",
@@ -1522,6 +1530,7 @@ class SnapshotManager:
         orphans = self.orphan_chunks(storage=storage)
         for relpath in orphans:
             storage.sync_delete(relpath)
+            tmetrics.record_gc("chunk_removed")
             log_event(
                 Event(
                     name="gc.chunk_removed",
@@ -1591,6 +1600,7 @@ class SnapshotManager:
                     except FileNotFoundError:
                         continue
                     swept.append(relpath)
+                    tmetrics.record_gc("chunk_removed")
                     log_event(
                         Event(
                             name="gc.chunk_removed",

@@ -23,6 +23,7 @@ import copy
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
+from . import knobs
 from .manifest import Entry, Manifest, ShardedArrayEntry, SnapshotMetadata
 from .manifest_utils import (
     is_container_entry,
@@ -127,7 +128,14 @@ def handle_sharded_array_elasticity(
     merged_entries: Dict[str, Entry],
     tensor_requests: List[str],
 ) -> None:
-    """Add requested-but-absent sharded entries; drop unrequested ones."""
+    """Add requested-but-absent sharded entries; drop unrequested ones.
+    With ``TPUSNAP_ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY`` on, only when
+    every merged entry sits directly under its app-state key."""
+    if knobs.is_sharded_elasticity_root_only_enabled() and not all(
+        len(logical_path.split("/")) == 2 for logical_path in merged_entries
+    ):
+        return
+
     requests = [tr for tr in tensor_requests if tr in merged_entries]
 
     for logical_path in requests:

@@ -371,7 +371,9 @@ class NativeFileIO:
         )
         from .event import Event
         from .event_handlers import log_event
+        from .telemetry import metrics as tmetrics
 
+        tmetrics.record_native_degraded("direct_io")
         log_event(
             Event(
                 name="native.degraded",

@@ -53,6 +53,8 @@ from . import cas, faults, integrity, knobs, phase_stats, retry
 from .event import Event
 from .event_handlers import log_event
 from .io_types import ReadIO, StoragePlugin, WriteIO
+from .telemetry import metrics as tmetrics
+from .telemetry import trace as ttrace
 
 logger = logging.getLogger(__name__)
 
@@ -353,12 +355,23 @@ def http_request(
     """One HTTP/1.1 request to ``host:port``: ``(status, headers, body)``.
     A body shorter than its ``Content-Length`` raises ``IncompleteRead``
     (transient)."""
+    status, resp_headers, body, _ = _timed_request(addr, method, path, timeout_s, headers)
+    return status, resp_headers, body
+
+
+def _timed_request(
+    addr: str, method: str, path: str, timeout_s: float, headers: Optional[Dict[str, str]] = None
+) -> Tuple[int, Dict[str, str], bytes, float]:
+    """:func:`http_request` and its time to first byte: the connect, the
+    request and the response headers, apart from the body's transfer."""
+    begin = time.monotonic()
     conn = http.client.HTTPConnection(addr, timeout=timeout_s)
     try:
         conn.request(method, path, headers=headers or {})
         resp = conn.getresponse()
+        ttfb_s = time.monotonic() - begin  # headers in hand, body pending
         body = resp.read()
-        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, body
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, body, ttfb_s
     finally:
         conn.close()
 
@@ -415,7 +428,12 @@ class PeerClient:
     def _record_reject(self, addr: str, reason: str) -> None:
         with self._lock:
             self.rejects += 1
-        log_event(Event(name="peer.reject", metadata={"peer": addr, "reason": reason}))
+        tmetrics.record_peer_reject(reason)
+        metadata: Dict[str, Any] = {"peer": addr, "reason": reason}
+        trace_id = ttrace.current_trace_id()
+        if trace_id is not None:
+            metadata["trace"] = trace_id
+        log_event(Event(name="peer.reject", metadata=metadata))
         logger.warning("rejecting peer %s: %s", addr, reason)
 
     # ------------------------------------------------------------ fetch
@@ -432,41 +450,58 @@ class PeerClient:
         path = f"/chunk/{algo}/{hexdigest}"
         begin = time.monotonic()
         result: Optional[bytes] = None
+        ttfb_s = 0.0
         attempt = 0
-        while True:
-            try:
-                data = self._http_get(addr, path)
-            except retry.HTTPStatusError as e:
-                if e.status == 404:
-                    status = "miss"  # not resident there, not a fault
+        # The span's id rides the GET's traceparent: the daemon's
+        # peerd_handle span names it as its parent.
+        with ttrace.span("peer_fetch", cat="phase", peer=addr, digest=f"{algo}:{hexdigest}") as sp:
+            while True:
+                try:
+                    data, ttfb_s = self._http_get(addr, path)
+                except retry.HTTPStatusError as e:
+                    if e.status == 404:
+                        status = "miss"  # not resident there, not a fault
+                        break
+                    if e.status in retry.TRANSIENT_HTTP_STATUS and attempt < self._retries:
+                        attempt += 1
+                        retry.sleep_backoff(attempt, base_s=0.1)
+                        continue
+                    self.mark_bad(addr)
+                    status = "error"
                     break
-                if e.status in retry.TRANSIENT_HTTP_STATUS and attempt < self._retries:
-                    attempt += 1
-                    retry.sleep_backoff(attempt, base_s=0.1)
-                    continue
-                self.mark_bad(addr)
-                status = "error"
+                except Exception as e:  # noqa: BLE001 — classified below
+                    if self._transportish(e) and attempt < self._retries:
+                        attempt += 1
+                        retry.sleep_backoff(attempt, base_s=0.1)
+                        continue
+                    self.mark_bad(addr)
+                    status = "error"
+                    break
+                expect = f"{algo}:{hexdigest}"
+                if integrity.digest_as(data, expect) != expect:
+                    self._record_reject(addr, "digest_mismatch")
+                    self.mark_bad(addr)
+                    status = "reject"
+                    break
+                status = "hit"
+                result = data
                 break
-            except Exception as e:  # noqa: BLE001 — classified below
-                if self._transportish(e) and attempt < self._retries:
-                    attempt += 1
-                    retry.sleep_backoff(attempt, base_s=0.1)
-                    continue
-                self.mark_bad(addr)
-                status = "error"
-                break
-            expect = f"{algo}:{hexdigest}"
-            if integrity.digest_as(data, expect) != expect:
-                self._record_reject(addr, "digest_mismatch")
-                self.mark_bad(addr)
-                status = "reject"
-                break
-            status = "hit"
-            result = data
-            break
-        wall_s = time.monotonic() - begin
+            wall_s = time.monotonic() - begin
+            sp.set(
+                status=status,
+                attempts=attempt + 1,
+                ttfb_s=ttfb_s,
+                transfer_s=max(0.0, wall_s - ttfb_s),
+                bytes=len(result) if result is not None else 0,
+            )
+        tmetrics.record_peer_fetch_seconds(wall_s)
         if record_fetch_outcome(addr, wall_s, status, len(result) if result is not None else 0):
-            log_event(Event(name="peer.demoted", metadata={"peer": addr, "status": status}))
+            tmetrics.record_peer_demoted()
+            metadata: Dict[str, Any] = {"peer": addr, "status": status}
+            trace_id = ttrace.current_trace_id()
+            if trace_id is not None:
+                metadata["trace"] = trace_id
+            log_event(Event(name="peer.demoted", metadata=metadata))
             logger.warning("demoting slow or flaky peer %s", addr)
         return result
 
@@ -476,9 +511,15 @@ class PeerClient:
         malformed responses retry, as do ``retry.is_transient``'s."""
         return retry.is_transient(exc) or isinstance(exc, (OSError, http.client.HTTPException))
 
-    def _http_get(self, addr: str, path: str, byte_range: Optional[Tuple[int, int]] = None) -> bytes:
-        """One GET against a peer: the body of a 2xx, else
-        ``retry.HTTPStatusError``.  An injected ``peer`` fault acts here:
+    def _http_get(
+        self, addr: str, path: str, byte_range: Optional[Tuple[int, int]] = None
+    ) -> Tuple[bytes, float]:
+        """One GET against a peer: ``(body, ttfb_s)`` of a 2xx, else
+        ``retry.HTTPStatusError``.  The time to first byte (connect, request,
+        response headers) is split from the body's transfer, so that the
+        peer_fetch span tells a slow network from a slow daemon.  The GET
+        carries the active trace's ``traceparent``.  An injected ``peer``
+        fault acts here:
         ``peer_unreachable`` raises before the connect, ``peer_slow``
         sleeps, ``peer_truncated`` cuts the body after the framing check,
         so only the digest gate can catch it."""
@@ -490,17 +531,20 @@ class PeerClient:
                 time.sleep(rule.param if rule.param is not None else 0.25)
         begin = time.monotonic()
         headers = {}
+        traceparent = ttrace.current_traceparent()
+        if traceparent is not None:
+            headers["traceparent"] = traceparent
         if path.startswith("/chunk/"):
             headers["tpusnap-chunk"] = path[len("/chunk/") :].replace("/", ":", 1)
         if byte_range is not None:
             headers["Range"] = f"bytes={byte_range[0]}-{byte_range[1] - 1}"
-        status, _, body = http_request(addr, "GET", path, self._timeout_s, headers)
+        status, _, body, ttfb_s = _timed_request(addr, "GET", path, self._timeout_s, headers)
         if not 200 <= status < 300:
             raise retry.HTTPStatusError(f"GET http://{addr}{path}: HTTP {status}", status)
         if rule is not None and rule.kind == "peer_truncated":
             body = body[: len(body) // 2]
         phase_stats.add("peer_read", time.monotonic() - begin, len(body))
-        return body
+        return body, ttfb_s
 
 
 # --------------------------------------------------------------- the plugin
@@ -735,6 +779,7 @@ class PeerReaderPlugin(StoragePlugin):
         if not (stats["hits"] or stats["misses"] or stats["rejects"]):
             return
         _add_totals(**stats)
+        tmetrics.record_peer(stats["hits"], stats["misses"], stats["hit_bytes"], stats["miss_bytes"])
         if stats["hits"]:
             log_event(Event(name="peer.hit", metadata={"count": stats["hits"], "bytes": stats["hit_bytes"]}))
         if stats["misses"]:

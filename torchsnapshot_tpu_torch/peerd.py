@@ -14,6 +14,8 @@ that offers this host's chunk cache to the fleet:
 - ``GET /healthz`` — liveness and the daemon's identity.
 - ``GET /inventory`` — what this host can serve (a listing capped at
   ``_INVENTORY_CAP`` entries, with ``chunks_total`` and ``truncated``).
+- ``GET /metrics`` — the process's metrics registry in the Prometheus text
+  format (requests served, bytes, peer-fetch latency; ``TPUSNAP_METRICS=1``).
 - ``POST /rollout?step=N`` — warm the delta of a manager root's step into
   the local cache through the read stack (peer-first with
   ``TPUSNAP_PEER_FETCH``: a canary pulls from origin once, the fleet from
@@ -24,9 +26,13 @@ read, so fleet traffic cannot add origin traffic.  On start it registers on
 the coordination store (peer.PeerRegistration); with no store configured it
 serves without discovery, reachable by address only.
 
-Not here yet (step 7a): ``/metrics`` (it answers 404), the server tracer
-and access log, and the monitored ``serve``/``rollout`` operations; and
-(step 7b) the rollout's fleet-spool progress document.
+Observability: with ``TPUSNAP_TRACE_DIR`` set, each request is a
+``peerd_handle`` span in the daemon's own trace file (telemetry/trace.py
+``ServerTracer``), parented on the client's ``peer_fetch`` span through the
+request's ``traceparent``, and a line of the JSON-lines access log
+(``TPUSNAP_PEERD_ACCESS_LOG``, by default beside the traces).  Not here
+yet: the monitored ``serve`` and ``rollout`` operations and the rollout's
+fleet-spool progress document.
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ from . import peer as peer_mod
 from .event import Event
 from .event_handlers import log_event
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import metrics as tmetrics
+from .telemetry import trace as ttrace
 
 logger = logging.getLogger(__name__)
 
@@ -163,12 +171,24 @@ class PeerDaemon:
         self.started_at = time.time()
         self.addr: Optional[str] = None
         self.ident = uuid.uuid4().hex
+        self.tracer: Optional[ttrace.ServerTracer] = None
+        self.access_log: Optional[ttrace.AccessLog] = None
 
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> str:
         """Bind, serve on a background thread, register; returns the
-        advertised ``host:port``."""
+        advertised ``host:port``.  Server-side spans and the access log
+        follow the ``TPUSNAP_TRACE_DIR`` the rest of the pipeline traces
+        to, so a traced restore finds the daemon's spans to stitch."""
+        trace_dir = knobs.get_trace_dir()
+        if trace_dir:
+            self.tracer = ttrace.ServerTracer(trace_dir, self.ident)
+        log_path = knobs.get_peerd_access_log()
+        if log_path is None and trace_dir:
+            log_path = os.path.join(trace_dir, f"peerd-{os.getpid()}{ttrace.ACCESS_LOG_SUFFIX}")
+        if log_path:
+            self.access_log = ttrace.AccessLog(log_path, max_bytes=knobs.get_peerd_access_log_max_bytes())
         handler = type("_BoundHandler", (_ChunkRequestHandler,), {"daemon": self})
         self._server = ThreadingHTTPServer(("", self._port), handler)
         self._server.daemon_threads = True
@@ -203,6 +223,9 @@ class PeerDaemon:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.tracer is not None:
+            self.tracer.close()  # the final flush; the access log appends per line
+            self.tracer = None
 
     # ----------------------------------------------------------- endpoints
 
@@ -249,6 +272,47 @@ class PeerDaemon:
             "chunks_total": chunks_total,
             "truncated": truncated,
         }
+
+    def observe_request(
+        self,
+        *,
+        path: str,
+        begin_us: float,
+        wall_s: float,
+        status: int,
+        nbytes: int,
+        kind: str,
+        traceparent: Optional[str],
+        chunk_header: Optional[str],
+        byte_range: Optional[str],
+        client: str,
+    ) -> None:
+        """Record one served request: a ``peerd_handle`` span in the
+        daemon's trace file (a child of the client's span when the request
+        carried a ``traceparent``) and one access-log line."""
+        digest = chunk_header
+        if digest is None and path.startswith("/chunk/"):
+            digest = path[len("/chunk/") :].replace("/", ":", 1)
+        parsed = ttrace.parse_traceparent(traceparent) if traceparent else None
+        if self.tracer is not None:
+            args: Dict[str, Any] = {"path": path, "kind": kind, "status": status, "bytes": nbytes, "client": client}
+            if digest:
+                args["digest"] = digest
+            if parsed is not None:
+                args["trace"] = parsed[0]
+                args["parent"] = f"{parsed[1]:016x}"
+            self.tracer.record_span("peerd_handle", begin_us, wall_s * 1e6, args)
+        if self.access_log is not None:
+            self.access_log.log(
+                ts=round(time.time(), 6),
+                trace=parsed[0] if parsed is not None else None,
+                digest=digest,
+                range=byte_range,
+                status=status,
+                bytes=nbytes,
+                wall_s=round(wall_s, 6),
+                client=client,
+            )
 
     def rollout(self, step: Optional[int], concurrency: int = 8) -> Dict[str, Any]:
         """Warm ``step``'s delta into this daemon's cache and report the
@@ -305,61 +369,106 @@ class _ChunkRequestHandler(BaseHTTPRequestHandler):
     daemon: PeerDaemon  # bound by subclassing in PeerDaemon.start
 
     def do_GET(self) -> None:  # noqa: N802 — http.server API
+        self._observed(self._route_get)
+
+    def do_POST(self) -> None:  # noqa: N802 — http.server API
+        self._observed(self._route_post)
+
+    def _observed(self, route) -> None:
+        """Run one route and hand its outcome (stashed by ``_begin``) and
+        its wall to the daemon's tracer and access log, which never fail a
+        request."""
+        self._resp_status = 0
+        self._resp_bytes = 0
+        self._resp_kind = "other"
+        begin_us = ttrace._now_us()
+        t0 = time.monotonic()
+        try:
+            route()
+        finally:
+            try:
+                self.daemon.observe_request(
+                    path=self.path.split("?", 1)[0],
+                    begin_us=begin_us,
+                    wall_s=time.monotonic() - t0,
+                    status=self._resp_status,
+                    nbytes=self._resp_bytes,
+                    kind=self._resp_kind,
+                    traceparent=self.headers.get("traceparent"),
+                    chunk_header=self.headers.get("tpusnap-chunk"),
+                    byte_range=self.headers.get("Range"),
+                    client=self.client_address[0],
+                )
+            except Exception:  # noqa: BLE001 — observability never breaks serving
+                logger.debug("peerd observe_request failed", exc_info=True)
+
+    def _route_get(self) -> None:
         path = self.path.split("?", 1)[0]
         if path == "/healthz":
-            self._send_json(200, self.daemon.healthz())
+            self._send_json(200, self.daemon.healthz(), kind="healthz")
         elif path == "/inventory":
-            self._send_json(200, self.daemon.inventory())
+            self._send_json(200, self.daemon.inventory(), kind="inventory")
+        elif path == "/metrics":
+            self._serve_metrics()
         elif path.startswith("/chunk/"):
             self._serve_chunk(path)
         else:
-            self._send_json(404, {"error": f"no such endpoint: {path}"})
+            self._send_json(404, {"error": f"no such endpoint: {path}"}, kind="other")
 
-    def do_POST(self) -> None:  # noqa: N802 — http.server API
+    def _serve_metrics(self) -> None:
+        """The process's registry in the Prometheus text format: what this
+        daemon counted (requests served, their bytes) and the peer-fetch
+        latency of its own rollout warms."""
+        body = tmetrics.render_prometheus().encode("utf-8")
+        self._begin(200, "text/plain; version=0.0.4; charset=utf-8", len(body), kind="metrics")
+        self.end_headers()
+        self._write_body(body)
+
+    def _route_post(self) -> None:
         parsed = urlparse(self.path)
         if parsed.path != "/rollout":
-            self._send_json(404, {"error": f"no such endpoint: {parsed.path}"})
+            self._send_json(404, {"error": f"no such endpoint: {parsed.path}"}, kind="other")
             return
         query = parse_qs(parsed.query)
         try:
             step = int(query["step"][0]) if "step" in query else None
             concurrency = int(query["concurrency"][0]) if "concurrency" in query else 8
         except ValueError:
-            self._send_json(400, {"error": "step/concurrency must be integers"})
+            self._send_json(400, {"error": "step/concurrency must be integers"}, kind="rollout")
             return
         try:
             result = self.daemon.rollout(step, concurrency=concurrency)
         except Exception as e:  # noqa: BLE001 — report it; the daemon serves on
             logger.warning("rollout failed", exc_info=True)
-            self._send_json(500, {"error": str(e)})
+            self._send_json(500, {"error": str(e)}, kind="rollout")
             return
-        self._send_json(200, result)
+        self._send_json(200, result, kind="rollout")
 
     def _serve_chunk(self, path: str) -> None:
         parts = path.split("/")  # "", "chunk", algo, hexdigest
         if len(parts) != 4 or not parts[2] or not parts[3]:
-            self._send_json(400, {"error": "expected /chunk/<algo>/<digest>"})
+            self._send_json(400, {"error": "expected /chunk/<algo>/<digest>"}, kind="chunk")
             return
         algo, hexdigest = parts[2], parts[3]
         data = self.daemon.read_chunk(algo, hexdigest)
         if data is None:
-            self._send_json(404, {"error": f"{algo}/{hexdigest} not resident"})
+            self._send_json(404, {"error": f"{algo}/{hexdigest} not resident"}, kind="chunk")
             return
         total = len(data)
         byte_range = self._parse_range(total)
         if byte_range is _RANGE_INVALID:
-            self._begin(416, "application/json", 0)
+            self._begin(416, "application/json", 0, kind="chunk")
             self.send_header("Content-Range", f"bytes */{total}")
             self.end_headers()
             return
         if byte_range is not None:
             start, end = byte_range
             body = data[start : end + 1]
-            self._begin(206, "application/octet-stream", len(body))
+            self._begin(206, "application/octet-stream", len(body), kind="chunk")
             self.send_header("Content-Range", f"bytes {start}-{end}/{total}")
         else:
             body = data
-            self._begin(200, "application/octet-stream", total)
+            self._begin(200, "application/octet-stream", total, kind="chunk")
         # Content-addressed: the name is the checksum, the bytes never change.
         self.send_header("Cache-Control", "public, max-age=31536000, immutable")
         self.send_header("Accept-Ranges", "bytes")
@@ -394,14 +503,20 @@ class _ChunkRequestHandler(BaseHTTPRequestHandler):
             return _RANGE_INVALID
         return start, min(end, total - 1)
 
-    def _begin(self, status: int, ctype: str, nbytes: int) -> None:
+    def _begin(self, status: int, ctype: str, nbytes: int, kind: str) -> None:
+        # The outcome for _observed's span and access-log line (the last
+        # _begin wins, e.g. a 416 after a parsed but unsatisfiable Range).
+        self._resp_status = status
+        self._resp_bytes = nbytes
+        self._resp_kind = kind
+        tmetrics.record_peerd_request(kind, status, nbytes)
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(nbytes))
 
-    def _send_json(self, status: int, doc: Dict[str, Any]) -> None:
+    def _send_json(self, status: int, doc: Dict[str, Any], kind: str) -> None:
         body = json.dumps(doc).encode("utf-8")
-        self._begin(status, "application/json", len(body))
+        self._begin(status, "application/json", len(body), kind=kind)
         self.end_headers()
         self._write_body(body)
 
@@ -473,6 +588,7 @@ def rollout_fleet(
         return {"peer": p.addr, "ok": True, "chunks_verified": len(sample)}
 
     def _wave(pool, wave: str, fn, targets) -> List[Dict[str, Any]]:
+        tmetrics.record_rollout_wave(wave)
         log_event(Event(name="rollout.wave", metadata={"root": root, "step": result["step"], "wave": wave, "hosts": len(targets)}))
         futures = {pool.submit(fn, p): i for i, p in enumerate(targets)}
         out: Dict[int, Dict[str, Any]] = {}

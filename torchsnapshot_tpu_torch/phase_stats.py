@@ -1,12 +1,12 @@
 """Per-phase time/byte attribution for the checkpoint pipeline.
 
-Counterpart of ``torchsnapshot_tpu/phase_stats.py`` without its tracing,
-flight-recorder and profiler hooks.  Per phase (``d2h``, ``h2d_dispatch``,
-``h2d_land``, ``checksum``, ``native_write_hash``, ``fs_read`` ...) it
-accumulates **thread-seconds** (``s``: summed over concurrent workers),
-**bytes**, a count, and **wall-seconds** (``wall``: the union of the
-phase's active intervals — the honest share of elapsed time when several
-workers run one phase at once).
+Counterpart of ``torchsnapshot_tpu/phase_stats.py`` with its tracing hook
+and without its flight-recorder and profiler hooks.  Per phase (``d2h``,
+``h2d_dispatch``, ``h2d_land``, ``checksum``, ``native_write_hash``,
+``fs_read`` ...) it accumulates **thread-seconds** (``s``: summed over
+concurrent workers), **bytes**, a count, and **wall-seconds** (``wall``:
+the union of the phase's active intervals — the honest share of elapsed
+time when several workers run one phase at once).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Generator, List, Optional, Tuple
+from typing import Callable, Dict, Generator, List, Optional, Tuple
 
 _lock = threading.Lock()
 _stats: Dict[str, Dict[str, float]] = {}
@@ -32,6 +32,17 @@ _active_begins: Dict[str, Dict[object, float]] = {}
 # Compact a phase's interval list past this length: a long-lived trainer
 # adds one interval per payload per phase per snapshot.
 _COMPACT_THRESHOLD = 512
+
+# Tracer hook (telemetry/trace.py): while a traced operation collects,
+# every recorded interval is forwarded as hook(phase, begin, end, nbytes)
+# (time.monotonic stamps) and becomes a leaf span.  None, the default,
+# costs one read per add().
+_trace_hook: Optional[Callable[[str, float, float, int], None]] = None
+
+
+def set_trace_hook(hook: Optional[Callable[[str, float, float, int], None]]) -> None:
+    global _trace_hook
+    _trace_hook = hook
 
 
 def add(
@@ -81,6 +92,12 @@ def add(
                     )
                     _retired_hwm[phase] = retired[-1][1]
             _intervals[phase] = merged
+    hook = _trace_hook
+    if hook is not None:
+        try:
+            hook(phase, begin, end, nbytes)
+        except Exception:  # noqa: BLE001 — telemetry never breaks the pipeline
+            pass
 
 
 @contextmanager

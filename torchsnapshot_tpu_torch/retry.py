@@ -25,6 +25,7 @@ import time
 from typing import Optional
 
 from . import knobs
+from .telemetry import metrics as tmetrics
 
 logger = logging.getLogger(__name__)
 
@@ -101,7 +102,8 @@ def sleep_backoff(attempt: int, cancel=None, **kwargs) -> None:
 
 def call_with_retries(fn, *, stage: str):
     """Run a blocking callable, retrying transient failures up to
-    ``TPUSNAP_IO_RETRIES`` times."""
+    ``TPUSNAP_IO_RETRIES`` times, each counted on
+    ``tpusnap_pipeline_retries_total{stage=...}``."""
     max_retries = knobs.get_io_retries()
     attempt = 0
     while True:
@@ -111,6 +113,7 @@ def call_with_retries(fn, *, stage: str):
             if attempt >= max_retries or not is_transient(e):
                 raise
             attempt += 1
+            tmetrics.record_pipeline_retry(stage)
             logger.warning(
                 "transient %s failure (attempt %d/%d): %r; retrying",
                 stage,

@@ -45,8 +45,12 @@ from concurrent.futures import Executor, ThreadPoolExecutor
 from typing import List, Optional
 
 from . import knobs, phase_stats, preemption, retry as retry_policy
+from .event import Event
+from .event_handlers import log_event
 from .io_types import ReadIO, ReadReq, ScatterBuffer, StoragePlugin, WriteIO, WriteReq
 from .pg_wrapper import PGWrapper
+from .telemetry import metrics as tmetrics
+from .telemetry import trace as ttrace
 from .utils.loops import call_outside_loop
 
 logger = logging.getLogger(__name__)
@@ -231,6 +235,13 @@ async def _with_retries(fn, what: str, path: str, rank: int, semaphore) -> None:
             if attempt >= max_retries or not retry_policy.is_transient(e):
                 raise
             attempt += 1
+            tmetrics.record_pipeline_retry(what)
+            log_event(
+                Event(
+                    name=f"scheduler.{what}_retry",
+                    metadata={"path": path, "attempt": attempt, "error": repr(e)},
+                )
+            )
             logger.warning(
                 "[rank %d] transient %s failure for %s (attempt %d/%d): %r; "
                 "retrying",
@@ -281,7 +292,8 @@ class PendingIOWork:
         begin = time.monotonic()
         try:
             if self._io_tasks:
-                self._loop.run_until_complete(self._drain())
+                with ttrace.span("io_drain", cat="scheduler", n_tasks=len(self._io_tasks)):
+                    self._loop.run_until_complete(self._drain())
         except BaseException:
             # Cancel and drain the rest, so the loop closes clean and the
             # staged host buffers are released.
@@ -296,6 +308,9 @@ class PendingIOWork:
         finally:
             self._executor.shutdown()
             self._loop.close()
+            # Drained or torn down: a scrape after the take sees an idle
+            # pipeline, not its last in-flight gauges.
+            tmetrics.record_scheduler_idle("write")
         elapsed = time.monotonic() - begin
         if elapsed > 0 and self.bytes_total:
             logger.debug(
@@ -378,6 +393,7 @@ async def execute_write_reqs(
             await _with_retries(
                 pipeline.write_buffer, "write", pipeline.write_req.path, rank, io_semaphore
             )
+            tmetrics.record_io_bytes("written", pipeline.buf_sz_bytes)
         finally:
             pipeline.release_after_io(budget)
 
@@ -397,6 +413,8 @@ async def execute_write_reqs(
             else:
                 break
 
+    staging_span = ttrace.span("write_staging", cat="scheduler", n_reqs=len(write_reqs))
+    staging_span.__enter__()
     try:
         dispatch_staging()
         while staging_tasks or ready_for_staging:
@@ -434,7 +452,9 @@ async def execute_write_reqs(
         for pipeline in io_tasks.values():
             pipeline.release_after_io(budget)
         executor.shutdown(wait=False)
+        tmetrics.record_scheduler_idle("write")
         raise
+    staging_span.__exit__(None, None, None)
     elapsed = time.monotonic() - begin
     if staged_bytes and elapsed > 0:
         logger.info(
@@ -563,6 +583,8 @@ async def execute_read_reqs(
             else:
                 break
 
+    read_span = ttrace.span("read_pipeline", cat="scheduler", n_reqs=len(read_reqs))
+    read_span.__enter__()
     try:
         dispatch_io()
         while io_tasks or consume_tasks:
@@ -584,8 +606,11 @@ async def execute_read_reqs(
                     task.result()  # raises on consume failure
                     budget.remaining += pipeline.consuming_cost
                     budget.inflight -= 1
+                    tmetrics.record_io_bytes("read", pipeline.consuming_cost)
             dispatch_io()
-    except BaseException:
+        read_span.__exit__(None, None, None)
+    except BaseException as e:
+        read_span.__exit__(type(e), e, e.__traceback__)
         for t in io_tasks | consume_tasks:
             if not t.done():
                 t.cancel()
@@ -595,6 +620,7 @@ async def execute_read_reqs(
         raise
     finally:
         executor.shutdown(wait=False)
+        tmetrics.record_scheduler_idle("read")
 
 
 def sync_execute_read_reqs(

@@ -94,7 +94,9 @@ from .scheduler import (
 )
 from .stateful import AppState, Stateful
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import metrics as tmetrics
 from .telemetry import sidecar as tsidecar
+from .telemetry import trace as ttrace
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +154,8 @@ class Snapshot:
         knobs.warn_unimplemented_knobs()
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
+        tmetrics.maybe_install_bridge()
+        trace_op = ttrace.begin_op("take", unique_id, pg.get_rank())
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": pg.get_rank(),
@@ -222,6 +226,7 @@ class Snapshot:
             event_metadata["duration_s"] = time.monotonic() - begin
             event_metadata["is_success"] = False
             log_event(Event(name="take.end", metadata=event_metadata))
+            ttrace.end_op(trace_op, success=False)
             raise
         finally:
             in_flight.finish()
@@ -240,6 +245,7 @@ class Snapshot:
             event_metadata["incremental_links"] = linked_payloads(storage) or 0
         event_metadata["is_success"] = True
         log_event(Event(name="take.end", metadata=event_metadata))
+        ttrace.end_op(trace_op, success=True)
         return snapshot
 
     @classmethod
@@ -273,6 +279,9 @@ class Snapshot:
         knobs.warn_unimplemented_knobs()
         pg = pg or PGWrapper.from_torch()
         unique_id = _gen_unique_id(pg)
+        tmetrics.maybe_install_bridge()
+        # Ended on the background thread, at the commit or its failure.
+        trace_op = ttrace.begin_op("async_take", unique_id, pg.get_rank())
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": pg.get_rank(),
@@ -306,6 +315,7 @@ class Snapshot:
             event_metadata["duration_s"] = time.monotonic() - begin
             event_metadata["is_success"] = False
             log_event(Event(name="async_take.end", metadata=event_metadata))
+            ttrace.end_op(trace_op, success=False)
             raise
         return PendingSnapshot(
             path=path,
@@ -320,6 +330,7 @@ class Snapshot:
             manifest_transform=manifest_transform,
             phases_before=phases_before,
             rss=rss,
+            trace_op=trace_op,
         )
 
     @staticmethod
@@ -368,14 +379,16 @@ class Snapshot:
         flattened: Dict[str, Any] = {}
         # _gather_keys checked that every rank has every key, so nothing in
         # the per-key barrier loop below can diverge across ranks.
-        for key in cls._gather_keys(app_state, pg):
-            # A state_dict() may itself run collectives: one key at a time.
-            key_manifest, key_flattened = flatten(
-                app_state[key].state_dict(), prefix=key
-            )
-            manifest.update(key_manifest)
-            flattened.update(key_flattened)
-            pg.barrier()
+        global_keys = cls._gather_keys(app_state, pg)
+        with ttrace.span("flatten", n_keys=len(global_keys)):
+            for key in global_keys:
+                # A state_dict() may itself run collectives: one key at a time.
+                key_manifest, key_flattened = flatten(
+                    app_state[key].state_dict(), prefix=key
+                )
+                manifest.update(key_manifest)
+                flattened.update(key_flattened)
+                pg.barrier()
         if rng_state_item is not None:
             key, stateful = rng_state_item
             key_manifest, key_flattened = flatten(stateful.state_dict(), prefix=key)
@@ -393,17 +406,19 @@ class Snapshot:
         # at staging in an async take), then dedup across ranks.
         entries: Manifest = dict(manifest)
         write_reqs: List[WriteReq] = []
-        for logical_path, obj in flattened.items():
-            entry, obj_write_reqs = io_preparer.prepare_write(
-                obj=obj,
-                logical_path=logical_path,
-                rank=rank,
-                replicated=logical_path in replicated_paths,
-                is_async_snapshot=is_async_snapshot,
-            )
-            entries[logical_path] = entry
-            write_reqs += obj_write_reqs
-        entries, write_reqs = partition_write_reqs(entries, write_reqs, pg)
+        with ttrace.span("plan", n_leaves=len(flattened)):
+            for logical_path, obj in flattened.items():
+                entry, obj_write_reqs = io_preparer.prepare_write(
+                    obj=obj,
+                    logical_path=logical_path,
+                    rank=rank,
+                    replicated=logical_path in replicated_paths,
+                    is_async_snapshot=is_async_snapshot,
+                )
+                entries[logical_path] = entry
+                write_reqs += obj_write_reqs
+        with ttrace.span("partition", n_write_reqs=len(write_reqs)):
+            entries, write_reqs = partition_write_reqs(entries, write_reqs, pg)
 
         # Async takes copy what this rank writes (on the card, into pinned
         # host memory, or on the host for CPU values) so that async_take
@@ -429,9 +444,10 @@ class Snapshot:
             sources = {str(i): st.source for i, st in enumerate(stagers)}  # type: ignore[attr-defined]
             if staging_mode != "host":
                 try:
-                    staged, staging_stats = device_staging.stage_app_state(
-                        sources, staging_mode
-                    )
+                    with ttrace.span("device_stage", mode=staging_mode):
+                        staged, staging_stats = device_staging.stage_app_state(
+                            sources, staging_mode
+                        )
                 except Exception as staging_exc:  # noqa: BLE001 — evented
                     logger.warning(
                         "Device-side async staging failed; falling back to host "
@@ -459,6 +475,7 @@ class Snapshot:
             entries, write_reqs = batch_write_requests(
                 entries, write_reqs, scatter_ok=storage.supports_scatter
             )
+        tmetrics.record_entries("take", len(entries))
         memory_budget_bytes = get_process_memory_budget_bytes(pg)
         if not is_async_snapshot:
             pending = sync_execute_write_reqs(
@@ -509,6 +526,8 @@ class Snapshot:
         pg = self._pg
         rank = pg.get_rank()
         unique_id = _gen_unique_id(pg)
+        tmetrics.maybe_install_bridge()
+        trace_op = ttrace.begin_op("restore", unique_id, rank)
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": rank,
@@ -529,14 +548,15 @@ class Snapshot:
                 global_keys = self._gather_keys(app_state, pg)
                 memory_budget_bytes = get_process_memory_budget_bytes(pg)
                 for key in global_keys:
-                    self._load_stateful(
-                        stateful_key=key,
-                        stateful=app_state[key],
-                        metadata=metadata,
-                        storage=storage,
-                        memory_budget_bytes=memory_budget_bytes,
-                        strict=strict,
-                    )
+                    with ttrace.span("load_stateful", key=key):
+                        self._load_stateful(
+                            stateful_key=key,
+                            stateful=app_state[key],
+                            metadata=metadata,
+                            storage=storage,
+                            memory_budget_bytes=memory_budget_bytes,
+                            strict=strict,
+                        )
                     pg.barrier()
                 # RNG restored last so nothing later perturbs it.
                 if rng_state_item is not None:
@@ -555,12 +575,18 @@ class Snapshot:
             event_metadata["duration_s"] = time.monotonic() - begin
             event_metadata["is_success"] = False
             log_event(Event(name="restore.end", metadata=event_metadata))
+            ttrace.end_op(trace_op, success=False)
             raise
         finally:
             release_op_lease(lease)
         event_metadata["duration_s"] = time.monotonic() - begin
+        # As the JAX package counts them: the bytes of the busiest phase.
+        event_metadata["bytes"] = int(
+            max((v.get("bytes", 0) for v in phase_stats.delta(phases_before).values()), default=0)
+        )
         event_metadata["is_success"] = True
         log_event(Event(name="restore.end", metadata=event_metadata))
+        ttrace.end_op(trace_op, success=True)
 
     def _load_stateful(
         self,
@@ -587,6 +613,7 @@ class Snapshot:
                 "No entries for stateful %r in snapshot (rank %d)", stateful_key, rank
             )
             return
+        tmetrics.record_entries("restore", len(sub_manifest))
         resolved, container_entries = _read_entries(
             sub_manifest,
             targets=target_flattened,
@@ -619,8 +646,11 @@ class Snapshot:
         bounds the read buffers (large dense tensors read in tiles under
         it)."""
         knobs.warn_unimplemented_knobs()
+        unique_id = uuid.uuid4().hex
+        tmetrics.maybe_install_bridge()
+        trace_op = ttrace.begin_op("read_object", unique_id, self._pg.get_rank())
         event_metadata: Dict[str, Any] = {
-            "unique_id": uuid.uuid4().hex,
+            "unique_id": unique_id,
             "rank": self._pg.get_rank(),
             "action": "read_object",
         }
@@ -658,10 +688,14 @@ class Snapshot:
             event_metadata["duration_s"] = time.monotonic() - begin
             event_metadata["is_success"] = False
             log_event(Event(name="read_object.end", metadata=event_metadata))
+            ttrace.end_op(trace_op, success=False)
             raise
         event_metadata["duration_s"] = time.monotonic() - begin
+        if isinstance(value, (torch.Tensor, np.ndarray)):
+            event_metadata["bytes"] = int(value.nbytes)
         event_metadata["is_success"] = True
         log_event(Event(name="read_object.end", metadata=event_metadata))
+        ttrace.end_op(trace_op, success=True)
         return value
 
     def get_manifest(self) -> Dict[str, Entry]:
@@ -778,6 +812,8 @@ class Snapshot:
             if storage.sync_exists(SNAPSHOT_METADATA_FNAME):
                 return
             storage.sync_delete_dir("")
+            tmetrics.record_gc("take_cleanup")
+            log_event(Event(name=f"{action}.cleanup", metadata={"rank": pg.get_rank(), "action": action}))
             logger.warning("%s failed before commit; removed its partial snapshot", action)
         except Exception:  # noqa: BLE001 — never mask the take's error
             logger.warning(
@@ -1028,8 +1064,10 @@ class PendingSnapshot:
         manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
         phases_before: Optional[Dict[str, Dict[str, float]]] = None,
         rss: Optional[RSSWatermark] = None,
+        trace_op: Optional[Any] = None,
     ) -> None:
         self.path = path
+        self._trace_op = trace_op
         self._storage_options = storage_options
         self._manifest_transform = manifest_transform
         self._phases_before = phases_before or {}
@@ -1115,6 +1153,7 @@ class PendingSnapshot:
                     metadata=self._end_event_metadata(is_success=True),
                 )
             )
+            ttrace.end_op(self._trace_op, success=True)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             self.exception = e
             if barrier is not None and not isinstance(e, StorePeerError):
@@ -1135,6 +1174,7 @@ class PendingSnapshot:
                     metadata=self._end_event_metadata(is_success=False),
                 )
             )
+            ttrace.end_op(self._trace_op, success=False)
         finally:
             # Terminal either way: stop refreshing the liveness lease.
             release_op_lease(self._lease)
@@ -1331,18 +1371,20 @@ def _read_entries(
     read_reqs: List[ReadReq] = []
     futures: Dict[str, Future] = {}
     container_entries: Manifest = {}
-    for path, entry in sub_manifest.items():
-        if is_container_entry(entry):
-            container_entries[path] = entry
-            continue
-        entry_read_reqs, fut = io_preparer.prepare_read(
-            entry, targets.get(path), h2d_batch=h2d_batch, device=device
-        )
-        read_reqs += entry_read_reqs
-        futures[path] = fut
+    with ttrace.span("plan_read", n_entries=len(sub_manifest)):
+        for path, entry in sub_manifest.items():
+            if is_container_entry(entry):
+                container_entries[path] = entry
+                continue
+            entry_read_reqs, fut = io_preparer.prepare_read(
+                entry, targets.get(path), h2d_batch=h2d_batch, device=device
+            )
+            read_reqs += entry_read_reqs
+            futures[path] = fut
+        read_reqs = batch_read_requests(read_reqs)
     try:
         sync_execute_read_reqs(
-            read_reqs=batch_read_requests(read_reqs),
+            read_reqs=read_reqs,
             storage=storage,
             memory_budget_bytes=memory_budget_bytes,
             rank=rank,
@@ -1350,7 +1392,8 @@ def _read_entries(
     finally:
         # Even after a failed read, no copy may still be in flight into a
         # target or out of a pinned buffer when this returns.
-        h2d_batch.drain()
+        with ttrace.span("h2d_drain"):
+            h2d_batch.drain()
     return {path: fut.obj for path, fut in futures.items()}, container_entries
 
 

@@ -58,6 +58,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from .. import knobs, phase_stats, retry
+from ..telemetry import metrics as tmetrics
 from ..io_types import ReadIO, StoragePlugin, WriteIO, contiguous
 
 logger = logging.getLogger(__name__)
@@ -110,6 +111,7 @@ class _SharedDeadlineRetryStrategy:
             self._attempts += 1
             self.retries += 1
             attempts = self._attempts
+        tmetrics.record_retry("gcs")
         # Base 2 s capped at 32 s: the JAX package's ramp (±50% jitter);
         # TPUSNAP_RETRY_BASE_S overrides the base.
         backoff = retry.backoff_s(attempts, base_s=2.0, cap_s=32.0)

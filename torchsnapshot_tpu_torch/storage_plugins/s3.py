@@ -57,6 +57,7 @@ from xml.etree import ElementTree
 import numpy as np
 
 from .. import knobs, phase_stats, retry
+from ..telemetry import metrics as tmetrics
 from ..io_types import ReadIO, StoragePlugin, WriteIO, contiguous
 
 _IO_THREADS = 16
@@ -248,6 +249,7 @@ class S3StoragePlugin(StoragePlugin):
     def _backoff(self, attempt: int, cancel=None) -> None:
         with self._conns_lock:
             self.retries += 1
+        tmetrics.record_retry("s3")
         retry.sleep_backoff(attempt, cancel=cancel, base_s=_BACKOFF_BASE_S, cap_s=_BACKOFF_CAP_S)
 
     def _request(self, method: str, target: str, body=None, headers: Optional[Dict[str, str]] = None) -> _Response:

@@ -41,9 +41,11 @@ orphan.  Three mechanisms close every window:
    stamp age, valid across hosts, so a kill -9 anywhere leaves state any
    surviving tenant adopts after the grace.
 
-Not in this package yet: the flight-recorder records of the leases and the
-metrics (``record_gc``, ``publish_usage_metrics``); the sweep's
-``store.sweep`` event is logged as in the JAX package.
+Each condemned, restored, deleted and resurrected chunk counts on
+``tpusnap_gc_actions_total`` and the sweep's ``store.sweep`` event is
+logged, as in the JAX package; :func:`publish_usage_metrics` exports a
+:func:`tenant_usage` report.  Not in this package yet: the flight-recorder
+records of the leases.
 """
 
 from __future__ import annotations
@@ -653,6 +655,7 @@ def _sweep_locked(
             if _copy_chunk(storage, chunk_rel, quarantine_relpath(epoch, chunk_rel)):
                 storage.sync_delete(chunk_rel)
                 report["condemned"].append(chunk_rel)
+                _record_gc("chunk_condemned")
         lease.update("delete")
         _delete_phase(storage, report, force=force)
         report["ledgers_reaped"] = _reap_expired_ledgers(storage)
@@ -701,10 +704,12 @@ def _delete_phase(storage: StoragePlugin, report: Dict[str, Any], force: bool = 
                     if not _copy_chunk(storage, qpath, chunk_rel):
                         continue
                     report["restored"].append(chunk_rel)
+                    _record_gc("chunk_restored")
                 storage.sync_delete(qpath)
             else:
                 storage.sync_delete(qpath)
                 report["deleted"].append(chunk_rel)
+                _record_gc("chunk_removed")
         try:
             storage.sync_delete(f"{QUARANTINE_DIR}/{epoch}/{CONDEMNED_FNAME}")
         except Exception:  # noqa: BLE001 — a drained epoch left is harmless
@@ -732,6 +737,15 @@ def _reap_expired_ledgers(storage: StoragePlugin) -> int:
         except Exception:  # noqa: BLE001 — reaped by a later sweep
             pass
     return reaped
+
+
+def _record_gc(kind: str) -> None:
+    try:
+        from .telemetry import metrics as tmetrics
+
+        tmetrics.record_gc(kind)
+    except Exception:  # noqa: BLE001 — a metric never fails a sweep
+        pass
 
 
 def _emit_sweep_event(report: Dict[str, Any]) -> None:
@@ -857,6 +871,16 @@ def tenant_usage(store_url: str, storage_options: Optional[Dict[str, Any]] = Non
     }
 
 
+def publish_usage_metrics(usage: Dict[str, Any]) -> None:
+    """Export a :func:`tenant_usage` report through the metrics registry:
+    per tenant and ``_total``, logical and physical bytes."""
+    from .telemetry import metrics as tmetrics
+
+    for tid, doc in usage.get("tenants", {}).items():
+        tmetrics.record_store_usage(tid, doc["logical_bytes"], doc["exclusive_bytes"])
+    tmetrics.record_store_totals(usage.get("logical_bytes", 0), usage.get("physical_bytes", 0))
+
+
 # ---------------------------------------------------------------- resolver
 
 
@@ -899,6 +923,7 @@ class StoreResolver(StoragePlugin):
                 read_io = ReadIO(path=qpath)
                 await self._inner.read(read_io)
                 await self._inner.write(WriteIO(path=path, buf=read_io.buf, durable=True))
+                _record_gc("chunk_resurrected")
                 logger.info("resurrected condemned chunk %s from quarantine epoch %s", path, name)
                 return True
             except Exception:  # noqa: BLE001 — try the next epoch
