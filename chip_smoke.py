@@ -88,6 +88,30 @@ calls, in phases that each print one JSON line:
                 the state's bytes, the forced mode, and no
                 ``async_take.staging_downgrade`` event; it reports the RSS
                 high-water mark and pinned host bytes
+   monitor_async_take — the health monitor and the flight recorder: an
+                ``async_take`` (pinned_host) with ``TPUSNAP_STALL_TIMEOUT_S=60``,
+                ``TPUSNAP_PROGRESS_INTERVAL_S=1``, ``TPUSNAP_HEARTBEAT_FILE``,
+                ``TPUSNAP_BLACKBOX`` and ``TPUSNAP_METRICS`` set, ``progress()``
+                polled every 0.25 s until the commit: staged and written bytes
+                never fall and end at ``async_take.end``'s bytes, done and
+                successful, the heartbeat parsed at least twice mid-drain and
+                ending ``done``, no ``watchdog.stall``, the ring holding the
+                op's start and end and a progress record, the sidecar's RSS
+                high water above 0; its wall beside ``async_pinned_host`` run 2
+                and the recorder's calibrated cost per record
+   monitor_restore — the in-place restore under the same knobs: bit-exact,
+                no stall, the ring holding its start and end
+   monitor_stall — a take of one 256 MiB tensor on the card with
+                ``TPUSNAP_FAULTS=write:1:latency:3`` and a 0.5 s stall
+                timeout: a ``watchdog.stall`` with ``idle_s`` >= 0.5, a bundle
+                with its four sections, ``tpusnap_stalls_total`` >= 1; the take
+                commits and restores bit-exact
+   monitor_crash — a spawned process builds the 8-layer cut of the same
+                widths on the card and takes it with
+                ``TPUSNAP_FAULTS=write:3:crash`` and ``TPUSNAP_BLACKBOX``: it
+                exits 1, and its ring (read with the port's
+                ``blackbox.read_all``) names ``take.start``, the ``crash``
+                fault (op ``write``, its path, a phase) and no ``take.end``
    storage depth — each phase removes its directories before the next:
    compress_take / compress_restore — ``TPUSNAP_COMPRESSION=zstd``
                 (native libzstd; zlib, said so, where the machine has no
@@ -196,11 +220,12 @@ calls, in phases that each print one JSON line:
                 flipped byte of the replica is exactly one corrupt item in
                 ``integrity.audit`` (naming it) and ``ChecksumError`` from
                 ``restore``; the replica is then removed
-   replicate_s3 — fs to ``s3://smoke/replica`` (the fake S3 child; its
-                audit one GET per read), then within the bucket to
-                ``replica2``: one server-side copy per payload, only the
+   replicate_s3 — an fs take of the 8-layer cut (``CLOUD_LAYERS``, as
+                the S3 phases) copied to ``s3://smoke/replica`` (the fake S3
+                child; its audit one GET per read), then within the bucket
+                to ``replica2``: one server-side copy per payload, only the
                 marker PUT, bit-exact in-place restore (one GET per read);
-                needs host RAM for three times the state
+                needs host RAM for three times the cut
    shared store — two tenant roots A and B, each
                 ``SnapshotManager(root, store=S, max_to_keep=1)``, on one
                 store S; S, A and B are removed at the end:
@@ -283,6 +308,7 @@ Any failure exits non-zero without that line.  Temporary files live in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -526,7 +552,7 @@ def async_phase(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nby
     shutil.rmtree(snap_path, ignore_errors=True)
     if not ok:
         raise RuntimeError(f"{label}: not bit-exact, wrong mode, a downgrade, or stage/d2h bytes differ")
-    return stall_s
+    return stall_s, total_s
 
 
 def copy_gbps(torch, dst, src, reps: int = 5) -> float:
@@ -1905,10 +1931,17 @@ def replicate_cas_chain_phase(torch, ts, phase_stats, app_state, ref, root, work
 
 def replicate_phases(torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir, n_layers):
     src = replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir)
+    shutil.rmtree(src)
+    # replicate_s3 on the 8-layer cut, as the other S3 phases: its rates are
+    # the Python fake's, not the port's.
+    cut_layers = min(CLOUD_LAYERS, n_layers)
+    cut_state, cut_ref, cut_nbytes = layer_cut(ts, app_state, ref, cut_layers)
+    cut_src = os.path.join(workdir, "replicate_cut_src")
+    ts.Snapshot.take(cut_src, cut_state)
     try:
-        replicate_s3_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, src, n_layers)
+        replicate_s3_phase(torch, ts, knobs, phase_stats, cut_state, cut_ref, cut_nbytes, cut_src, cut_layers)
     finally:
-        shutil.rmtree(src)
+        shutil.rmtree(cut_src)
 
 
 # ------------------------------------------------------ shared store phases
@@ -2680,6 +2713,246 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
     if not ok:
         raise RuntimeError("trace_take_restore: a trace file is invalid, the d2h spans miss state bytes, the metrics' "
                            "byte counters differ from the bytes written and read, or the restore is not bit-exact")
+
+
+# ---------------------------------------------------------- monitor phases
+#
+# The health monitor and the flight recorder (telemetry/monitor.py,
+# telemetry/blackbox.py): the full state's async take and restore under
+# the watchdog, the heartbeat, the recorder and the metrics; a stall
+# injected into a small take; a crash injected into a spawned process's
+# take.  Each phase removes its directories.
+
+MONITOR_STALL_TIMEOUT_S = 60  # above the async commit's 5.4-8.9 s fsync (PERF.md §7)
+MONITOR_PROGRESS_INTERVAL_S = 1
+MONITOR_POLL_S = 0.25
+STALL_ELEMS = 64 << 20  # one float32 tensor of 256 MiB
+STALL_TIMEOUT_S = 0.5
+STALL_LATENCY_S = 3
+CRASH_LAYERS = 8
+CRASH_FAULT = "write:3:crash"
+CRASH_TIMEOUT_S = 300
+BUNDLE_SECTIONS = ("progress", "pipeline states", "pending asyncio tasks", "thread stacks (faulthandler)")
+
+
+def monitor_knobs(knobs, stack, heartbeat, blackbox_dir, stall_timeout_s=MONITOR_STALL_TIMEOUT_S):
+    """Enter the monitored phases' knobs on ``stack``."""
+    for cm in (knobs.override_stall_timeout_s(stall_timeout_s),
+               knobs.override_progress_interval_s(MONITOR_PROGRESS_INTERVAL_S),
+               knobs.override_heartbeat_file(heartbeat), knobs.override_blackbox_dir(blackbox_dir),
+               knobs.override_metrics(True)):
+        stack.enter_context(cm)
+
+
+def read_heartbeat(path):
+    """The heartbeat document, or None before its first write (it is
+    replaced atomically, so a read sees one whole version)."""
+    try:
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+def ring_records(blackbox, directory):
+    """{pid: records} of the rings under ``directory``."""
+    return {recs[0]["pid"]: recs for recs in blackbox.read_all(directory).values() if recs}
+
+
+def op_names(records):
+    return [r["name"] for r in records if r["kind"] == "op"]
+
+
+def bundle_sections(path):
+    with open(path, encoding="utf-8") as f:
+        return [line[4:-4] for line in f.read().splitlines() if line.startswith("--- ") and line.endswith(" ---")]
+
+
+def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir,
+                             unmonitored_total_s):
+    """monitor_async_take / monitor_restore: the state's pinned_host async
+    take with the watchdog (60 s), a 1 s progress interval, the heartbeat,
+    the recorder and the metrics on, ``progress()`` polled every 0.25 s
+    until the commit; then the in-place restore under the same knobs."""
+    from torchsnapshot_tpu_torch.telemetry import blackbox, metrics
+
+    snap_path = os.path.join(workdir, "monitor_snap")
+    heartbeat = os.path.join(workdir, "monitor_heartbeat.json")
+    bb_dir = os.path.join(workdir, "monitor_blackbox")
+    metrics.reset()
+    n_events = len(events)
+    samples, mid_drain = [], set()
+    with contextlib.ExitStack() as stack:
+        monitor_knobs(knobs, stack, heartbeat, bb_dir)
+        device_sync(torch)
+        begin = time.monotonic()
+        with knobs.override_async_staging("pinned_host"):
+            pending = ts.Snapshot.async_take(snap_path, app_state)
+        stall_s = time.monotonic() - begin
+        while not pending.done():
+            doc = pending.progress()
+            samples.append((doc["bytes"]["staged"], doc["bytes"]["written"]))
+            hb = read_heartbeat(heartbeat)
+            if hb is not None and not hb["done"]:
+                mid_drain.add(hb["heartbeat_time"])
+            time.sleep(MONITOR_POLL_S)
+        pending.wait()
+        total_s = time.monotonic() - begin
+        final = pending.progress()
+        samples.append((final["bytes"]["staged"], final["bytes"]["written"]))
+        terminal = read_heartbeat(heartbeat)
+        take_events = events[n_events:]
+        n_events = len(events)
+        seconds, mismatched, moved, _ = restore_check(torch, ts, snap_path, app_state, ref, phase_stats)
+        restore_events = events[n_events:]
+        stalls_total = int(metrics.counter("tpusnap_stalls_total").get(action="async_take")
+                           + metrics.counter("tpusnap_stalls_total").get(action="restore"))
+        cost = blackbox.calibrated_overhead_s()
+    rings = ring_records(blackbox, bb_dir)
+    records = rings.get(os.getpid(), [])
+    progress_records = [r for r in records if r["kind"] == "progress"]
+    take_end = [e.metadata for e in take_events if e.name == "async_take.end"][-1]
+    sidecars = [json.load(open(p)) for p in sorted(
+        os.path.join(snap_path, "telemetry", n) for n in os.listdir(os.path.join(snap_path, "telemetry"))
+        if n.startswith("async_take-"))]
+    monotone = all(a[0] <= b[0] and a[1] <= b[1] for a, b in zip(samples, samples[1:]))
+    take_stalls = [e.metadata for e in take_events if e.name == "watchdog.stall"]
+    ok = (monotone and final["bytes"]["written"] == take_end["bytes"] and final["done"] is True
+          and final["success"] is True and len(mid_drain) >= 2 and terminal is not None and terminal["done"] is True
+          and not take_stalls and final["stalls"] == 0
+          and {"async_take.start", "async_take.end"} <= set(op_names(records)) and progress_records
+          and len(sidecars) == 1 and sidecars[0]["rss_high_water_bytes"] > 0)
+    emit({"phase": "monitor_async_take", "ok": ok, "stall_s": round(stall_s, 4), "total_s": round(total_s, 3),
+          "unmonitored_total_s": round(unmonitored_total_s, 3), "state_bytes": nbytes,
+          "polls": len(samples), "monotone": monotone, "bytes_staged": final["bytes"]["staged"],
+          "bytes_written": final["bytes"]["written"], "take_end_bytes": take_end["bytes"],
+          "requests": final["requests"], "heartbeats_mid_drain": len(mid_drain),
+          "terminal_heartbeat_done": terminal is not None and terminal["done"], "watchdog_stalls": len(take_stalls),
+          "ring_records": len(records), "ring_progress_records": len(progress_records),
+          "ring_op_records": op_names(records), "rings": len(rings),
+          "blackbox_per_record_s": cost["per_record_s"],
+          "rss_high_water_bytes": sidecars[0]["rss_high_water_bytes"] if sidecars else None})
+    if not ok:
+        raise RuntimeError("monitor_async_take: progress not monotone or not ending at async_take.end's bytes, fewer "
+                           "than two heartbeats mid-drain, a stall, a ring without the op or progress records, or no "
+                           "RSS high water in the sidecar")
+    restore_stalls = [e.metadata for e in restore_events if e.name == "watchdog.stall"]
+    ok = (not mismatched and not moved and not restore_stalls and stalls_total == 0
+          and {"restore.start", "restore.end"} <= set(op_names(records)))
+    emit({"phase": "monitor_restore", "ok": ok, "restore_s": round(seconds, 3), "state_bytes": nbytes,
+          "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
+          "watchdog_stalls": len(restore_stalls), "stalls_total": stalls_total,
+          "ring_op_records": op_names(records)})
+    metrics.reset()
+    for path in (snap_path, bb_dir, heartbeat):
+        (shutil.rmtree if os.path.isdir(path) else os.unlink)(path)
+    if not ok:
+        raise RuntimeError("monitor_restore: not bit-exact in place, a false stall, or no restore op records")
+
+
+def monitor_stall_phase(torch, ts, knobs, events, workdir, seed):
+    """monitor_stall: a take of one 256 MiB tensor on the card whose first
+    write is held 3 s (``TPUSNAP_FAULTS=write:1:latency:3``) under a 0.5 s
+    stall timeout: a ``watchdog.stall`` with ``idle_s`` >= the timeout, a
+    bundle with its four sections, ``tpusnap_stalls_total`` >= 1; the take
+    commits and restores bit-exact."""
+    from torchsnapshot_tpu_torch.telemetry import metrics
+
+    snap_path = os.path.join(workdir, "stall_snap")
+    trace_dir = os.path.join(workdir, "stall_traces")
+    w = torch.randn(STALL_ELEMS, generator=torch.Generator(device=DEV).manual_seed(seed + 3), device=DEV)
+    metrics.reset()
+    n_events = len(events)
+    with knobs.override_stall_timeout_s(STALL_TIMEOUT_S), knobs.override_metrics(True), knobs.override_trace_dir(
+        trace_dir
+    ), knobs.override_faults(f"write:1:latency:{STALL_LATENCY_S}"):
+        device_sync(torch)
+        begin = time.monotonic()
+        ts.Snapshot.take(snap_path, {"m": ts.StateDict({"w": w})})
+        take_s = time.monotonic() - begin
+        stalls_total = int(metrics.counter("tpusnap_stalls_total").get(action="take"))
+    stalls = [e.metadata for e in events[n_events:] if e.name == "watchdog.stall"]
+    sections = bundle_sections(stalls[0]["bundle"]) if stalls and stalls[0]["bundle"] else []
+    dst = torch.zeros_like(w)
+    ts.Snapshot(snap_path).restore({"m": ts.StateDict({"w": dst})})
+    device_sync(torch)
+    exact = bit_equal(torch, dst, w)
+    ok = (bool(stalls) and stalls[0]["idle_s"] >= STALL_TIMEOUT_S and list(BUNDLE_SECTIONS) == sections
+          and stalls_total >= 1 and exact)
+    emit({"phase": "monitor_stall", "ok": ok, "bytes": STALL_ELEMS * 4, "take_s": round(take_s, 3),
+          "stall_timeout_s": STALL_TIMEOUT_S, "latency_s": STALL_LATENCY_S,
+          "idle_s": [s["idle_s"] for s in stalls], "detection_latency_s": (
+              round(stalls[0]["idle_s"] - STALL_TIMEOUT_S, 3) if stalls else None),
+          "bundle_sections": sections, "stalls_total": stalls_total, "bit_exact": exact})
+    metrics.reset()
+    for path in (snap_path, trace_dir):
+        shutil.rmtree(path)
+    if not ok:
+        raise RuntimeError("monitor_stall: the injected stall was not detected with its bundle and counter, or the "
+                           "take did not restore bit-exact")
+
+
+def crash_worker_entry(snap, knob_env, seed, n_layers) -> None:
+    """A spawned process on the card: with ``knob_env`` set, take the seeded
+    parameter set at ``n_layers``; the crash fault ends the process with
+    exit code 1 mid-take (a take that completes exits 0)."""
+    os.environ.update(knob_env)
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    sys.path.insert(0, HERE)
+    import torchsnapshot_tpu_torch as ts
+
+    params = seeded_params(torch, n_layers, seed)
+    device_sync(torch)
+    ts.Snapshot.take(snap, {"model": ts.StateDict(params)})
+
+
+def monitor_crash_phase(workdir, seed, n_layers):
+    """monitor_crash: a spawned process takes the 8-layer cut of the same
+    widths with ``TPUSNAP_FAULTS=write:3:crash`` and ``TPUSNAP_BLACKBOX``: it
+    exits 1, and its ring, read here with the port's ``blackbox.read_all``,
+    names ``take.start``, the ``crash`` fault (op ``write``, its path, a
+    phase) and no ``take.end``."""
+    import torch.multiprocessing as tmp
+
+    from torchsnapshot_tpu_torch.telemetry import blackbox
+
+    snap_path = os.path.join(workdir, "crash_snap")
+    bb_dir = os.path.join(workdir, "crash_blackbox")
+    knob_env = {"TPUSNAP_FAULTS": CRASH_FAULT, "TPUSNAP_BLACKBOX": bb_dir}
+    ctx = tmp.get_context("spawn")
+    begin = time.monotonic()
+    proc = ctx.Process(target=crash_worker_entry, args=(snap_path, knob_env, seed, n_layers))
+    proc.start()
+    proc.join(CRASH_TIMEOUT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    wall = time.monotonic() - begin
+    records = ring_records(blackbox, bb_dir).get(proc.pid, [])
+    ops = op_names(records)
+    faults = [r for r in records if r["kind"] == "fault"]
+    crash = faults[0]["data"] if faults and faults[0]["name"] == "crash" else {}
+    ok = (proc.exitcode == 1 and "take.start" in ops and "take.end" not in ops and crash.get("op") == "write"
+          and bool(crash.get("path")) and bool(crash.get("phase")))
+    emit({"phase": "monitor_crash", "ok": ok, "n_layers": n_layers, "depth_cut": n_layers != N_LAYERS,
+          "fault": CRASH_FAULT, "exit_code": proc.exitcode, "wall_s": round(wall, 3), "ring_pid": proc.pid,
+          "ring_records": len(records), "ring_op_records": ops, "crash": crash,
+          "last_records": [[r["kind"], r["name"]] for r in records[-6:]]})
+    for path in (snap_path, bb_dir):
+        shutil.rmtree(path, ignore_errors=True)
+    if not ok:
+        raise RuntimeError("monitor_crash: the child did not die on the crash fault, or its ring does not name the "
+                           "open take and the fault")
+
+
+def monitor_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args, unmonitored_total_s):
+    monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir,
+                             unmonitored_total_s)
+    monitor_stall_phase(torch, ts, knobs, events, args.workdir, args.seed)
+    monitor_crash_phase(args.workdir, args.seed, min(CRASH_LAYERS, args.n_layers))
 
 
 # --------------------------------------------------- host data plane phases
@@ -3611,13 +3884,16 @@ def run(args) -> int:
             for _ in range(2)]
     training_steps(torch, mats, 2, device_sync=True)  # warm-up
     common = (torch, ts, knobs, phase_stats, RSSWatermark, app_state, ref, nbytes, mats, events, args.workdir)
-    stalls = [async_phase(*common, "async_pinned_host", "auto", "pinned_host", run=1),
-              async_phase(*common, "async_pinned_host", "pinned_host", "pinned_host", run=2)]
-    emit({"phase": "async_pinned_host_stalls", "ok": True, "first_stall_s": round(stalls[0], 4),
-          "second_stall_s": round(stalls[1], 4)})
+    runs = [async_phase(*common, "async_pinned_host", "auto", "pinned_host", run=1),
+            async_phase(*common, "async_pinned_host", "pinned_host", "pinned_host", run=2)]
+    emit({"phase": "async_pinned_host_stalls", "ok": True, "first_stall_s": round(runs[0][0], 4),
+          "second_stall_s": round(runs[1][0], 4)})
     async_phase(*common, "async_device", "device", "device")
     async_phase(*common, "async_host", "host", "host")
     del mats
+    # The health monitor and the flight recorder; the monitored async take
+    # beside the unmonitored pinned_host run 2.
+    monitor_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args, runs[1][1])
     storage_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     manager_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir)
     cut = cloud_cut_phase(torch, ts, knobs, phase_stats, app_state, ref, events, args.workdir, n_layers)

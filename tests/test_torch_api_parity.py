@@ -105,7 +105,7 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     assert meaningless == {"TPUSNAP_D2H_BITCAST", "TPUSNAP_H2D_BITCAST"}
     assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS", "TPUSNAP_CACHE_DIR", "TPUSNAP_CACHE_MAX_BYTES"} <= read
     assert set(PEER_KNOBS) <= read
-    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 13
+    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 6
     # Read since the telemetry slice (tracing, metrics, the daemon's server
     # tracer and access log) and the sharded-elasticity repair.
     assert {
@@ -117,7 +117,17 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
         "TPUSNAP_PEERD_ACCESS_LOG_MAX_BYTES",
         "TPUSNAP_ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY",
     } <= read
-    assert {"TPUSNAP_NATIVE", "TPUSNAP_PROGRESS_INTERVAL_S", "TPUSNAP_PROFILE"} <= unimplemented
+    # Read since the health monitor and flight-recorder slice.
+    assert {
+        "TPUSNAP_PROGRESS_INTERVAL_S",
+        "TPUSNAP_STALL_TIMEOUT_S",
+        "TPUSNAP_STALL_ESCALATE",
+        "TPUSNAP_HEARTBEAT_FILE",
+        "TPUSNAP_BLACKBOX",
+        "TPUSNAP_BLACKBOX_SLOTS",
+        "TPUSNAP_BLACKBOX_SLOT_BYTES",
+    } <= read
+    assert {"TPUSNAP_NATIVE", "TPUSNAP_PROFILE"} <= unimplemented
 
 
 # The peer tier's knobs, each with a value to set and its getter's name.

@@ -24,9 +24,8 @@ from torch_env import default_knob_env, no_leaked_threads  # noqa: F401  fixture
 pytestmark = pytest.mark.usefixtures("no_leaked_threads")
 
 # Events the bridge contract names whose emitters are modules the port does
-# not have yet: the watchdog, fleet telemetry, the flight recorder and the
-# postmortem analysis.
-UNPORTED_EMITTERS = {"watchdog.stall", "fleet.peer_stale", "blackbox.spill_error", "postmortem.report"}
+# not have yet: fleet telemetry and the postmortem analysis.
+UNPORTED_EMITTERS = {"fleet.peer_stale", "postmortem.report"}
 
 
 @pytest.fixture(autouse=True)

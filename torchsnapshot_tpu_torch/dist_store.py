@@ -33,6 +33,7 @@ import uuid
 from typing import Callable, Dict, Optional, Tuple
 
 from . import knobs, phase_stats
+from .telemetry import blackbox
 
 
 class StorePeerError(RuntimeError):
@@ -149,6 +150,7 @@ def acquire_op_lease(store: Optional["KVStore"], rank: int) -> Optional[OpLease]
             return lease
         lease = OpLease(store, rank, knobs.get_lease_interval_s())
         _OP_LEASES[id(store)] = lease
+    blackbox.record("lease", "op_lease.acquire", {"rank": rank})
     return lease
 
 
@@ -171,6 +173,7 @@ def release_op_lease(lease: Optional[OpLease]) -> None:
         if id(lease.store) in _OP_LEASES:
             return  # a successor lease owns the key now — its stamps rule
         lease.write_tombstone()
+    blackbox.record("lease", "op_lease.release", {"rank": lease._rank})
 
 
 def own_lease_start(store: Optional["KVStore"]) -> Optional[float]:
@@ -317,6 +320,13 @@ def wait_with_liveness(
             msg = (
                 f"rank {peer} presumed dead: liveness lease unrefreshed for "
                 f"{age:.1f}s (grace {grace:.1f}s) while waiting on {key}"
+            )
+            # Flight-recorder evidence: the survivor's verdict on which peer
+            # died and how stale its lease was.
+            blackbox.record(
+                "lease",
+                "peer_dead",
+                {"peer": peer, "age_s": round(age, 3), "rank": rank, "key": key},
             )
             if on_dead is not None:
                 try:

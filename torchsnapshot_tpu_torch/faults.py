@@ -368,6 +368,17 @@ class FaultyStoragePlugin(StoragePlugin):
             logger.warning(
                 "fault injected: CRASH at %s %s (os._exit)", op, path
             )
+            # Flight-recorder ground truth: the kill point (storage op,
+            # path, pipeline phase), spilled before dying.  The pwrite
+            # hands the bytes to the kernel, so the record survives
+            # os._exit; a postmortem names the death from it.
+            try:
+                from . import phase_stats
+                from .telemetry import blackbox
+
+                blackbox.record("fault", "crash", {"op": op, "path": path, "phase": phase_stats.last_phase()})
+            except Exception:  # noqa: BLE001 — the crash goes ahead regardless
+                pass
             import os
 
             os._exit(1)

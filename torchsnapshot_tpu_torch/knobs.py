@@ -24,12 +24,16 @@ So are the serving tier's: the host cache (``TPUSNAP_CACHE_DIR``,
 traces (``TPUSNAP_TRACE_DIR``), the metrics registry (``TPUSNAP_METRICS``),
 the peer daemon's server tracer (``TPUSNAP_PEER_TRACE_MAX_SPANS``,
 ``_FLUSH_S``) and access log (``TPUSNAP_PEERD_ACCESS_LOG``,
-``_MAX_BYTES``).
+``_MAX_BYTES``), the scheduler's progress table
+(``TPUSNAP_PROGRESS_INTERVAL_S``), the health monitor's stall watchdog
+(``TPUSNAP_STALL_TIMEOUT_S``, ``TPUSNAP_STALL_ESCALATE``) and heartbeat
+(``TPUSNAP_HEARTBEAT_FILE``), and the flight recorder
+(``TPUSNAP_BLACKBOX``, ``_SLOTS``, ``_SLOT_BYTES``).
 
 Every other knob of the JAX package is named here too, so that none is
 ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
-this package does not have yet (the progress reporter, the watchdog, the
-flight recorder, the profiler, fleet telemetry), and ``TPUSNAP_NATIVE``, whose ``0``
+this package does not have yet (the profiler, fleet telemetry), and
+``TPUSNAP_NATIVE``, whose ``0``
 selects the JAX package's pure-Python data plane (this package requires
 its native library): :func:`warn_unimplemented_knobs` warns once per
 process for each one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
@@ -140,16 +144,9 @@ PROFILE_HZ_ENV_VAR = _ENV_PREFIX + "PROFILE_HZ"
 # lands), and there is no pure-Python data plane to switch to.
 UNIMPLEMENTED_KNOBS = (
     NATIVE_ENV_VAR,
-    PROGRESS_INTERVAL_S_ENV_VAR,
-    STALL_TIMEOUT_S_ENV_VAR,
-    STALL_ESCALATE_ENV_VAR,
-    HEARTBEAT_FILE_ENV_VAR,
     FLEET_TELEMETRY_ENV_VAR,
     FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
     FLEET_TELEMETRY_STALE_S_ENV_VAR,
-    BLACKBOX_DIR_ENV_VAR,
-    BLACKBOX_SLOTS_ENV_VAR,
-    BLACKBOX_SLOT_BYTES_ENV_VAR,
     PROFILE_DIR_ENV_VAR,
     PROFILE_HZ_ENV_VAR,
 )
@@ -216,6 +213,11 @@ _DEFAULT_PEER_TRACE_MAX_SPANS = 10000
 _DEFAULT_PEER_TRACE_FLUSH_S = 5.0
 # The daemon's access log rotates to ``<path>.1`` past this size.
 _DEFAULT_PEERD_ACCESS_LOG_MAX_BYTES = 16 * 1024 * 1024
+# Seconds between the scheduler's progress-table lines.
+_DEFAULT_PROGRESS_INTERVAL_S = 5.0
+# Flight-recorder ring geometry: 512 slots of 512 bytes (256 KiB a process).
+_DEFAULT_BLACKBOX_SLOTS = 512
+_DEFAULT_BLACKBOX_SLOT_BYTES = 512
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 # Smallest object-store read that fans out across concurrent ranged GETs
@@ -534,6 +536,61 @@ def is_sharded_elasticity_root_only_enabled() -> bool:
     only when every merged sharded entry sits directly under an app-state
     key (``key/name``); nested ones leave the manifest as it is."""
     return _get_flag_env(ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR, "0")
+
+
+def get_progress_interval_s() -> float:
+    """Seconds between the scheduler's progress-table log lines (the
+    per-rank pipeline-state counts, RSS growth and budget); 0 disables the
+    table.  The progress gauges refresh every loop turn regardless."""
+    val = os.environ.get(PROGRESS_INTERVAL_S_ENV_VAR)
+    return float(val) if val is not None else _DEFAULT_PROGRESS_INTERVAL_S
+
+
+def get_stall_timeout_s() -> float:
+    """Seconds of zero pipeline progress before the health monitor
+    (``telemetry/monitor.py``) declares a take, async take or restore
+    stalled: it writes a diagnostic bundle, emits ``watchdog.stall`` and,
+    with ``TPUSNAP_STALL_ESCALATE=1``, reports the stall through the commit
+    barrier's store.  0 (the default) starts no watchdog thread."""
+    val = os.environ.get(STALL_TIMEOUT_S_ENV_VAR)
+    return float(val) if val is not None else 0.0
+
+
+def stall_escalate_enabled() -> bool:
+    """Whether a detected stall wakes the peers blocked in the async commit
+    barrier as ``StorePeerError`` instead of leaving them to
+    ``TPUSNAP_BARRIER_TIMEOUT_S``.  Off by default: the watchdog only
+    diagnoses."""
+    return _get_flag_env(STALL_ESCALATE_ENV_VAR, "0")
+
+
+def get_heartbeat_file() -> Optional[str]:
+    """File the health monitor rewrites atomically with the progress
+    snapshot every tick, for supervisors outside the process; None (the
+    default) disables it."""
+    val = os.environ.get(HEARTBEAT_FILE_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_blackbox_dir() -> Optional[str]:
+    """Directory of the flight recorder's per-process rings
+    (``telemetry/blackbox.py``, one ``<host>-<pid>.ring`` each), or None:
+    recording off (the default).  The convention is
+    ``<root>/telemetry/blackbox``."""
+    val = os.environ.get(BLACKBOX_DIR_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_blackbox_slots() -> int:
+    """Slots of a flight-recorder ring: the records a process keeps (older
+    ones are overwritten in place)."""
+    return max(8, _get_int_env(BLACKBOX_SLOTS_ENV_VAR, _DEFAULT_BLACKBOX_SLOTS))
+
+
+def get_blackbox_slot_bytes() -> int:
+    """Bytes of one flight-recorder slot: a record is one ``pwrite`` of
+    exactly this many bytes, so a kill tears at most one slot."""
+    return max(128, _get_int_env(BLACKBOX_SLOT_BYTES_ENV_VAR, _DEFAULT_BLACKBOX_SLOT_BYTES))
 
 
 def get_store_addr() -> Optional[str]:
@@ -1123,4 +1180,46 @@ def override_peerd_access_log_max_bytes(value: int) -> Generator[None, None, Non
 @contextmanager
 def override_sharded_elasticity_root_only(enabled: bool) -> Generator[None, None, None]:
     with override_env(ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_progress_interval_s(value: float) -> Generator[None, None, None]:
+    with override_env(PROGRESS_INTERVAL_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_stall_timeout_s(value: float) -> Generator[None, None, None]:
+    with override_env(STALL_TIMEOUT_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_stall_escalate(enabled: bool) -> Generator[None, None, None]:
+    with override_env(STALL_ESCALATE_ENV_VAR, "1" if enabled else None):
+        yield
+
+
+@contextmanager
+def override_heartbeat_file(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(HEARTBEAT_FILE_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_blackbox_dir(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(BLACKBOX_DIR_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_blackbox_slots(value: int) -> Generator[None, None, None]:
+    with override_env(BLACKBOX_SLOTS_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_blackbox_slot_bytes(value: int) -> Generator[None, None, None]:
+    with override_env(BLACKBOX_SLOT_BYTES_ENV_VAR, str(value)):
         yield

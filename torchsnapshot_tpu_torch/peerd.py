@@ -58,6 +58,7 @@ from .event import Event
 from .event_handlers import log_event
 from .storage_plugin import url_to_storage_plugin
 from .telemetry import metrics as tmetrics
+from .telemetry import monitor as tmonitor
 from .telemetry import trace as ttrace
 
 logger = logging.getLogger(__name__)
@@ -173,6 +174,7 @@ class PeerDaemon:
         self.ident = uuid.uuid4().hex
         self.tracer: Optional[ttrace.ServerTracer] = None
         self.access_log: Optional[ttrace.AccessLog] = None
+        self._serve_mon: Optional[tmonitor.OpMonitor] = None
 
     # ------------------------------------------------------------ lifecycle
 
@@ -201,6 +203,10 @@ class PeerDaemon:
                 self._registration = peer_mod.PeerRegistration(kv, self.addr)
             else:
                 logger.warning("peerd serving on %s without registration: no coordination store configured", self.addr)
+        # A monitored `serve` op for the daemon's lifetime (no watchdog:
+        # serving has no pipeline to stall); its flight-recorder records
+        # say when the daemon served.
+        self._serve_mon = tmonitor.op_started("serve", self.ident, 0, watchdog=False)
         logger.info("peerd serving %s on %s", self.cache_dir, self.addr)
         return self.addr
 
@@ -223,6 +229,9 @@ class PeerDaemon:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._serve_mon is not None:
+            tmonitor.op_finished(self._serve_mon, success=True)
+            self._serve_mon = None
         if self.tracer is not None:
             self.tracer.close()  # the final flush; the access log appends per line
             self.tracer = None
@@ -331,8 +340,14 @@ class PeerDaemon:
                 storage = cas_mod.maybe_wrap_cas_reads(storage, snap_path, metadata)
                 storage = cache_mod.CacheReaderPlugin(storage, self.store, cache_mod.snapshot_fingerprint(metadata))
                 storage = peer_mod.maybe_wrap_peer_reads(storage, self_addr=self.addr)
+                health = tmonitor.op_started("rollout", uuid.uuid4().hex, 0, watchdog=False)
                 begin = time.monotonic()
-                stats = cache_mod.warm_snapshot(storage, metadata, concurrency=concurrency, items=items)
+                try:
+                    stats = cache_mod.warm_snapshot(storage, metadata, concurrency=concurrency, items=items)
+                except BaseException:
+                    tmonitor.op_finished(health, success=False)
+                    raise
+                tmonitor.op_finished(health, success=True)
                 wall = time.monotonic() - begin
             finally:
                 storage.sync_close()
@@ -607,26 +622,34 @@ def rollout_fleet(
         "canaries": [p.addr for p in canaries],
         "fleet": [p.addr for p in fleet],
     }
-    with ThreadPoolExecutor(max_workers=max(1, len(peers)), thread_name_prefix="tpusnap_rollout") as pool:
-        result["canary_results"] = _wave(pool, "canary", _roll_one, canaries)
-        if not all(r["ok"] for r in result["canary_results"]):
-            result["aborted"] = "canary warm failed"
-            return _end(False)
-        # Spot-check each canary on a sample of the delta it warmed.
-        resolved_step, _, metadata, prev_md = resolve_rollout_target(root, step)
-        result["step"] = resolved_step
-        sample: List[Tuple[str, str]] = []
-        for loc, _ in delta_locations(metadata, prev_md):
-            if cas_mod.is_cas_location(loc):
-                sample.append(cas_mod.parse_cas_location(loc))
-            elif cas_mod.is_casx_location(loc):
-                sample.extend((algo, hexd) for algo, hexd, _ in cas_mod.parse_casx_location(loc))
-            if len(sample) >= verify_chunks:
-                break
-        sample = sample[:verify_chunks]
-        result["canary_verify"] = _wave(pool, "verify", lambda p: _verify_one(p, sample), canaries)
-        if not all(r["ok"] for r in result["canary_verify"]):
-            result["aborted"] = "canary digest verification failed"
-            return _end(False)
-        result["fleet_results"] = _wave(pool, "fleet", _roll_one, fleet)
-        return _end(all(r["ok"] for r in result["fleet_results"]))
+    # The rollout is a monitored op: its start and end go to the flight
+    # recorder, and it is among the process's live ops while it runs.
+    mon = tmonitor.op_started("rollout", uuid.uuid4().hex, 0, watchdog=False)
+    try:
+        with ThreadPoolExecutor(max_workers=max(1, len(peers)), thread_name_prefix="tpusnap_rollout") as pool:
+            result["canary_results"] = _wave(pool, "canary", _roll_one, canaries)
+            if not all(r["ok"] for r in result["canary_results"]):
+                result["aborted"] = "canary warm failed"
+                return _end(False)
+            # Spot-check each canary on a sample of the delta it warmed.
+            resolved_step, _, metadata, prev_md = resolve_rollout_target(root, step)
+            result["step"] = resolved_step
+            sample: List[Tuple[str, str]] = []
+            for loc, _ in delta_locations(metadata, prev_md):
+                if cas_mod.is_cas_location(loc):
+                    sample.append(cas_mod.parse_cas_location(loc))
+                elif cas_mod.is_casx_location(loc):
+                    sample.extend((algo, hexd) for algo, hexd, _ in cas_mod.parse_casx_location(loc))
+                if len(sample) >= verify_chunks:
+                    break
+            sample = sample[:verify_chunks]
+            result["canary_verify"] = _wave(pool, "verify", lambda p: _verify_one(p, sample), canaries)
+            if not all(r["ok"] for r in result["canary_verify"]):
+                result["aborted"] = "canary digest verification failed"
+                return _end(False)
+            result["fleet_results"] = _wave(pool, "fleet", _roll_one, fleet)
+            return _end(all(r["ok"] for r in result["fleet_results"]))
+    finally:
+        # Success mirrors the rollout's outcome; an abort or a raise folds
+        # as failed.
+        tmonitor.op_finished(mon, success=bool(result.get("ok")))

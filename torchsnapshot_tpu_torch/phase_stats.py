@@ -1,7 +1,8 @@
 """Per-phase time/byte attribution for the checkpoint pipeline.
 
-Counterpart of ``torchsnapshot_tpu/phase_stats.py`` with its tracing hook
-and without its flight-recorder and profiler hooks.  Per phase (``d2h``,
+Counterpart of ``torchsnapshot_tpu/phase_stats.py`` with its tracing hook,
+its flight-recorder observer hook and :func:`last_phase`, and without the
+profiler's thread tags.  Per phase (``d2h``,
 ``h2d_dispatch``, ``h2d_land``, ``checksum``, ``native_write_hash``,
 ``fs_read`` ...) it accumulates **thread-seconds** (``s``: summed over
 concurrent workers), **bytes**, a count, and **wall-seconds** (``wall``:
@@ -40,9 +41,29 @@ _COMPACT_THRESHOLD = 512
 _trace_hook: Optional[Callable[[str, float, float, int], None]] = None
 
 
+# Flight-recorder observer (telemetry/blackbox.py): a second slot with the
+# trace hook's contract, installed once for the process lifetime where the
+# tracer's is installed and removed around each traced operation.
+_observer_hook: Optional[Callable[[str, float, float, int], None]] = None
+
+# The most recently recorded phase: where the pipeline was, for a heartbeat
+# or a crash record.  Written without the lock (a str swap is atomic).
+_last_phase: Optional[str] = None
+
+
 def set_trace_hook(hook: Optional[Callable[[str, float, float, int], None]]) -> None:
     global _trace_hook
     _trace_hook = hook
+
+
+def set_observer_hook(hook: Optional[Callable[[str, float, float, int], None]]) -> None:
+    global _observer_hook
+    _observer_hook = hook
+
+
+def last_phase() -> Optional[str]:
+    """Name of the most recently recorded phase (None before any)."""
+    return _last_phase
 
 
 def add(
@@ -54,9 +75,11 @@ def add(
 ) -> None:
     """Record one occurrence of ``phase`` that ended at ``end`` (a
     ``time.monotonic`` stamp, default now) and lasted ``seconds``."""
+    global _last_phase
     if end is None:
         end = time.monotonic()
     begin = end - seconds
+    _last_phase = phase
     with _lock:
         if _release_token is not None:
             actives = _active_begins.get(phase)
@@ -92,12 +115,12 @@ def add(
                     )
                     _retired_hwm[phase] = retired[-1][1]
             _intervals[phase] = merged
-    hook = _trace_hook
-    if hook is not None:
-        try:
-            hook(phase, begin, end, nbytes)
-        except Exception:  # noqa: BLE001 — telemetry never breaks the pipeline
-            pass
+    for hook in (_trace_hook, _observer_hook):
+        if hook is not None:
+            try:
+                hook(phase, begin, end, nbytes)
+            except Exception:  # noqa: BLE001 — telemetry never breaks the pipeline
+                pass
 
 
 @contextmanager

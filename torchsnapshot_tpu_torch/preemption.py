@@ -18,10 +18,9 @@ mode** for the ``TPUSNAP_SAVE_DEADLINE_S`` budget:
 
 ``preemption.flush.start`` / ``preemption.flush.end`` events bracket the
 flush; the end event says whether every save in flight at activation
-reached a terminal state inside the budget.  The saves in flight are read
-from a registry of live operations (:func:`track_save`: every
-``PendingSnapshot`` and every running synchronous take), where the JAX
-package reads its telemetry monitor.  The handler itself only flips state
+reached a terminal state inside the budget.  The saves in flight are the
+takes and async takes the health monitor (telemetry/monitor.py) is
+watching at activation, as in the JAX package.  The handler itself only flips state
 and spawns a watcher thread (no blocking work runs in signal context), and
 by default *replaces* SIG_DFL termination, so the process survives the
 SIGTERM long enough to commit (the supervisor's SIGKILL still bounds it).
@@ -37,7 +36,6 @@ import logging
 import signal
 import threading
 import time
-import weakref
 from typing import Any, List, Optional, Tuple
 
 from . import knobs
@@ -60,17 +58,6 @@ _ACTIVE = False
 # (loop, semaphore, base_cap, boosted_flag_list) registered by write
 # pipelines; pruned when their loop closes.
 _BOOST_TARGETS: List[Tuple[Any, Any, int, List[bool]]] = []
-# Saves in flight: objects with a ``done()`` method, held weakly.
-_INFLIGHT: "weakref.WeakSet[Any]" = weakref.WeakSet()
-
-
-def track_save(op: Any) -> None:
-    """Register a save in flight (anything with ``done()``) for the flush
-    watcher; it drops out once collected."""
-    with _STATE_LOCK:
-        _INFLIGHT.add(op)
-
-
 def deadline_active() -> bool:
     """Whether the process is in emergency-flush deadline mode."""
     return _ACTIVE
@@ -132,7 +119,9 @@ def activate(budget_s: Optional[float] = None, reason: str = "signal") -> bool:
         _ACTIVE = True
         activated_at = time.monotonic()
         targets = [t for t in _BOOST_TARGETS if not t[0].is_closed()]
-        pending = [op for op in list(_INFLIGHT) if not op.done()]
+    # Pinned at activation: saves started later belong to whatever the
+    # trainer does with its remaining grace, not to this flush's verdict.
+    pending = _inflight_saves()
     for loop, semaphore, base_cap, boosted in targets:
         _boost_one(loop, semaphore, base_cap, boosted)
     threading.Thread(
@@ -150,6 +139,12 @@ def deactivate() -> None:
     with _STATE_LOCK:
         _ACTIVE = False
         _BOOST_TARGETS.clear()
+
+
+def _inflight_saves() -> List[Any]:
+    from .telemetry import monitor as tmonitor
+
+    return [m for m in tmonitor.active_ops() if m.kind in ("take", "async_take")]
 
 
 def _flush_watch(begin: float, budget_s: float, reason: str, pending: List[Any]) -> None:
@@ -177,10 +172,10 @@ def _flush_watch(begin: float, budget_s: float, reason: str, pending: List[Any])
     )
     deadline = begin + budget_s
     while time.monotonic() < deadline:
-        if all(op.done() for op in pending):
+        if all(m.done for m in pending):
             break
         time.sleep(0.05)
-    leftover = [op for op in pending if not op.done()]
+    leftover = [m for m in pending if not m.done]
     duration = time.monotonic() - begin
     log_event(
         Event(

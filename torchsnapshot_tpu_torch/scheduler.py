@@ -31,6 +31,13 @@ min(16, cores) (``TPUSNAP_STAGING_THREADS`` pins it).
 The budget is min(60% of available host memory / local ranks, 32 GB),
 or ``TPUSNAP_PER_RANK_MEMORY_BUDGET_BYTES``.  Available memory comes from
 ``/proc/meminfo`` (no psutil).
+
+Progress: each pipeline's :class:`_ProgressReporter` attaches to the
+innermost operation the health monitor (telemetry/monitor.py) watches,
+refreshes the ``tpusnap_progress_*`` and scheduler gauges every loop turn,
+and logs a per-rank progress table every ``TPUSNAP_PROGRESS_INTERVAL_S``
+(the loops wake on that interval even when no task completes, so a rank
+parked behind hung storage still reports).
 """
 
 from __future__ import annotations
@@ -44,12 +51,13 @@ from collections import Counter, deque
 from concurrent.futures import Executor, ThreadPoolExecutor
 from typing import List, Optional
 
-from . import knobs, phase_stats, preemption, retry as retry_policy
+from . import knobs, phase_stats, preemption, retry as retry_policy, rss_profiler
 from .event import Event
 from .event_handlers import log_event
 from .io_types import ReadIO, ReadReq, ScatterBuffer, StoragePlugin, WriteIO, WriteReq
 from .pg_wrapper import PGWrapper
 from .telemetry import metrics as tmetrics
+from .telemetry import monitor as tmonitor
 from .telemetry import trace as ttrace
 from .utils.loops import call_outside_loop
 
@@ -119,8 +127,102 @@ def get_process_memory_budget_bytes(pg: PGWrapper) -> int:
 
 class _BudgetTracker:
     def __init__(self, budget_bytes: int) -> None:
+        self.total = budget_bytes
         self.remaining = budget_bytes
         self.inflight = 0
+
+    @property
+    def in_use(self) -> int:
+        return self.total - self.remaining
+
+
+class _ProgressReporter:
+    """One pipeline's progress, as the health monitor and the operator see
+    it: request and byte counters, the pipeline-state counts of the last
+    loop turn, the budget, and ``debug_refs`` closures naming the paths in
+    each state for a stall bundle.  ``maybe_report`` refreshes the gauges
+    every loop turn and logs the progress table every
+    ``TPUSNAP_PROGRESS_INTERVAL_S`` (0 turns the table off)."""
+
+    def __init__(self, rank: int, total: int, verb: str, budget: Optional[_BudgetTracker] = None) -> None:
+        self.rank = rank
+        self.total = total
+        self.verb = verb
+        self.staged = 0
+        self.io_done = 0
+        self.bytes_staged = 0
+        self.bytes_done = 0
+        self.pending = 0
+        self.staging = 0
+        self.inflight_io = 0
+        self.budget = budget
+        self.debug_refs: Optional[dict] = None
+        try:
+            self.loop: Optional[asyncio.AbstractEventLoop] = asyncio.get_running_loop()
+        except RuntimeError:
+            self.loop = None
+        self._interval_s = knobs.get_progress_interval_s()
+        self._last = time.monotonic()
+        self._begin = self._last
+        try:
+            self._rss_base: Optional[int] = rss_profiler.rss_bytes()
+        except (OSError, RuntimeError, ValueError):
+            self._rss_base = None
+        tmonitor.attach_reporter(self)
+
+    def maybe_report(self, budget: _BudgetTracker, pending: int = 0, staging: int = 0, inflight_io: int = 0) -> None:
+        self.pending = pending
+        self.staging = staging
+        self.inflight_io = inflight_io
+        # Every loop turn, not only on the log interval: a short operation
+        # would otherwise never show in the gauges.
+        tmetrics.record_scheduler_state(
+            verb=self.verb,
+            pending=pending,
+            staging=staging,
+            inflight_io=inflight_io,
+            budget_in_use=budget.in_use,
+        )
+        tmetrics.record_progress(
+            verb=self.verb,
+            requests_total=self.total,
+            requests_staged=self.staged,
+            requests_done=self.io_done,
+            bytes_staged=self.bytes_staged,
+            bytes_done=self.bytes_done,
+        )
+        if not self._interval_s:
+            return
+        now = time.monotonic()
+        if now - self._last < self._interval_s:
+            return
+        self._last = now
+        rss_str = "?"
+        if self._rss_base is not None:
+            try:
+                rss_str = f"{(rss_profiler.rss_bytes() - self._rss_base) / 1e6:+.0f}MB"
+            except (OSError, RuntimeError, ValueError):
+                pass
+        stage_verb, io_verb = ("stageable/staging", "writing") if self.verb == "write" else ("unread/reading", "consuming")
+        logger.info(
+            "[rank %d] %s pipeline: %s=%d/%d %s=%d done=%d/%d "
+            "staged=%.1fMB completed=%.1fMB rss%s budget=%.1fMB "
+            "elapsed=%.0fs",
+            self.rank,
+            self.verb,
+            stage_verb,
+            pending,
+            staging,
+            io_verb,
+            inflight_io,
+            self.io_done,
+            self.total,
+            self.bytes_staged / 1e6,
+            self.bytes_done / 1e6,
+            rss_str,
+            budget.remaining / 1e6,
+            now - self._begin,
+        )
 
 
 def _buf_nbytes(buf: object) -> int:
@@ -267,26 +369,35 @@ class PendingIOWork:
         executor: Executor,
         io_tasks: List["asyncio.Task"],
         bytes_total: int,
+        budget: Optional[_BudgetTracker] = None,
+        reporter: Optional[_ProgressReporter] = None,
     ) -> None:
         self._loop = loop
         self._executor = executor
         self._io_tasks = io_tasks
         self.bytes_total = bytes_total
+        self._budget = budget
+        self._reporter = reporter
 
     def sync_complete(self) -> None:
         call_outside_loop(self._sync_complete_impl)
 
     async def _drain(self) -> None:
+        reporter = self._reporter
+        interval = reporter._interval_s if reporter is not None else 0
         pending = set(self._io_tasks)
         while pending:
             # FIRST_COMPLETED: the first failure surfaces at once, never
-            # after every other write finished.
+            # after every other write finished.  The timeout lets the
+            # progress table fire while the writes crawl.
             done, pending = await asyncio.wait(
-                pending, return_when=asyncio.FIRST_COMPLETED
+                pending, timeout=interval or None, return_when=asyncio.FIRST_COMPLETED
             )
             for task in done:
                 if task.exception() is not None:
                     raise task.exception()
+            if reporter is not None and self._budget is not None:
+                reporter.maybe_report(self._budget, inflight_io=len(pending))
 
     def _sync_complete_impl(self) -> None:
         begin = time.monotonic()
@@ -385,6 +496,14 @@ async def execute_write_reqs(
     if io_cap == base_io_cap:
         preemption.register_write_semaphore(loop, io_semaphore, base_io_cap)
     staged_bytes = 0
+    reporter = _ProgressReporter(rank=rank, total=len(write_reqs), verb="write", budget=budget)
+    reporter.debug_refs = {
+        # Best-effort snapshots for stall bundles (the monitor catches a
+        # racing mutation from this loop).
+        "ready_for_staging": lambda: [p.write_req.path for p in list(ready_for_staging)],
+        "staging": lambda: [p.write_req.path for p in list(staging_tasks.values())],
+        "inflight_io": lambda: [p.write_req.path for t, p in list(io_tasks.items()) if not t.done()],
+    }
 
     async def _io(pipeline: _WritePipeline) -> None:
         try:
@@ -393,6 +512,8 @@ async def execute_write_reqs(
             await _with_retries(
                 pipeline.write_buffer, "write", pipeline.write_req.path, rank, io_semaphore
             )
+            reporter.io_done += 1
+            reporter.bytes_done += pipeline.buf_sz_bytes
             tmetrics.record_io_bytes("written", pipeline.buf_sz_bytes)
         finally:
             pipeline.release_after_io(budget)
@@ -420,8 +541,12 @@ async def execute_write_reqs(
         while staging_tasks or ready_for_staging:
             # With the starvation guard, nothing may be staging while an
             # over-budget request waits for in-flight writes to free budget.
+            # The timeout lets the progress table fire while a rank is
+            # blocked on hung storage, when no task completes.
             done, _ = await asyncio.wait(
-                set(staging_tasks) | io_live, return_when=asyncio.FIRST_COMPLETED
+                set(staging_tasks) | io_live,
+                timeout=reporter._interval_s or None,
+                return_when=asyncio.FIRST_COMPLETED,
             )
             for task in done:
                 if task in staging_tasks:
@@ -432,6 +557,8 @@ async def execute_write_reqs(
                     budget.remaining += pipeline.staging_cost - pipeline.buf_sz_bytes
                     budget.inflight -= 1
                     staged_bytes += pipeline.buf_sz_bytes
+                    reporter.staged += 1
+                    reporter.bytes_staged += pipeline.buf_sz_bytes
                     # Other writes in flight or queued: the storage may
                     # micro-batch this one with them.
                     pipeline.batch_hint = bool(io_live or staging_tasks or ready_for_staging)
@@ -442,6 +569,9 @@ async def execute_write_reqs(
                 else:
                     task.result()  # a write failure surfaces immediately
             dispatch_staging()
+            reporter.maybe_report(
+                budget, pending=len(ready_for_staging), staging=len(staging_tasks), inflight_io=len(io_live)
+            )
     except BaseException:
         # Cancel and drain everything outstanding before re-raising, so no
         # task is left pending and every buffer is released.
@@ -467,7 +597,12 @@ async def execute_write_reqs(
             phase_stats.format_line(phase_stats.delta(phases_before)),
         )
     return PendingIOWork(
-        loop=loop, executor=executor, io_tasks=list(io_tasks), bytes_total=staged_bytes
+        loop=loop,
+        executor=executor,
+        io_tasks=list(io_tasks),
+        bytes_total=staged_bytes,
+        budget=budget,
+        reporter=reporter,
     )
 
 
@@ -561,6 +696,11 @@ async def execute_read_reqs(
     io_tasks: set = set()
     consume_tasks: set = set()
     pipelines: dict = {}  # task -> pipeline, to re-credit on failure
+    reporter = _ProgressReporter(rank=rank, total=len(read_reqs), verb="read", budget=budget)
+    reporter.debug_refs = {
+        "ready_for_io": lambda: [p.read_req.path for p in list(ready_for_io)],
+        "inflight": lambda: [p.read_req.path for t, p in list(pipelines.items()) if not t.done()],
+    }
 
     async def _read(pipeline: _ReadPipeline) -> _ReadPipeline:
         await _with_retries(
@@ -589,7 +729,9 @@ async def execute_read_reqs(
         dispatch_io()
         while io_tasks or consume_tasks:
             done, _ = await asyncio.wait(
-                io_tasks | consume_tasks, return_when=asyncio.FIRST_COMPLETED
+                io_tasks | consume_tasks,
+                timeout=reporter._interval_s or None,
+                return_when=asyncio.FIRST_COMPLETED,
             )
             for task in done:
                 pipeline = pipelines.pop(task)
@@ -606,8 +748,13 @@ async def execute_read_reqs(
                     task.result()  # raises on consume failure
                     budget.remaining += pipeline.consuming_cost
                     budget.inflight -= 1
+                    reporter.io_done += 1
+                    reporter.bytes_done += pipeline.consuming_cost
                     tmetrics.record_io_bytes("read", pipeline.consuming_cost)
             dispatch_io()
+            reporter.maybe_report(
+                budget, pending=len(ready_for_io), staging=len(io_tasks), inflight_io=len(consume_tasks)
+            )
         read_span.__exit__(None, None, None)
     except BaseException as e:
         read_span.__exit__(type(e), e, e.__traceback__)

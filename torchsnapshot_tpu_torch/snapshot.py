@@ -42,7 +42,11 @@ knobs say.
 
 Telemetry: every committed take and async take, and every restore, writes
 a per-rank sidecar under the snapshot's ``telemetry/`` (telemetry/
-sidecar.py) that the manager's step history and restore-point times read.
+sidecar.py) that the manager's step history and restore-point times read,
+with the RSS high water of the operation's health monitor
+(telemetry/monitor.py), which every entry point registers: its progress is
+``PendingSnapshot.progress()``, and its watchdog, heartbeat and flight
+recorder follow their knobs.
 ``manifest_transform`` lets the manager's journal (journal.py) commit a
 delta manifest; a journal segment is restored only through the manager's
 replay (manager.py).
@@ -85,7 +89,6 @@ from .manifest_utils import is_container_entry
 from .partitioner import consolidate_replicated_entries, partition_write_reqs
 from .pg_wrapper import PGWrapper
 from .rng_state import RNGState
-from .rss_profiler import RSSWatermark
 from .scheduler import (
     DeferredIOWork,
     get_process_memory_budget_bytes,
@@ -95,6 +98,7 @@ from .scheduler import (
 from .stateful import AppState, Stateful
 from .storage_plugin import url_to_storage_plugin
 from .telemetry import metrics as tmetrics
+from .telemetry import monitor as tmonitor
 from .telemetry import sidecar as tsidecar
 from .telemetry import trace as ttrace
 
@@ -156,6 +160,7 @@ class Snapshot:
         unique_id = _gen_unique_id(pg)
         tmetrics.maybe_install_bridge()
         trace_op = ttrace.begin_op("take", unique_id, pg.get_rank())
+        health = tmonitor.op_started("take", unique_id, pg.get_rank())
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": pg.get_rank(),
@@ -164,9 +169,6 @@ class Snapshot:
         log_event(Event(name="take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
         phases_before = phase_stats.snapshot()
-        rss = RSSWatermark()
-        in_flight = _TakeInFlight()
-        preemption.track_save(in_flight)
         # Liveness lease: while this rank is inside the take its store-side
         # lease stays fresh, so peers blocked in a wait detect its death in
         # about TPUSNAP_LEASE_GRACE_S (dist_store.OpLease).
@@ -216,7 +218,7 @@ class Snapshot:
                     pg,
                     time.monotonic() - begin,
                     phases_before,
-                    rss,
+                    health,
                     nbytes=nbytes,
                     committed_md=committed_md,
                 )
@@ -227,9 +229,9 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="take.end", metadata=event_metadata))
             ttrace.end_op(trace_op, success=False)
+            tmonitor.op_finished(health, success=False)
             raise
         finally:
-            in_flight.finish()
             release_op_lease(lease)
         snapshot = cls(path=path, pg=pg, storage_options=storage_options)
         snapshot._metadata = metadata
@@ -246,6 +248,7 @@ class Snapshot:
         event_metadata["is_success"] = True
         log_event(Event(name="take.end", metadata=event_metadata))
         ttrace.end_op(trace_op, success=True)
+        tmonitor.op_finished(health, success=True)
         return snapshot
 
     @classmethod
@@ -282,6 +285,8 @@ class Snapshot:
         tmetrics.maybe_install_bridge()
         # Ended on the background thread, at the commit or its failure.
         trace_op = ttrace.begin_op("async_take", unique_id, pg.get_rank())
+        # Finished on the background thread too.
+        health = tmonitor.op_started("async_take", unique_id, pg.get_rank())
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": pg.get_rank(),
@@ -290,7 +295,6 @@ class Snapshot:
         log_event(Event(name="async_take.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
         phases_before = phase_stats.snapshot()
-        rss = RSSWatermark()
         # Held through the background commit; the PendingSnapshot releases
         # it when its thread finishes.
         lease = acquire_op_lease(pg.store, pg.get_rank())
@@ -316,6 +320,7 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="async_take.end", metadata=event_metadata))
             ttrace.end_op(trace_op, success=False)
+            tmonitor.op_finished(health, success=False)
             raise
         return PendingSnapshot(
             path=path,
@@ -329,7 +334,7 @@ class Snapshot:
             storage_options=storage_options,
             manifest_transform=manifest_transform,
             phases_before=phases_before,
-            rss=rss,
+            monitor=health,
             trace_op=trace_op,
         )
 
@@ -528,6 +533,7 @@ class Snapshot:
         unique_id = _gen_unique_id(pg)
         tmetrics.maybe_install_bridge()
         trace_op = ttrace.begin_op("restore", unique_id, rank)
+        health = tmonitor.op_started("restore", unique_id, rank)
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": rank,
@@ -536,7 +542,6 @@ class Snapshot:
         log_event(Event(name="restore.start", metadata=dict(event_metadata)))
         begin = time.monotonic()
         phases_before = phase_stats.snapshot()
-        rss = RSSWatermark()
         lease = acquire_op_lease(pg.store, rank)
         try:
             storage = url_to_storage_plugin(self.path, self._storage_options)
@@ -568,7 +573,7 @@ class Snapshot:
                         storage=storage,
                         memory_budget_bytes=memory_budget_bytes,
                     )
-                _write_sidecar(storage, "restore", unique_id, pg, time.monotonic() - begin, phases_before, rss)
+                _write_sidecar(storage, "restore", unique_id, pg, time.monotonic() - begin, phases_before, health)
             finally:
                 storage.sync_close()
         except Exception:
@@ -576,6 +581,7 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="restore.end", metadata=event_metadata))
             ttrace.end_op(trace_op, success=False)
+            tmonitor.op_finished(health, success=False)
             raise
         finally:
             release_op_lease(lease)
@@ -587,6 +593,7 @@ class Snapshot:
         event_metadata["is_success"] = True
         log_event(Event(name="restore.end", metadata=event_metadata))
         ttrace.end_op(trace_op, success=True)
+        tmonitor.op_finished(health, success=True)
 
     def _load_stateful(
         self,
@@ -649,6 +656,9 @@ class Snapshot:
         unique_id = uuid.uuid4().hex
         tmetrics.maybe_install_bridge()
         trace_op = ttrace.begin_op("read_object", unique_id, self._pg.get_rank())
+        # The progress registry only: the watchdog and the heartbeat belong
+        # to take, async_take and restore.
+        health = tmonitor.op_started("read_object", unique_id, self._pg.get_rank(), watchdog=False)
         event_metadata: Dict[str, Any] = {
             "unique_id": unique_id,
             "rank": self._pg.get_rank(),
@@ -689,6 +699,7 @@ class Snapshot:
             event_metadata["is_success"] = False
             log_event(Event(name="read_object.end", metadata=event_metadata))
             ttrace.end_op(trace_op, success=False)
+            tmonitor.op_finished(health, success=False)
             raise
         event_metadata["duration_s"] = time.monotonic() - begin
         if isinstance(value, (torch.Tensor, np.ndarray)):
@@ -696,6 +707,7 @@ class Snapshot:
         event_metadata["is_success"] = True
         log_event(Event(name="read_object.end", metadata=event_metadata))
         ttrace.end_op(trace_op, success=True)
+        tmonitor.op_finished(health, success=True)
         return value
 
     def get_manifest(self) -> Dict[str, Entry]:
@@ -951,19 +963,6 @@ class Snapshot:
         return obj_list[0]
 
 
-class _TakeInFlight:
-    """A running synchronous take, as the preemption flush watcher sees it."""
-
-    def __init__(self) -> None:
-        self._done = False
-
-    def done(self) -> bool:
-        return self._done
-
-    def finish(self) -> None:
-        self._done = True
-
-
 class _ManifestFinalizer:
     """Builds the global manifest of an async take on its background thread,
     once that rank's staging and storage I/O have drained: stagers annotate
@@ -1058,12 +1057,12 @@ class PendingSnapshot:
         finalizer: _ManifestFinalizer,
         storage: StoragePlugin,
         unique_id: str,
+        monitor: tmonitor.OpMonitor,
         stall_s: float = 0.0,
         lease: Optional[Any] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         manifest_transform: Optional[Callable[[SnapshotMetadata], SnapshotMetadata]] = None,
         phases_before: Optional[Dict[str, Dict[str, float]]] = None,
-        rss: Optional[RSSWatermark] = None,
         trace_op: Optional[Any] = None,
     ) -> None:
         self.path = path
@@ -1071,7 +1070,7 @@ class PendingSnapshot:
         self._storage_options = storage_options
         self._manifest_transform = manifest_transform
         self._phases_before = phases_before or {}
-        self._rss = rss or RSSWatermark()
+        self._monitor = monitor
         self.pg = pg
         self._lease = lease
         self._barrier: Optional[LinearBarrier] = None
@@ -1087,7 +1086,6 @@ class PendingSnapshot:
         self._done_event = threading.Event()
         self._callbacks_lock = threading.Lock()
         self._done_callbacks: List[Callable[["PendingSnapshot"], Any]] = []
-        preemption.track_save(self)
         self._thread = threading.Thread(
             target=self._complete_snapshot,
             args=(pending_io_work,),
@@ -1107,6 +1105,10 @@ class PendingSnapshot:
                 world_size=self.pg.get_world_size(),
             )
             self._barrier = barrier
+            # The stall watchdog's escalation channel: with
+            # TPUSNAP_STALL_ESCALATE=1 a stall on this rank wakes every peer
+            # blocked in the commit barrier as StorePeerError.
+            self._monitor.escalate = barrier.report_error
         try:
             pending_io_work.sync_complete()
             self._bytes_total = pending_io_work.bytes_total
@@ -1134,6 +1136,16 @@ class PendingSnapshot:
                 barrier.depart(timeout_s=barrier_timeout_s)
             # Committed: this rank's telemetry sidecar, still on this thread
             # (storage only, no collectives).
+            extra: Dict[str, Any] = {"staging_mode": self._finalizer.staging_mode, "stall_s": round(self.stall_s, 4)}
+            if barrier is not None:
+                # Every rank's commit-barrier arrive and depart stamps,
+                # exchanged through the store: the cross-rank blame table.
+                arrivals = barrier.arrival_table()
+                if arrivals:
+                    extra["barrier"] = {
+                        "world_size": self.pg.get_world_size(),
+                        "arrivals": {str(r): row for r, row in arrivals.items()},
+                    }
             _write_sidecar(
                 self._storage,
                 "async_take",
@@ -1141,10 +1153,10 @@ class PendingSnapshot:
                 self.pg,
                 time.monotonic() - self._begin,
                 self._phases_before,
-                self._rss,
+                self._monitor,
                 nbytes=self._bytes_total,
                 committed_md=committed_md,
-                extra={"staging_mode": self._finalizer.staging_mode, "stall_s": round(self.stall_s, 4)},
+                extra=extra,
             )
             self._storage.sync_close()
             log_event(
@@ -1154,6 +1166,7 @@ class PendingSnapshot:
                 )
             )
             ttrace.end_op(self._trace_op, success=True)
+            tmonitor.op_finished(self._monitor, success=True)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             self.exception = e
             if barrier is not None and not isinstance(e, StorePeerError):
@@ -1175,6 +1188,7 @@ class PendingSnapshot:
                 )
             )
             ttrace.end_op(self._trace_op, success=False)
+            tmonitor.op_finished(self._monitor, success=False)
         finally:
             # Terminal either way: stop refreshing the liveness lease.
             release_op_lease(self._lease)
@@ -1243,16 +1257,12 @@ class PendingSnapshot:
         return self._done_event.is_set()
 
     def progress(self) -> Dict[str, Any]:
-        """Live progress of the take, from any thread.  Without the
-        telemetry monitor (not ported yet) it says whether the take is done
-        and whether it succeeded."""
-        return {
-            "action": "async_take",
-            "op_id": self._unique_id,
-            "rank": self.pg.get_rank(),
-            "done": self.done(),
-            "success": None if not self.done() else self.exception is None,
-        }
+        """Live progress of the take (telemetry/monitor.py), from any thread
+        at any time: requests and bytes staged and written, pipeline-state
+        counts, budget use, a requests-based ETA, the RSS high water and the
+        watchdog's stalls; after the end, the terminal counters with
+        ``done: true``."""
+        return self._monitor.progress()
 
     def add_done_callback(self, fn: Callable[["PendingSnapshot"], Any]) -> None:
         """Run ``fn(self)`` once the take commits or fails: on the background
@@ -1278,7 +1288,7 @@ def _write_sidecar(
     pg: PGWrapper,
     duration_s: float,
     phases_before: Dict[str, Dict[str, float]],
-    rss: RSSWatermark,
+    monitor: tmonitor.OpMonitor,
     nbytes: int = 0,
     committed_md: Optional[SnapshotMetadata] = None,
     extra: Optional[Dict[str, Any]] = None,
@@ -1291,11 +1301,10 @@ def _write_sidecar(
     if not tsidecar.enabled():
         return
     try:
-        rss.sample()
         doc_extra: Dict[str, Any] = {
             "world_size": pg.get_world_size(),
             **(extra or {}),
-            "rss_high_water_bytes": rss.high_water,
+            "rss_high_water_bytes": monitor.rss_high_water(),
         }
         cas_stats = cas.writer_stats(storage)
         if cas_stats is not None:

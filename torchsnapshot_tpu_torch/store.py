@@ -60,6 +60,7 @@ import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from .io_types import ReadIO, StoragePlugin, WriteIO
+from .telemetry import blackbox
 
 logger = logging.getLogger(__name__)
 
@@ -272,6 +273,7 @@ class StoreWriterContext:
         # defers the deletion of epochs <= E until this take ends.
         self.observed_epoch = read_epoch(self._storage)
         self._write_lease()
+        blackbox.record("lease", "store_writer.start", {"tenant": self.tenant, "epoch": self.observed_epoch})
         self._thread = threading.Thread(
             target=self._refresh_loop,
             args=(max(0.05, knobs.get_lease_interval_s()),),
@@ -333,6 +335,7 @@ class StoreWriterContext:
             self._storage.sync_delete(self._lease_relpath)
         except Exception:  # noqa: BLE001 — a stale lease ages out
             pass
+        blackbox.record("lease", "store_writer.close", {"tenant": self.tenant})
 
 
 # ------------------------------------------------------------------- ledger
@@ -531,6 +534,7 @@ class _SweepLease:
                     doc.get("phase"),
                 )
         self._write()
+        blackbox.record("lease", "store_sweep.acquire", {"epoch": self.epoch, "adopted": self.adopted})
         self._thread = threading.Thread(
             target=self._refresh_loop,
             args=(max(0.05, knobs.get_lease_interval_s()),),
@@ -547,6 +551,7 @@ class _SweepLease:
             self._write()
         except Exception:  # noqa: BLE001 — the refresher rewrites it
             logger.debug("sweep lease update failed", exc_info=True)
+        blackbox.record("lease", f"store_sweep.{phase}", {"epoch": self.epoch})
 
     def _refresh_loop(self, interval: float) -> None:
         while not self._stop.wait(interval):
@@ -564,6 +569,7 @@ class _SweepLease:
             self._storage.sync_delete(SWEEP_LEASE_FNAME)
         except Exception:  # noqa: BLE001 — a stale lease is adopted later
             pass
+        blackbox.record("lease", "store_sweep.release", {"phase": self.phase, "epoch": self.epoch})
 
 
 def foreign_sweep_live(storage: StoragePlugin) -> bool:
