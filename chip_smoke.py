@@ -56,6 +56,17 @@ calls, in phases that each print one JSON line:
                 span bytes equal to the state's, the metrics' written bytes
                 equal to the payload on disk and the read bytes to what the
                 restore's read requests consumed, bit-exact
+   profile_take_restore — the take and the in-place restore again with
+                ``TPUSNAP_PROFILE`` set at the default 99 Hz (through
+                ``knobs.override_profile_dir``): both walls beside the
+                unprofiled ones; per op the ticks, samples, on-CPU samples and
+                the five phases with the most on-CPU seconds; the calibrated
+                per-tick cost and its share of each wall, and one pass of
+                the port's CPU time reader beside the JAX package's
+                ``/proc`` reader; every profile file
+                valid under the port's ``validate_profile``, every collapsed
+                line ``phase;state;frames count``, each op's untagged on-CPU
+                share under 5% (the reference's bar), bit-exact
    host data plane — each phase removes its directories before the next:
    direct_io_take — ``Snapshot.take`` with ``TPUSNAP_DIRECT_IO=1``: the
                 resolved mode (1 io_uring, 2 O_DIRECT pwrite, 3 the
@@ -104,8 +115,9 @@ calls, in phases that each print one JSON line:
    monitor_stall — a take of one 256 MiB tensor on the card with
                 ``TPUSNAP_FAULTS=write:1:latency:3`` and a 0.5 s stall
                 timeout: a ``watchdog.stall`` with ``idle_s`` >= 0.5, a bundle
-                with its four sections, ``tpusnap_stalls_total`` >= 1; the take
-                commits and restores bit-exact
+                with its five sections (the last a sampled profile of at least
+                one sample), ``tpusnap_stalls_total`` >= 1; the take commits
+                and restores bit-exact
    monitor_crash — a spawned process builds the 8-layer cut of the same
                 widths on the card and takes it with
                 ``TPUSNAP_FAULTS=write:3:crash`` and ``TPUSNAP_BLACKBOX``: it
@@ -311,6 +323,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2715,6 +2728,128 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
                            "byte counters differ from the bytes written and read, or the restore is not bit-exact")
 
 
+# ---------------------------------------------------------- profiled phase
+#
+# The sampling profiler (telemetry/profiler.py): the full state's take and
+# in-place restore with TPUSNAP_PROFILE set at the default 99 Hz.  The bar
+# is the reference's own (tests/test_profiler.py:325-340): fewer than 5% of
+# on-CPU samples untagged, over at least 20 on-CPU samples.
+
+PROFILE_UNTAGGED_MAX_SHARE = 0.05
+PROFILE_MIN_ONCPU_SAMPLES = 20
+TOP_PROFILE_PHASES = 5
+# One folded stack: "<phase>;<on|off>cpu;<frame>;...;<frame> <count>" (a
+# frame may hold a space, as "<frozen importlib._bootstrap>.<name>" does).
+COLLAPSED_LINE = re.compile(r"^[^;\n]+;(?:on|off)cpu;.+ [1-9]\d*$")
+
+
+def profile_summary(meta, wall_s):
+    """The printed numbers of one op's profile meta, with the leaf frames of
+    its most frequent untagged on-CPU stacks."""
+    weight = meta["weight_s"]
+    oncpu_s = {phase: sum(states.get("on", {}).values()) * weight for phase, states in meta["stacks"].items()}
+    top = sorted(((p, s) for p, s in oncpu_s.items() if s > 0), key=lambda kv: -kv[1])[:TOP_PROFILE_PHASES]
+    untagged = sorted(meta["stacks"].get("<untagged>", {}).get("on", {}).items(), key=lambda kv: -kv[1])[:3]
+    on = meta["oncpu_samples"]
+    return {"ticks": meta["ticks"], "ticks_per_s": round(meta["ticks"] / wall_s, 1),
+            "samples_total": meta["samples_total"], "oncpu_samples": on, "untagged_oncpu": meta["untagged_oncpu"],
+            "untagged_oncpu_share": round(meta["untagged_oncpu"] / on, 4) if on else None,
+            "top_oncpu_phases_s": [[p, round(s, 3)] for p, s in top],
+            "untagged_oncpu_stacks": [[";".join(st.split(";")[-3:]), n] for st, n in untagged], "hz": meta["hz"],
+            "overhead_estimated_s": meta["calibration"]["estimated_s"],
+            "overhead_share_of_wall": round(meta["calibration"]["estimated_s"] / wall_s, 5)}
+
+
+def cpu_time_reader_pass_s(profiler, reps: int = 20):
+    """Mean seconds of one pass of the port's per-thread CPU time reader (one
+    clock read per Python thread) and of the JAX package's (one
+    ``/proc/self/task/<tid>/stat`` read per native thread), taken here with
+    no op running, beside the two thread counts and the smallest and
+    largest step of this thread's CPU clock while it spins."""
+    tids = os.listdir("/proc/self/task")
+    begin = time.perf_counter()
+    for _ in range(reps):
+        profiler._thread_cpu_times()
+    clocks_s = (time.perf_counter() - begin) / reps
+    begin = time.perf_counter()
+    for _ in range(reps):
+        for tid in tids:
+            try:
+                with open(f"/proc/self/task/{tid}/stat", "rb") as f:
+                    f.read()
+            except OSError:
+                pass
+    proc_s = (time.perf_counter() - begin) / reps
+    # The step of this thread's CPU clock over a 0.1 s spin: how finely the
+    # kernel counts a thread's CPU time.
+    clock = ((~threading.get_native_id()) << 3) | 6  # MAKE_THREAD_CPUCLOCK(tid, CPUCLOCK_SCHED)
+    readings, end = [], time.monotonic() + 0.1
+    while time.monotonic() < end:
+        readings.append(time.clock_gettime(clock))
+    steps = [b - a for a, b in zip(readings, readings[1:]) if b > a]
+    return {"python_threads": threading.active_count(), "native_threads": len(tids),
+            "clock_pass_s": round(clocks_s, 7), "proc_stat_pass_s": round(proc_s, 7),
+            "cpu_clock_steps_s": [round(min(steps, default=0.0), 9), round(max(steps, default=0.0), 6)]}
+
+
+def profile_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, workdir, take_s, restore_s):
+    """profile_take_restore: the state taken and restored in place again with
+    ``TPUSNAP_PROFILE`` set (``knobs.override_profile_dir``) at the default
+    99 Hz.  Every profile file must validate under the port's
+    ``validate_profile``, every collapsed line must parse as
+    ``phase;state;frames count``, each op's untagged on-CPU share must be
+    under 5% of at least 20 on-CPU samples, and the restore bit-exact.
+    Prints both walls beside the unprofiled ``take`` and ``restore``, per op
+    the ticks, samples, on-CPU samples and the phases with the most on-CPU
+    seconds, the calibrated per-tick cost with its share of each wall, and
+    one pass of the port's CPU time reader beside one of the JAX
+    package's."""
+    from torchsnapshot_tpu_torch.telemetry import profiler
+
+    snap_path, prof_dir = os.path.join(workdir, "profile_snap"), os.path.join(workdir, "profiles")
+    with knobs.override_profile_dir(prof_dir):
+        hz = knobs.get_profile_hz()
+        device_sync(torch)
+        begin = time.monotonic()
+        ts.Snapshot.take(snap_path, app_state)
+        profiled_take_s = time.monotonic() - begin
+        seconds, mismatched, moved, _ = restore_check(torch, ts, snap_path, app_state, ref, phase_stats)
+    cost = profiler.calibrated_overhead_s()
+    readers = cpu_time_reader_pass_s(profiler)
+    problems, metas, bad_lines, files = {}, {}, [], sorted(os.listdir(prof_dir))
+    for name in files:
+        path = os.path.join(prof_dir, name)
+        if name.endswith(profiler.PROFILE_FILE_SUFFIX):
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            problems[name] = profiler.validate_profile(doc)
+            metas[doc["tpusnap"]["kind"]] = doc["tpusnap"]
+        elif name.endswith(profiler.COLLAPSED_FILE_SUFFIX):
+            with open(path, encoding="utf-8") as f:
+                bad_lines += [line for line in f.read().splitlines() if not COLLAPSED_LINE.match(line)]
+    walls = {"take": profiled_take_s, "restore": seconds}
+    ops = {kind: profile_summary(metas[kind], walls[kind]) for kind in walls if kind in metas}
+    shares_ok = len(ops) == 2 and all(
+        o["oncpu_samples"] >= PROFILE_MIN_ONCPU_SAMPLES and o["untagged_oncpu_share"] < PROFILE_UNTAGGED_MAX_SHARE
+        for o in ops.values())
+    ok = (hz == 99.0 and len(files) == 4 and not any(problems.values()) and not bad_lines and shares_ok
+          and not mismatched and not moved)
+    emit({"phase": "profile_take_restore", "ok": ok, "hz": hz, "take_s": round(profiled_take_s, 3),
+          "unprofiled_take_s": round(take_s, 3), "restore_s": round(seconds, 3),
+          "unprofiled_restore_s": round(restore_s, 3), "state_bytes": nbytes, "profile_files": files,
+          "validate_profile": problems, "unparsed_collapsed_lines": bad_lines[:5], "ops": ops,
+          "calibrated_overhead": {"per_tick_s": cost["per_tick_s"], "process_ticks": cost["ticks"],
+                                  "estimated_s": round(cost["estimated_s"], 6)},
+          "cpu_time_readers": readers, "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+          "mismatched": mismatched[:5]})
+    for path in (snap_path, prof_dir):
+        shutil.rmtree(path)
+    if not ok:
+        raise RuntimeError("profile_take_restore: a profile file is invalid or missing, a collapsed line does not "
+                           "parse, an op's untagged on-CPU share is 5% or more (or it has under 20 on-CPU samples), "
+                           "or the restore is not bit-exact")
+
+
 # ---------------------------------------------------------- monitor phases
 #
 # The health monitor and the flight recorder (telemetry/monitor.py,
@@ -2732,7 +2867,10 @@ STALL_LATENCY_S = 3
 CRASH_LAYERS = 8
 CRASH_FAULT = "write:3:crash"
 CRASH_TIMEOUT_S = 300
-BUNDLE_SECTIONS = ("progress", "pipeline states", "pending asyncio tasks", "thread stacks (faulthandler)")
+BUNDLE_SECTIONS = ("progress", "pipeline states", "pending asyncio tasks", "thread stacks (faulthandler)",
+                   "sampled profile")
+# The sampled profile's heading: "sampled profile (<s>s @ <hz> Hz, <n> samples, <m> on-CPU; ...)".
+SAMPLED_PROFILE_HEADING = re.compile(r"^sampled profile \(([\d.]+)s @ ([\d.]+) Hz, (\d+) samples, (\d+) on-CPU;")
 
 
 def monitor_knobs(knobs, stack, heartbeat, blackbox_dir, stall_timeout_s=MONITOR_STALL_TIMEOUT_S):
@@ -2764,8 +2902,20 @@ def op_names(records):
 
 
 def bundle_sections(path):
+    """The bundle's section headings, and its sampled profile: the heading's
+    numbers and the folded-stack lines under it."""
     with open(path, encoding="utf-8") as f:
-        return [line[4:-4] for line in f.read().splitlines() if line.startswith("--- ") and line.endswith(" ---")]
+        lines = f.read().splitlines()
+    heads = [(i, line[4:-4]) for i, line in enumerate(lines) if line.startswith("--- ") and line.endswith(" ---")]
+    sampled = {}
+    for i, head in heads:
+        m = SAMPLED_PROFILE_HEADING.match(head)
+        if m:
+            body = [line for line in lines[i + 1:] if line and not line.startswith("(+")]
+            sampled = {"duration_s": float(m.group(1)), "hz": float(m.group(2)), "samples": int(m.group(3)),
+                       "oncpu_samples": int(m.group(4)), "stacks": len(body),
+                       "unparsed": [line for line in body if not COLLAPSED_LINE.match(line)][:3]}
+    return [re.sub(r" \(\d.*\)$", "", head) for _, head in heads], sampled
 
 
 def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir,
@@ -2854,8 +3004,9 @@ def monitor_stall_phase(torch, ts, knobs, events, workdir, seed):
     """monitor_stall: a take of one 256 MiB tensor on the card whose first
     write is held 3 s (``TPUSNAP_FAULTS=write:1:latency:3``) under a 0.5 s
     stall timeout: a ``watchdog.stall`` with ``idle_s`` >= the timeout, a
-    bundle with its four sections, ``tpusnap_stalls_total`` >= 1; the take
-    commits and restores bit-exact."""
+    bundle with its five sections, the last a sampled profile of at least
+    one sample whose folded stacks parse, ``tpusnap_stalls_total`` >= 1; the
+    take commits and restores bit-exact."""
     from torchsnapshot_tpu_torch.telemetry import metrics
 
     snap_path = os.path.join(workdir, "stall_snap")
@@ -2872,24 +3023,27 @@ def monitor_stall_phase(torch, ts, knobs, events, workdir, seed):
         take_s = time.monotonic() - begin
         stalls_total = int(metrics.counter("tpusnap_stalls_total").get(action="take"))
     stalls = [e.metadata for e in events[n_events:] if e.name == "watchdog.stall"]
-    sections = bundle_sections(stalls[0]["bundle"]) if stalls and stalls[0]["bundle"] else []
+    sections, sampled = bundle_sections(stalls[0]["bundle"]) if stalls and stalls[0]["bundle"] else ([], {})
     dst = torch.zeros_like(w)
     ts.Snapshot(snap_path).restore({"m": ts.StateDict({"w": dst})})
     device_sync(torch)
     exact = bit_equal(torch, dst, w)
     ok = (bool(stalls) and stalls[0]["idle_s"] >= STALL_TIMEOUT_S and list(BUNDLE_SECTIONS) == sections
+          and sampled.get("samples", 0) >= 1 and sampled["stacks"] >= 1 and not sampled["unparsed"]
           and stalls_total >= 1 and exact)
     emit({"phase": "monitor_stall", "ok": ok, "bytes": STALL_ELEMS * 4, "take_s": round(take_s, 3),
           "stall_timeout_s": STALL_TIMEOUT_S, "latency_s": STALL_LATENCY_S,
           "idle_s": [s["idle_s"] for s in stalls], "detection_latency_s": (
               round(stalls[0]["idle_s"] - STALL_TIMEOUT_S, 3) if stalls else None),
-          "bundle_sections": sections, "stalls_total": stalls_total, "bit_exact": exact})
+          "bundle_sections": sections, "sampled_profile": sampled, "stalls_total": stalls_total,
+          "bit_exact": exact})
     metrics.reset()
     for path in (snap_path, trace_dir):
         shutil.rmtree(path)
     if not ok:
-        raise RuntimeError("monitor_stall: the injected stall was not detected with its bundle and counter, or the "
-                           "take did not restore bit-exact")
+        raise RuntimeError("monitor_stall: the injected stall was not detected with its bundle (its five sections, "
+                           "a sampled profile of at least one sample) and counter, or the take did not restore "
+                           "bit-exact")
 
 
 def crash_worker_entry(snap, knob_env, seed, n_layers) -> None:
@@ -3877,6 +4031,7 @@ def run(args) -> int:
     event_handlers.register_event_handler(events.append)
     trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, take_s,
                              restore_s)
+    profile_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args.workdir, take_s, restore_s)
     # host data plane phases, held against the take phase's manifest.
     data_plane_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, manifest)
     g = torch.Generator(device="cuda").manual_seed(args.seed + 2)

@@ -4,9 +4,7 @@ gauges, the sidecars' RSS high water, the stall watchdog (a latency fault
 far past a short ``TPUSNAP_STALL_TIMEOUT_S`` must give a bundle, an event
 and the counter; a slow but advancing take must not), escalation, the
 heartbeat file and the step history.  Knobs and faults are set through
-``knobs.override_*``.  The reference's sampled-profile section of a stall
-bundle (tests/test_monitor.py:135-140) comes with the profiler's port
-and is not asserted here."""
+``knobs.override_*``."""
 
 import glob
 import json
@@ -135,6 +133,11 @@ def test_watchdog_fires_on_injected_hang(tmp_path):
     assert "pending asyncio tasks" in text
     assert "thread stacks (faulthandler)" in text
     assert "Thread" in text or "thread" in text
+    # And a phase-tagged sampled profile (cut to the stall timeout): folded
+    # phase;state;stack lines of what the stuck process did over time.
+    assert "--- sampled profile" in text
+    profile_body = text.split("--- sampled profile", 1)[1]
+    assert ";offcpu;" in profile_body or ";oncpu;" in profile_body
 
 
 def test_watchdog_no_false_positive_when_advancing(tmp_path):

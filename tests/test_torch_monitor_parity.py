@@ -7,8 +7,7 @@ same.
   slot layout and size.
 - The heartbeat document and ``PendingSnapshot.progress()`` have the same
   keys, nested ones included, and so do the ``watchdog.stall`` event's
-  metadata and a stall bundle's sections (less the JAX package's sampled
-  profile, which comes with the profiler's port).
+  metadata and a stall bundle's sections, the sampled profile included.
 - The JAX package's ``postmortem.analyze_root`` names a port child killed
   mid-take by a ``crash`` fault (tests/test_postmortem.py:187's case, the
   child running the port): ``killed_mid_take``, verdict ``crash_fault``,
@@ -145,8 +144,7 @@ _SECTION = re.compile(r"^--- ([a-z ]+(?: \([a-z]+\))?)(?: \(\d.*\))? ---$", re.M
 
 def test_stall_event_and_bundle_sections_match(tmp_path):
     """The same injected hang in each package: the watchdog.stall metadata
-    keys are equal, and so are the bundle's sections, less the JAX
-    package's sampled profile."""
+    keys are equal, and so are the bundle's sections."""
     events = {"jax": [], "port": []}
     sections = {}
     registries = {"jax": jax_events, "port": port_events}
@@ -166,8 +164,14 @@ def test_stall_event_and_bundle_sections_match(tmp_path):
         events[pkg] = stall.metadata
     assert set(events["port"]) == set(events["jax"])
     assert events["port"]["action"] == events["jax"]["action"] == "take"
-    assert sections["port"] == ["progress", "pipeline states", "pending asyncio tasks", "thread stacks (faulthandler)"]
-    assert sections["jax"] == sections["port"] + ["sampled profile"]
+    assert sections["port"] == [
+        "progress",
+        "pipeline states",
+        "pending asyncio tasks",
+        "thread stacks (faulthandler)",
+        "sampled profile",
+    ]
+    assert sections["jax"] == sections["port"]
 
 
 _CHILD_TAKE = """

@@ -27,12 +27,13 @@ the peer daemon's server tracer (``TPUSNAP_PEER_TRACE_MAX_SPANS``,
 ``_MAX_BYTES``), the scheduler's progress table
 (``TPUSNAP_PROGRESS_INTERVAL_S``), the health monitor's stall watchdog
 (``TPUSNAP_STALL_TIMEOUT_S``, ``TPUSNAP_STALL_ESCALATE``) and heartbeat
-(``TPUSNAP_HEARTBEAT_FILE``), and the flight recorder
-(``TPUSNAP_BLACKBOX``, ``_SLOTS``, ``_SLOT_BYTES``).
+(``TPUSNAP_HEARTBEAT_FILE``), the flight recorder
+(``TPUSNAP_BLACKBOX``, ``_SLOTS``, ``_SLOT_BYTES``) and the sampling
+profiler (``TPUSNAP_PROFILE``, ``TPUSNAP_PROFILE_HZ``).
 
 Every other knob of the JAX package is named here too, so that none is
-ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of modules
-this package does not have yet (the profiler, fleet telemetry), and
+ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of a
+module this package does not have yet (fleet telemetry), and
 ``TPUSNAP_NATIVE``, whose ``0``
 selects the JAX package's pure-Python data plane (this package requires
 its native library): :func:`warn_unimplemented_knobs` warns once per
@@ -147,8 +148,6 @@ UNIMPLEMENTED_KNOBS = (
     FLEET_TELEMETRY_ENV_VAR,
     FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
     FLEET_TELEMETRY_STALE_S_ENV_VAR,
-    PROFILE_DIR_ENV_VAR,
-    PROFILE_HZ_ENV_VAR,
 )
 # Knobs of the JAX package with no meaning in torch (sub-word bitcast
 # staging); set or not, they change nothing here.
@@ -218,6 +217,9 @@ _DEFAULT_PROGRESS_INTERVAL_S = 5.0
 # Flight-recorder ring geometry: 512 slots of 512 bytes (256 KiB a process).
 _DEFAULT_BLACKBOX_SLOTS = 512
 _DEFAULT_BLACKBOX_SLOT_BYTES = 512
+# Sampling profiler: wall-clock ticks per second, 99 rather than 100 so the
+# ticks do not run in lockstep with work on a round period.
+_DEFAULT_PROFILE_HZ = 99.0
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 # Smallest object-store read that fans out across concurrent ranged GETs
@@ -591,6 +593,31 @@ def get_blackbox_slot_bytes() -> int:
     """Bytes of one flight-recorder slot: a record is one ``pwrite`` of
     exactly this many bytes, so a kill tears at most one slot."""
     return max(128, _get_int_env(BLACKBOX_SLOT_BYTES_ENV_VAR, _DEFAULT_BLACKBOX_SLOT_BYTES))
+
+
+def get_profile_dir() -> Optional[str]:
+    """Directory of the per-operation sampled CPU profiles
+    (``telemetry/profiler.py``), or None: profiling off (the default).
+    Each monitored take, async_take and restore writes
+    ``<kind>-<op8>-rank<r>.profile.json`` (speedscope-loadable, the tpusnap
+    schema under ``tpusnap``) and a ``.profile.collapsed`` flamegraph text
+    there; by convention the directory of ``TPUSNAP_TRACE_DIR``."""
+    val = os.environ.get(PROFILE_DIR_ENV_VAR, "").strip()
+    return val or None
+
+
+def get_profile_hz() -> float:
+    """Sampling frequency of the profiler in Hz (default 99), at most 1000.
+    0 or less disables it even with ``TPUSNAP_PROFILE`` set: no sampler
+    thread, no profile file.  A value that does not parse is the default."""
+    val = os.environ.get(PROFILE_HZ_ENV_VAR)
+    if val is None or not val.strip():
+        return _DEFAULT_PROFILE_HZ
+    try:
+        hz = float(val)
+    except ValueError:
+        return _DEFAULT_PROFILE_HZ
+    return 0.0 if hz <= 0 else min(hz, 1000.0)
 
 
 def get_store_addr() -> Optional[str]:
@@ -1222,4 +1249,16 @@ def override_blackbox_slots(value: int) -> Generator[None, None, None]:
 @contextmanager
 def override_blackbox_slot_bytes(value: int) -> Generator[None, None, None]:
     with override_env(BLACKBOX_SLOT_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_profile_dir(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(PROFILE_DIR_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_profile_hz(value: float) -> Generator[None, None, None]:
+    with override_env(PROFILE_HZ_ENV_VAR, str(value)):
         yield

@@ -1,8 +1,9 @@
 """Per-phase time/byte attribution for the checkpoint pipeline.
 
 Counterpart of ``torchsnapshot_tpu/phase_stats.py`` with its tracing hook,
-its flight-recorder observer hook and :func:`last_phase`, and without the
-profiler's thread tags.  Per phase (``d2h``,
+its flight-recorder observer hook, :func:`last_phase` and the sampling
+profiler's attribution scope (:func:`tagged`, :func:`thread_phases`, the
+op-driver tags).  Per phase (``d2h``,
 ``h2d_dispatch``, ``h2d_land``, ``checksum``, ``native_write_hash``,
 ``fs_read`` ...) it accumulates **thread-seconds** (``s``: summed over
 concurrent workers), **bytes**, a count, and **wall-seconds** (``wall``:
@@ -51,6 +52,21 @@ _observer_hook: Optional[Callable[[str, float, float, int], None]] = None
 _last_phase: Optional[str] = None
 
 
+# Phases active on each thread right now (innermost last), keyed by thread
+# ident: pushed by timed() and tagged().  The sampling profiler
+# (telemetry/profiler.py) reads them to attribute a thread's stack sample;
+# every mutation is one list or dict operation (atomic under the GIL), and
+# readers tolerate a stack emptying between lookup and index.
+_thread_phases: Dict[int, List[str]] = {}
+
+# Fallback tag of each thread driving an operation (ident -> stack of
+# "<kind>_drive" tags), registered by the health monitor, and of the worker
+# threads of the pools that thread creates (scheduler._PhaseInheritingExecutor):
+# what those threads do that no timed() block covers samples as the op's,
+# not as untagged.
+_driver_tags: Dict[int, List[str]] = {}
+
+
 def set_trace_hook(hook: Optional[Callable[[str, float, float, int], None]]) -> None:
     global _trace_hook
     _trace_hook = hook
@@ -64,6 +80,77 @@ def set_observer_hook(hook: Optional[Callable[[str, float, float, int], None]]) 
 def last_phase() -> Optional[str]:
     """Name of the most recently recorded phase (None before any)."""
     return _last_phase
+
+
+def _push_thread_phase(phase: str) -> None:
+    _thread_phases.setdefault(threading.get_ident(), []).append(phase)
+
+
+def _pop_thread_phase() -> None:
+    ident = threading.get_ident()
+    stack = _thread_phases.get(ident)
+    if stack:
+        stack.pop()
+        if not stack:
+            _thread_phases.pop(ident, None)
+
+
+def current_phase() -> Optional[str]:
+    """Innermost phase active on the calling thread (a timed() block or a
+    tagged() scope), or None: the tag an executor captures at submit time
+    so that its worker inherits the submitter's phase."""
+    stack = _thread_phases.get(threading.get_ident())
+    try:
+        return stack[-1] if stack else None
+    except IndexError:
+        return None
+
+
+@contextmanager
+def tagged(phase: str) -> Generator[None, None, None]:
+    """Attribute the calling thread's samples to ``phase`` for the block,
+    recording no time: no phase's stats or wall change."""
+    _push_thread_phase(phase)
+    try:
+        yield
+    finally:
+        _pop_thread_phase()
+
+
+def register_driver(ident: int, tag: str) -> None:
+    """Make ``tag`` the fallback phase of thread ``ident``, the thread
+    driving an operation."""
+    _driver_tags.setdefault(ident, []).append(tag)
+
+
+def unregister_driver(ident: int, tag: str) -> None:
+    """Remove the newest occurrence of ``tag`` from ``ident``'s driver tags.
+    Callable from any thread: an async take finishes on its commit thread,
+    not on the thread that registered it."""
+    stack = _driver_tags.get(ident)
+    if not stack:
+        return
+    for i in range(len(stack) - 1, -1, -1):
+        if stack[i] == tag:
+            del stack[i]
+            break
+    if not stack:
+        _driver_tags.pop(ident, None)
+
+
+def thread_phases() -> Dict[int, str]:
+    """Every thread's current attribution: the innermost timed() or
+    tagged() phase, else its op-driver tag.  Read once per profiler tick;
+    under concurrent mutation a sample may go to the phase that just
+    ended, never to an error."""
+    out: Dict[int, str] = {}
+    for table in (_driver_tags, _thread_phases):
+        for ident, stack in list(table.items()):
+            try:
+                out[ident] = stack[-1]
+            except IndexError:
+                pass
+    return out
 
 
 def add(
@@ -129,9 +216,11 @@ def timed(phase: str, nbytes: int = 0) -> Generator[None, None, None]:
     token = object()
     with _lock:
         _active_begins.setdefault(phase, {})[token] = begin
+    _push_thread_phase(phase)
     try:
         yield
     finally:
+        _pop_thread_phase()
         end = time.monotonic()
         add(phase, end - begin, nbytes, end=end, _release_token=token)
 
@@ -158,6 +247,15 @@ def snapshot() -> Dict[str, Dict[str, float]]:
         for phase, ivs in _intervals.items():
             out[phase]["wall"] = _wall_base.get(phase, 0.0) + _union_s(ivs)
     return out
+
+
+def attributed_wall_s() -> float:
+    """Union of every phase's live intervals: the elapsed time at least one
+    phase accounts for.  Wall retired by compaction is left out (it cannot
+    be unioned across phases)."""
+    with _lock:
+        ivs = [iv for lst in _intervals.values() for iv in lst]
+    return _union_s(ivs)
 
 
 def reset() -> None:

@@ -46,6 +46,7 @@ import asyncio
 import logging
 import os
 import socket
+import threading
 import time
 from collections import Counter, deque
 from concurrent.futures import Executor, ThreadPoolExecutor
@@ -357,6 +358,48 @@ async def _with_retries(fn, what: str, path: str, rank: int, semaphore) -> None:
             await asyncio.sleep(retry_policy.backoff_s(attempt))
 
 
+class _PhaseInheritingExecutor(ThreadPoolExecutor):
+    """A thread pool whose workers inherit the submitter's phase: ``submit``
+    runs the callable under ``phase_stats.tagged`` of the submitting
+    thread's innermost phase, else its op-driver tag.  Pool callbacks with
+    no timer of their own (codec closures, consume callbacks) then sample
+    under the phase that submitted them, not as untagged.
+
+    Each worker also takes the creating thread's attribution as its
+    fallback (``phase_stats.register_driver``) until :meth:`shutdown`:
+    what a worker does between items (setting a result, waiting for the
+    GIL to start the next one) samples as the op's.  Attribution only: no
+    phase's stats or wall change."""
+
+    def __init__(self, max_workers: int, thread_name_prefix: str = "") -> None:
+        self._fallback = phase_stats.current_phase() or phase_stats.thread_phases().get(threading.get_ident())
+        self._workers: List[int] = []
+        super().__init__(max_workers, thread_name_prefix, initializer=self._adopt_worker)
+
+    def _adopt_worker(self) -> None:
+        if self._fallback is not None:
+            self._workers.append(threading.get_ident())
+            phase_stats.register_driver(threading.get_ident(), self._fallback)
+
+    def submit(self, fn, /, *args, **kwargs):
+        tag = phase_stats.current_phase()
+        if tag is None:
+            tag = phase_stats.thread_phases().get(threading.get_ident())
+        if tag is None:
+            return super().submit(fn, *args, **kwargs)
+
+        def _run_tagged():
+            with phase_stats.tagged(tag):
+                return fn(*args, **kwargs)
+
+        return super().submit(_run_tagged)
+
+    def shutdown(self, wait: bool = True, *, cancel_futures: bool = False) -> None:
+        super().shutdown(wait=wait, cancel_futures=cancel_futures)
+        while self._workers:
+            phase_stats.unregister_driver(self._workers.pop(), self._fallback)
+
+
 class PendingIOWork:
     """The storage I/O of a write pipeline whose staging has drained: owns
     the pipeline's event loop, its executor and the write tasks (each
@@ -403,7 +446,12 @@ class PendingIOWork:
         begin = time.monotonic()
         try:
             if self._io_tasks:
-                with ttrace.span("io_drain", cat="scheduler", n_tasks=len(self._io_tasks)):
+                # The tag attributes the drain thread's samples (the event
+                # loop driving the writes) for the profiler; the span
+                # records the wall.
+                with ttrace.span("io_drain", cat="scheduler", n_tasks=len(self._io_tasks)), phase_stats.tagged(
+                    "io_drain_drive"
+                ):
                     self._loop.run_until_complete(self._drain())
         except BaseException:
             # Cancel and drain the rest, so the loop closes clean and the
@@ -474,7 +522,7 @@ async def execute_write_reqs(
     storage I/O; return once staging has drained.  The returned
     :class:`PendingIOWork` owns this loop and the writes still running."""
     loop = asyncio.get_running_loop()
-    executor = ThreadPoolExecutor(max_workers=_write_executor_workers())
+    executor = _PhaseInheritingExecutor(max_workers=_write_executor_workers())
     budget = _BudgetTracker(memory_budget_bytes)
     phases_before = phase_stats.snapshot()
     begin = time.monotonic()
@@ -684,7 +732,7 @@ async def execute_read_reqs(
     rank: int,
 ) -> None:
     """Budget-gated read → consume pipeline."""
-    executor = ThreadPoolExecutor(max_workers=_read_executor_workers(read_reqs))
+    executor = _PhaseInheritingExecutor(max_workers=_read_executor_workers(read_reqs))
     budget = _BudgetTracker(memory_budget_bytes)
     ready_for_io = deque(
         sorted(

@@ -42,6 +42,7 @@ import numpy as np
 from .. import integrity, knobs, phase_stats
 from ..io_types import ReadIO, ScatterBuffer, StoragePlugin, WriteIO
 from ..native_io import NativeFileIO
+from ..scheduler import _PhaseInheritingExecutor
 
 _DEFAULT_IO_THREADS = 16
 _PARALLEL_READ_MIN_BYTES = 64 * 1024 * 1024
@@ -158,7 +159,9 @@ class FSStoragePlugin(StoragePlugin):
         knobs.get_native_sanitize()  # a typo raises, also once loaded
         self._native = NativeFileIO.get()
         self._dir_cache: Set[str] = set()
-        self._executor = ThreadPoolExecutor(
+        # Its workers sample under the creating op's attribution between
+        # their items (the profiler's phase inheritance).
+        self._executor = _PhaseInheritingExecutor(
             max_workers=_DEFAULT_IO_THREADS, thread_name_prefix="fs_io"
         )
         # The direct-I/O mode is process-global (one atomic in the native
@@ -223,6 +226,14 @@ class FSStoragePlugin(StoragePlugin):
             raise
 
     def _blocking_read(self, path: str, read_io: ReadIO) -> Tuple[object, Optional[int]]:
+        # The whole call is the read's, for the profiler: a hashed read is
+        # a native_read; an unhashed one is an fs_read unless _read_into
+        # takes the parallel native path (its own, inner tag).
+        hashed = read_io.want_hash and integrity.checksums_enabled()
+        with phase_stats.tagged("native_read" if hashed else "fs_read"):
+            return self._read(path, read_io)
+
+    def _read(self, path: str, read_io: ReadIO) -> Tuple[object, Optional[int]]:
         begin = time.monotonic()
         if read_io.byte_range is None:
             offset, end = 0, self._native.file_size(path)
@@ -261,7 +272,8 @@ class FSStoragePlugin(StoragePlugin):
                 hash64 = None  # a digest of another algo: verify re-hashes
             return hash64, "native_read"
         if nbytes >= _PARALLEL_READ_MIN_BYTES and self._use_parallel():
-            return None, self._timed_parallel(path, offset, view)
+            with phase_stats.tagged("native_read"):
+                return None, self._timed_parallel(path, offset, view)
         self._timed_sequential(path, offset, view, record=nbytes >= _PARALLEL_READ_MIN_BYTES)
         return None, "fs_read"
 

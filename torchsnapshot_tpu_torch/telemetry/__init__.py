@@ -1,7 +1,7 @@
-"""Telemetry: sidecars, step history, traces, metrics, the health monitor
-and the flight recorder.
+"""Telemetry: sidecars, step history, traces, metrics, the health monitor,
+the flight recorder and the sampling profiler.
 
-Counterpart of ``torchsnapshot_tpu/telemetry/`` for six of its modules:
+Counterpart of ``torchsnapshot_tpu/telemetry/`` for seven of its modules:
 
 - :mod:`.sidecar` — a small ``telemetry/<op>.json`` next to
   ``.snapshot_metadata`` for each take, async take and restore
@@ -20,12 +20,14 @@ Counterpart of ``torchsnapshot_tpu/telemetry/`` for six of its modules:
   ``TPUSNAP_HEARTBEAT_FILE`` supervisor heartbeat;
 - :mod:`.blackbox` — the crash-surviving flight recorder
   (``TPUSNAP_BLACKBOX``): a bounded per-process ring of records, in the
-  JAX package's file format.
+  JAX package's file format;
+- :mod:`.profiler` — phase-attributed on- and off-CPU stack samples of
+  each monitored operation under ``TPUSNAP_PROFILE``, and the stall
+  bundle's sampled profile, in the JAX package's profile format.
 
-The profiler, fleet telemetry, the analysis and the postmortem are later
-slices.
+Fleet telemetry, the analysis and the postmortem are later slices.
 """
 
-from . import blackbox, history, metrics, monitor, sidecar, trace
+from . import blackbox, history, metrics, monitor, profiler, sidecar, trace
 
-__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox"]
+__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler"]

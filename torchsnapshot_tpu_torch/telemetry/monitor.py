@@ -1,8 +1,7 @@
 """Pipeline health monitor: live progress, stall watchdog, heartbeat.
 
 Counterpart of ``torchsnapshot_tpu/telemetry/monitor.py`` without its
-fleet-telemetry and sampling-profiler calls (the port has neither module
-yet, so a stall bundle has no sampled-profile section).  Its progress
+fleet-telemetry calls (the port has no fleet module yet).  Its progress
 document, heartbeat document, bundle section names, ``watchdog.stall``
 event and metric families are the JAX package's.
 
@@ -15,16 +14,21 @@ event and metric families are the JAX package's.
 - **Stall watchdog**: with ``TPUSNAP_STALL_TIMEOUT_S`` > 0 a per-op daemon
   thread fingerprints the counters each tick; when nothing advances for
   the timeout it writes a diagnostic bundle (pipeline states, budget,
-  pending asyncio tasks, ``faulthandler`` stacks of every thread) next to
-  the trace directory, emits ``watchdog.stall`` (→ ``tpusnap_stalls_total``)
-  and, with ``TPUSNAP_STALL_ESCALATE=1``, reports the stall through the
-  commit barrier's store so peers blocked there raise ``StorePeerError``.
+  pending asyncio tasks, ``faulthandler`` stacks of every thread and a
+  short phase-tagged sampled profile) next to the trace directory, emits
+  ``watchdog.stall`` (→ ``tpusnap_stalls_total``) and, with
+  ``TPUSNAP_STALL_ESCALATE=1``, reports the stall through the commit
+  barrier's store so peers blocked there raise ``StorePeerError``.
   It re-arms when progress resumes.
 - **Heartbeat**: with ``TPUSNAP_HEARTBEAT_FILE`` set the monitor thread
   rewrites that file atomically with the progress snapshot every tick,
   for supervisors that must tell "slow" from "dead" from outside.
 - **Flight recorder**: with ``TPUSNAP_BLACKBOX`` set the thread also
   spills a progress record to the ring (telemetry/blackbox.py) each tick.
+- **Profiler**: every op registers its thread as the op's driver
+  (``phase_stats.register_driver``, tag ``<kind>_drive``) and, with
+  ``TPUSNAP_PROFILE`` set, begins and ends its profile
+  (telemetry/profiler.py).
 
 With every knob unset no thread starts: one small object per operation.
 """
@@ -44,7 +48,7 @@ from typing import Any, Callable, Dict, List, Optional
 from .. import knobs, phase_stats, rss_profiler
 from ..event import Event
 from ..event_handlers import log_event
-from . import blackbox
+from . import blackbox, profiler
 
 logger = logging.getLogger(__name__)
 
@@ -55,6 +59,9 @@ _ACTIVE: List["OpMonitor"] = []
 _MIN_TICK_S = 0.02
 _MAX_TICK_S = 60.0
 STALL_BUNDLE_PREFIX = "stall-"
+# Length of a stall bundle's sampled profile, cut to the stall timeout so a
+# short timeout does not hold the watchdog thread for 5 s a stall.
+_STALL_PROFILE_S = 5.0
 
 # phase_stats phases that accumulate while the pipeline goes nowhere:
 # counting them as progress would blind the watchdog to a budget-blocked
@@ -91,6 +98,14 @@ class OpMonitor:
         # heartbeat with its own terminal document.
         self._heartbeat_path = knobs.get_heartbeat_file() if watchdog else None
         self._blackbox = blackbox.enabled()
+        # The registering thread drives this op: its samples outside any
+        # timed()/tagged() scope (planning, event-loop turns) are the op's.
+        # Keyed by ident, since finish() may run on another thread (an
+        # async take's commit thread).
+        self._driver_ident = threading.get_ident()
+        self._driver_tag = f"{kind}_drive"
+        phase_stats.register_driver(self._driver_ident, self._driver_tag)
+        self._profile_op = profiler.begin_op(kind, op_id, rank)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         if self._stall_timeout_s > 0 or self._heartbeat_path or self._blackbox:
@@ -301,10 +316,34 @@ class OpMonitor:
                 f.write("\n--- thread stacks (faulthandler) ---\n")
                 f.flush()
                 faulthandler.dump_traceback(file=f)
+                f.write(self._sampled_profile_section())
             return path
         except OSError:
             logger.warning("failed to write stall bundle %s", path, exc_info=True)
             return None
+
+    def _sampled_profile_section(self) -> str:
+        """A short phase-tagged sampled profile: what the stuck process does
+        over time (spinning on-CPU in a frame, or parked off-CPU in a
+        wait), per phase.  A sampling failure costs this section only."""
+        burst_s = min(_STALL_PROFILE_S, self._stall_timeout_s or _STALL_PROFILE_S)
+        try:
+            meta = profiler.sample_burst(burst_s)
+            lines = profiler.collapsed_lines(meta)
+        except Exception:  # noqa: BLE001 — the bundle goes on without it
+            logger.warning("stall profile burst failed", exc_info=True)
+            return "\n--- sampled profile ---\n(sampling failed)\n"
+        shown = lines[:60]
+        out = [
+            "",
+            f"--- sampled profile ({meta['duration_s']:.1f}s @ {meta['hz']:g} Hz, "
+            f"{meta['samples_total']} samples, {meta['oncpu_samples']} on-CPU; "
+            "phase;state;stack count) ---",
+        ]
+        out.extend(shown)
+        if len(lines) > len(shown):
+            out.append(f"(+{len(lines) - len(shown)} more stacks)")
+        return "\n".join(out) + "\n"
 
     def _pipeline_state_lines(self) -> List[str]:
         lines: List[str] = []
@@ -420,6 +459,9 @@ class OpMonitor:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+        phase_stats.unregister_driver(self._driver_ident, self._driver_tag)
+        profiler.end_op(self._profile_op, success)
+        self._profile_op = None
         # Release the scheduler containers the debug closures (and the
         # closed event loop) pin: a caller holding a PendingSnapshot must not
         # keep every pipeline object alive through this monitor.  The plain
