@@ -109,9 +109,21 @@ calls, in phases that each print one JSON line:
                 ending ``done``, no ``watchdog.stall``, the ring holding the
                 op's start and end and a progress record, the sidecar's RSS
                 high water above 0; its wall beside ``async_pinned_host`` run 2
-                and the recorder's calibrated cost per record
+                and the recorder's calibrated cost per record.  Fleet
+                telemetry on too (``TPUSNAP_FLEET_TELEMETRY`` under the work
+                directory, a 1 s interval, a 2 s stale bound whose half is
+                the monitor's liveness floor), the spool collected (at the
+                default 30 s bound) and aggregated beside each poll: at
+                least two live ``async_take`` entries with bytes that never
+                fall, the terminal entry done and successful at
+                ``async_take.end``'s bytes, the take and the restore each
+                counted once in the process totals, the calibrated publish
+                bill (measured once ``os.sync()`` flushed the take's dirty
+                pages) under 1% of the take's wall; the publishes, the raw
+                and calibrated overhead and the entry's bytes printed
    monitor_restore — the in-place restore under the same knobs: bit-exact,
-                no stall, the ring holding its start and end
+                no stall, the ring holding its start and end, its terminal
+                fleet entry done and successful
    monitor_stall — a take of one 256 MiB tensor on the card with
                 ``TPUSNAP_FAULTS=write:1:latency:3`` and a 0.5 s stall
                 timeout: a ``watchdog.stall`` with ``idle_s`` >= 0.5, a bundle
@@ -277,7 +289,12 @@ calls, in phases that each print one JSON line:
                 full width, ``CACHE_WORKER_LAYERS`` layers (n_layers and
                 depth_cut printed), seeded values checked in each; summed
                 origin bytes at most 1.25x the logical bytes, hit + miss
-                twice them
+                twice them.  Both publish into one fleet spool (the
+                snapshot's ``telemetry/live``, a 0.1 s interval): its
+                aggregate holds the two processes, done, with cache hit and
+                miss bytes equal to the workers' own sums and origin bytes
+                at most 1.25x the logical bytes; a 1 ms stale bound then
+                reads no entry
    peer tier — port ``PeerDaemon``s, each in a spawned process advertising
                 127.0.0.1 on a FileStore registry under the work
                 directory, serving an 8-layer cut of the same widths taken
@@ -306,7 +323,13 @@ calls, in phases that each print one JSON line:
                 delta from origin once, the fleet host's peer hit bytes
                 equal to the delta and its cache miss bytes 0; a worker
                 restores step 2 from the fleet host's cache with 0 origin
-                payload bytes, bit-exact
+                payload bytes, bit-exact.  The daemons and the rollouts
+                publish into one fleet spool (a 0.2 s interval): after each
+                rollout its terminal entry's wave document reads ``fleet``
+                with every host completed and the fleet host's peer hit
+                bytes, and each daemon's ``serve`` entry is live and fresh
+                at the default stale bound; after the daemons close, their
+                ``serve`` entries are done
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -2123,6 +2146,7 @@ def store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, workdir)
 
 CACHE_WORKERS = 2
 CACHE_WORKER_LAYERS = 8  # full width; the parent holds state, reference and their takes on the card
+SERVE_FLEET_INTERVAL_S = "0.1"  # the workers' fleet-telemetry interval (a knob's string value)
 
 
 def origin_payload_bytes(faults) -> int:
@@ -2285,34 +2309,52 @@ def restore_worker_entry(snap, knob_env, seed, n_layers, refilled, conn) -> None
 
 def cache_two_workers_phase(torch, ts, knobs, args):
     """cache_two_workers: CACHE_WORKERS processes restore one snapshot onto
-    the card at once through one fresh cache directory."""
+    the card at once through one fresh cache directory, publishing into one
+    fleet spool (0.1 s interval), which the parent aggregates."""
+    from torchsnapshot_tpu_torch.telemetry import fleet
+
     n_layers = min(CACHE_WORKER_LAYERS, args.n_layers)
     snap_path, cache_dir = os.path.join(args.workdir, "serve_snap"), os.path.join(args.workdir, "serve_cache")
+    spool = os.path.join(snap_path, fleet.SPOOL_DIRNAME)
     logical = state_bytes(n_layers)
     ts.Snapshot.take(snap_path, {"model": ts.StateDict(seeded_params(torch, n_layers, args.seed))})
     if DEV == "cuda":
         torch.cuda.empty_cache()  # the workers' restores get the freed memory
     begin = time.monotonic()
-    knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_FAULTS": "none"}
+    knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_FAULTS": "none", "TPUSNAP_FLEET_TELEMETRY": spool,
+                "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S": SERVE_FLEET_INTERVAL_S}
     workers = spawn_collect(restore_worker_entry, [(snap_path, knob_env, args.seed, n_layers, ())] * CACHE_WORKERS,
                             "cache_two_workers", "worker")
     wall = time.monotonic() - begin
     origin = sum(w["origin_payload_bytes"] for w in workers)
     miss = sum(w["miss_bytes"] for w in workers)
     hit = sum(w["hit_bytes"] for w in workers)
+    view = fleet.aggregate(fleet.collect(spool, stale_s=600, sweep=False))
+    time.sleep(0.05)
+    aged_out = len(fleet.collect(spool, stale_s=0.001))
+    fleet_ok = (view["n_processes"] == CACHE_WORKERS and view["n_entries"] == CACHE_WORKERS
+                and all(w["kind"] == "restore" and w["state"] == "done" for w in view["workers"])
+                and view["cache"]["hit_bytes"] == hit and view["cache"]["miss_bytes"] == miss
+                and view["cache"]["origin_bytes"] <= 1.25 * logical and aged_out == 0)
     ok = (miss <= 1.25 * logical and hit + miss == CACHE_WORKERS * logical and origin == miss
-          and all(not w["mismatched"] and not w["jax_imported"] for w in workers))
+          and all(not w["mismatched"] and not w["jax_imported"] for w in workers) and fleet_ok)
     emit({"phase": "cache_two_workers", "ok": ok, "workers": CACHE_WORKERS, "n_layers": n_layers,
           "depth_cut": n_layers != N_LAYERS, "logical_bytes": logical, "wall_s": round(wall, 3),
           "origin_payload_bytes": origin, "miss_bytes": miss, "hit_bytes": hit,
           "origin_over_logical": round(miss / logical, 4), "bound": "miss <= 1.25 x logical, hit + miss = 2 x logical",
           "per_worker": [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in w.items()
-                          if k not in ("peer", "phases")} for w in workers]})
+                          if k not in ("peer", "phases")} for w in workers],
+          "fleet": {"ok": fleet_ok, "interval_s": float(SERVE_FLEET_INTERVAL_S), "n_processes": view["n_processes"],
+                    "n_entries": view["n_entries"], "states": [w["state"] for w in view["workers"]],
+                    "cache": view["cache"], "publishes": [w["proc"].get("publishes") for w in view["workers"]],
+                    "overhead_s": [w["proc"].get("overhead_s") for w in view["workers"]],
+                    "entries_after_stale_0.001": aged_out}})
     for path in (snap_path, cache_dir):
         shutil.rmtree(path)
     if not ok:
         raise RuntimeError("cache_two_workers: origin bytes over 1.25x the logical bytes, hit + miss not twice "
-                           "them, or a worker's tensors differ from the seeded values")
+                           "them, a worker's tensors differ from the seeded values, or the fleet view is not both "
+                           "workers done with the workers' own cache totals")
 
 
 def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
@@ -2332,6 +2374,7 @@ def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
 
 PEER_LAYERS = 8
 PEER_TIMEOUT_S = "60"
+ROLLOUT_FLEET_INTERVAL_S = "0.2"  # the daemons' and the rollout's fleet-telemetry interval
 PEER_TRACE_FLUSH_S = 0.5
 DAEMON_TIMEOUT_S = 120
 
@@ -2559,21 +2602,40 @@ def peer_fetch_phases(torch, ts, knobs, args):
     shutil.rmtree(work)
 
 
+def serve_entry_line(fleet, doc):
+    """A daemon's serve entry as read: its age, its process's publishes and
+    their mean wall, and the spacing a budget charged with that wall (as
+    the JAX package's is) would give its beacons."""
+    publishes, overhead_s = doc["proc"].get("publishes") or 0, doc["proc"].get("overhead_s") or 0.0
+    mean_s = overhead_s / publishes if publishes else None
+    return {"stale": bool(doc.get("_stale")), "age_s": doc["_age_s"], "elapsed_s": doc["op"]["elapsed_s"],
+            "publishes": publishes, "mean_publish_wall_s": round(mean_s, 6) if mean_s is not None else None,
+            "wall_budget_spacing_s": round(mean_s / fleet.OVERHEAD_BUDGET_FRAC, 3) if mean_s is not None else None}
+
+
 def peer_rollout_phase(torch, ts, knobs, args):
     """peer_rollout: a CAS SnapshotManager root saves step 1 and step 2
     (``wk`` refilled); two daemons serve it; ``rollout_fleet`` rolls out
     step 1 (all of it the delta), then step 2 (the delta: ``wk``'s
-    chunk); a worker restores step 2 from the fleet host's cache."""
+    chunk); a worker restores step 2 from the fleet host's cache.  The
+    daemons and the rollout publish into one fleet spool (0.2 s interval):
+    after each rollout its terminal entry's wave document and the daemons'
+    live ``serve`` entries are read, after the daemons close their terminal
+    ones."""
     from torchsnapshot_tpu_torch import peerd
+    from torchsnapshot_tpu_torch.telemetry import fleet
 
     work = os.path.join(args.workdir, "peer")
     root, kv = os.path.join(work, "root"), os.path.join(work, "kv")
+    spool = os.path.join(work, "spool")
     cache_dirs = [os.path.join(work, "cache_a"), os.path.join(work, "cache_b")]
     wk = ("layers", "attn", "wk")
     params = seeded_params(torch, PEER_LAYERS, args.seed)
-    knob_env = {"TPUSNAP_STORE_PATH": kv, "TPUSNAP_PEER_FETCH": "1", "TPUSNAP_PEER_TIMEOUT_S": PEER_TIMEOUT_S}
+    knob_env = {"TPUSNAP_STORE_PATH": kv, "TPUSNAP_PEER_FETCH": "1", "TPUSNAP_PEER_TIMEOUT_S": PEER_TIMEOUT_S,
+                "TPUSNAP_FLEET_TELEMETRY": spool, "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S": ROLLOUT_FLEET_INTERVAL_S}
     saves, rollouts = [], []
     with PeerDaemons(cache_dirs, root, knob_env) as daemons, knobs.override_store_path(kv), knobs.override_cas(True):
+        daemon_pids = [proc.pid for proc in daemons.procs]
         mgr = ts.SnapshotManager(root)
         for step in (1, 2):
             if step == 2:
@@ -2586,17 +2648,33 @@ def peer_rollout_phase(torch, ts, knobs, args):
             _, _, md, prev_md = peerd.resolve_rollout_target(root, step)
             delta_bytes = sum(n for _, n in peerd.delta_locations(md, prev_md))
             begin = time.monotonic()
-            out = peerd.rollout_fleet(root, step, canary=1)
+            with knobs.override_fleet_telemetry(spool), knobs.override_fleet_telemetry_interval_s(
+                float(ROLLOUT_FLEET_INTERVAL_S)
+            ):
+                out = peerd.rollout_fleet(root, step, canary=1)
             wall = time.monotonic() - begin
             canary = out["canary_results"][0].get("warm") or {}
-            fleet = (out.get("fleet_results") or [{}])[0].get("warm") or {}
+            fleet_warm = (out.get("fleet_results") or [{}])[0].get("warm") or {}
             ok = (out["ok"] and out["step"] == step and canary.get("delta_bytes") == delta_bytes > 0
                   and canary["cache"]["miss_bytes"] == delta_bytes and canary["peer"]["hit_bytes"] == 0
-                  and fleet.get("delta_bytes") == delta_bytes and fleet["peer"]["hit_bytes"] == delta_bytes
-                  and fleet["cache"]["miss_bytes"] == 0)
+                  and fleet_warm.get("delta_bytes") == delta_bytes and fleet_warm["peer"]["hit_bytes"] == delta_bytes
+                  and fleet_warm["cache"]["miss_bytes"] == 0)
+            terminal = [d for d in fleet_entries(fleet, spool, "rollout", pid=os.getpid())
+                        if (d.get("extra") or {}).get("rollout")]
+            wave = terminal[-1]["extra"]["rollout"] if len(terminal) == 1 else {}
+            serve = {d["pid"]: d for d in fleet_entries(fleet, spool, "serve")}
+            fleet_ok = (len(terminal) == 1 and terminal[0]["op"]["done"] is True
+                        and terminal[0]["op"]["success"] is True and wave.get("wave") == "fleet"
+                        and wave.get("step") == step and wave.get("completed") == wave.get("total") == 1
+                        and wave.get("peer_bytes") == (fleet_warm.get("peer") or {}).get("hit_bytes") == delta_bytes
+                        and sorted(serve) == sorted(daemon_pids)
+                        and all(not d.get("_stale") and d["op"]["done"] is False for d in serve.values()))
+            ok = ok and fleet_ok
             rollouts.append({"step": step, "ok": ok, "wall_s": round(wall, 3), "delta_bytes": delta_bytes,
                              "canary": out["canaries"], "fleet": out["fleet"], "canary_warm": canary,
-                             "fleet_warm": fleet, "canary_verify": out.get("canary_verify"),
+                             "fleet_warm": fleet_warm, "canary_verify": out.get("canary_verify"),
+                             "fleet_telemetry": {"ok": fleet_ok, "wave": wave, "serve_entries_fresh": {
+                                 pid: serve_entry_line(fleet, d) for pid, d in serve.items()}},
                              "aborted": out.get("aborted"), "errors": [r.get("error") for r in
                                                                      out["canary_results"] + out.get("fleet_results", [])
                                                                      if not r.get("ok")]})
@@ -2604,14 +2682,17 @@ def peer_rollout_phase(torch, ts, knobs, args):
         if DEV == "cuda":
             torch.cuda.empty_cache()
         fleet_cache = cache_dirs[daemons.addrs.index(rollouts[-1]["fleet"][0])] if rollouts[-1]["fleet"] else None
+    serve_done = {d["pid"]: d["op"]["done"] is True and d["op"]["success"] is True
+                  for d in fleet_entries(fleet, spool, "serve", stale_s=1e9)}
     if fleet_cache is None:
         raise RuntimeError(f"peer_rollout: no fleet host: {rollouts[-1]}")
     w = spawn_collect(restore_worker_entry, [(os.path.join(root, "step_2"), {"TPUSNAP_CACHE_DIR": fleet_cache,
                                                                             "TPUSNAP_FAULTS": "none"},
                                               args.seed, PEER_LAYERS, ("/".join(wk),))], "peer_rollout", "worker")[0]
     ok = all(r["ok"] for r in rollouts) and w["origin_payload_bytes"] == 0 and not w["mismatched"] \
-        and not w["jax_imported"]
+        and not w["jax_imported"] and sorted(serve_done) == sorted(daemon_pids) and all(serve_done.values())
     emit({"phase": "peer_rollout", "ok": ok, "n_layers": PEER_LAYERS, "save_s": saves, "rollouts": rollouts,
+          "serve_entries_done_after_close": serve_done,
           "restore_from_fleet_cache": {"restore_s": round(w["restore_s"], 3), "gbps":
                                        round(state_bytes(PEER_LAYERS) / GB / w["restore_s"], 3),
                                        "origin_payload_bytes": w["origin_payload_bytes"],
@@ -2621,8 +2702,9 @@ def peer_rollout_phase(torch, ts, knobs, args):
     shutil.rmtree(work)
     if not ok:
         raise RuntimeError("peer_rollout: a rollout failed or moved other bytes than its delta (canary from origin "
-                           "once, fleet host from the canary), or the restore from the fleet host's cache read "
-                           "origin or differs from the seeded values")
+                           "once, fleet host from the canary), the restore from the fleet host's cache read "
+                           "origin or differs from the seeded values, or the fleet spool lacks the rollout's "
+                           "terminal wave document, a daemon's fresh serve entry or its terminal one")
 
 
 def peer_phases(torch, ts, knobs, args):
@@ -2861,6 +2943,17 @@ def profile_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nb
 MONITOR_STALL_TIMEOUT_S = 60  # above the async commit's 5.4-8.9 s fsync (PERF.md §7)
 MONITOR_PROGRESS_INTERVAL_S = 1
 MONITOR_POLL_S = 0.25
+# Fleet telemetry (telemetry/fleet.py) in the monitored take: its interval;
+# the publishers' stale bound, whose half is the monitor's liveness floor,
+# so the beacons keep the interval while the overhead budget would pause
+# them (one publish queued behind the drain took 24-537 ms on the card's
+# guest: tools/fleet_publish_probe.py); the bound the poll reads with (the
+# default); and the share of the take's wall the calibrated publish bill
+# must stay under (the JAX module's own bar).
+MONITOR_FLEET_INTERVAL_S = 1
+MONITOR_FLEET_STALE_S = 2
+FLEET_READ_STALE_S = 30.0
+FLEET_OVERHEAD_BAR = 0.01
 STALL_ELEMS = 64 << 20  # one float32 tensor of 256 MiB
 STALL_TIMEOUT_S = 0.5
 STALL_LATENCY_S = 3
@@ -2918,22 +3011,36 @@ def bundle_sections(path):
     return [re.sub(r" \(\d.*\)$", "", head) for _, head in heads], sampled
 
 
+def fleet_entries(fleet, spool, kind, pid=None, stale_s=None):
+    """The spool's entries of op ``kind`` (of process ``pid``), collected
+    without sweeping, oldest published first."""
+    return [d for d in fleet.collect(spool, stale_s=stale_s, sweep=False)
+            if d["kind"] == kind and (pid is None or d["pid"] == pid)]
+
+
 def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir,
                              unmonitored_total_s):
     """monitor_async_take / monitor_restore: the state's pinned_host async
     take with the watchdog (60 s), a 1 s progress interval, the heartbeat,
-    the recorder and the metrics on, ``progress()`` polled every 0.25 s
-    until the commit; then the in-place restore under the same knobs."""
-    from torchsnapshot_tpu_torch.telemetry import blackbox, metrics
+    the recorder, the metrics and the fleet spool (1 s interval) on,
+    ``progress()`` polled every 0.25 s until the commit, each poll beside a
+    ``collect`` and ``aggregate`` of the spool; then the in-place restore
+    under the same knobs."""
+    from torchsnapshot_tpu_torch.telemetry import blackbox, fleet, metrics
 
     snap_path = os.path.join(workdir, "monitor_snap")
     heartbeat = os.path.join(workdir, "monitor_heartbeat.json")
     bb_dir = os.path.join(workdir, "monitor_blackbox")
+    spool = os.path.join(workdir, "fleet_spool")
     metrics.reset()
+    fleet.reset_process_totals()
     n_events = len(events)
-    samples, mid_drain = [], set()
+    samples, mid_drain, live = [], set(), {}
     with contextlib.ExitStack() as stack:
         monitor_knobs(knobs, stack, heartbeat, bb_dir)
+        stack.enter_context(knobs.override_fleet_telemetry(spool))
+        stack.enter_context(knobs.override_fleet_telemetry_interval_s(MONITOR_FLEET_INTERVAL_S))
+        stack.enter_context(knobs.override_fleet_telemetry_stale_s(MONITOR_FLEET_STALE_S))
         device_sync(torch)
         begin = time.monotonic()
         with knobs.override_async_staging("pinned_host"):
@@ -2945,12 +3052,27 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
             hb = read_heartbeat(heartbeat)
             if hb is not None and not hb["done"]:
                 mid_drain.add(hb["heartbeat_time"])
+            entries = fleet_entries(fleet, spool, "async_take", stale_s=FLEET_READ_STALE_S)
+            view = fleet.aggregate(entries)
+            for d, w in zip(entries, view["workers"]):
+                if w["state"] not in ("done", "failed", "suspected-dead"):
+                    live[d["publish_time"]] = (w["bytes_staged"], w["bytes_written"])
             time.sleep(MONITOR_POLL_S)
         pending.wait()
         total_s = time.monotonic() - begin
         final = pending.progress()
         samples.append((final["bytes"]["staged"], final["bytes"]["written"]))
         terminal = read_heartbeat(heartbeat)
+        take_entries = fleet_entries(fleet, spool, "async_take", stale_s=FLEET_READ_STALE_S)
+        # The take's bill: its publishes times the per-publish cost measured
+        # at rest, once the take's dirty pages are flushed (right after
+        # wait() their writeback still queues every file call).
+        fleet_cost_at_wait = fleet.calibrated_overhead_s()
+        begin = time.monotonic()
+        os.sync()
+        sync_s = time.monotonic() - begin
+        fleet_cost = fleet.calibrated_overhead_s()
+        take_publish_wall_s = round(pending._monitor.fleet_overhead_s, 6)
         take_events = events[n_events:]
         n_events = len(events)
         seconds, mismatched, moved, _ = restore_check(torch, ts, snap_path, app_state, ref, phase_stats)
@@ -2958,6 +3080,9 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
         stalls_total = int(metrics.counter("tpusnap_stalls_total").get(action="async_take")
                            + metrics.counter("tpusnap_stalls_total").get(action="restore"))
         cost = blackbox.calibrated_overhead_s()
+        fleet_totals = fleet.process_totals()
+        restore_entries = fleet_entries(fleet, spool, "restore", stale_s=FLEET_READ_STALE_S)
+        entry_bytes = os.path.getsize(os.path.join(spool, fleet.entry_name("async_take", 0)))
     rings = ring_records(blackbox, bb_dir)
     records = rings.get(os.getpid(), [])
     progress_records = [r for r in records if r["kind"] == "progress"]
@@ -2967,11 +3092,21 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
         if n.startswith("async_take-"))]
     monotone = all(a[0] <= b[0] and a[1] <= b[1] for a, b in zip(samples, samples[1:]))
     take_stalls = [e.metadata for e in take_events if e.name == "watchdog.stall"]
+    live_bytes = [live[t] for t in sorted(live)]
+    fleet_monotone = all(a[0] <= b[0] and a[1] <= b[1] for a, b in zip(live_bytes, live_bytes[1:]))
+    take_entry = take_entries[-1]["op"] if len(take_entries) == 1 else {}
+    fleet_ok = (len(live) >= 2 and fleet_monotone and take_entry.get("done") is True
+                and take_entry.get("success") is True and take_entry["bytes"]["written"] == take_end["bytes"]
+                and take_entries[0]["proc"]["ops_done"] == 1 and len(restore_entries) == 1
+                and restore_entries[0]["op"]["done"] is True and restore_entries[0]["op"]["success"] is True
+                and restore_entries[0]["proc"]["ops_done"] == 2
+                and fleet_totals["ops_done"] == 2 and fleet_totals["ops_failed"] == 0
+                and fleet_cost["estimated_s"] < FLEET_OVERHEAD_BAR * total_s)
     ok = (monotone and final["bytes"]["written"] == take_end["bytes"] and final["done"] is True
           and final["success"] is True and len(mid_drain) >= 2 and terminal is not None and terminal["done"] is True
           and not take_stalls and final["stalls"] == 0
           and {"async_take.start", "async_take.end"} <= set(op_names(records)) and progress_records
-          and len(sidecars) == 1 and sidecars[0]["rss_high_water_bytes"] > 0)
+          and len(sidecars) == 1 and sidecars[0]["rss_high_water_bytes"] > 0 and fleet_ok)
     emit({"phase": "monitor_async_take", "ok": ok, "stall_s": round(stall_s, 4), "total_s": round(total_s, 3),
           "unmonitored_total_s": round(unmonitored_total_s, 3), "state_bytes": nbytes,
           "polls": len(samples), "monotone": monotone, "bytes_staged": final["bytes"]["staged"],
@@ -2981,20 +3116,35 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
           "ring_records": len(records), "ring_progress_records": len(progress_records),
           "ring_op_records": op_names(records), "rings": len(rings),
           "blackbox_per_record_s": cost["per_record_s"],
-          "rss_high_water_bytes": sidecars[0]["rss_high_water_bytes"] if sidecars else None})
+          "rss_high_water_bytes": sidecars[0]["rss_high_water_bytes"] if sidecars else None,
+          "fleet": {"ok": fleet_ok, "interval_s": MONITOR_FLEET_INTERVAL_S, "live_entries_seen": len(live),
+                    "live_bytes": live_bytes, "monotone": fleet_monotone,
+                    "terminal": {k: take_entry.get(k) for k in ("done", "success", "requests", "bytes")},
+                    "ops_done": [take_entries[0]["proc"]["ops_done"] if take_entries else None,
+                                 restore_entries[0]["proc"]["ops_done"] if restore_entries else None],
+                    "publisher_stale_s": MONITOR_FLEET_STALE_S, "take_publishes": fleet_cost["publishes"],
+                    "take_publish_wall_s": take_publish_wall_s, "publishes_with_restore": fleet_totals["publishes"],
+                    "raw_overhead_s_with_restore": round(fleet_totals["overhead_s"], 6),
+                    "calibrated_at_wait": fleet_cost_at_wait, "sync_s": round(sync_s, 3), "calibrated": fleet_cost,
+                    "calibrated_share_of_total": round(fleet_cost["estimated_s"] / total_s, 6),
+                    "bar": f"calibrated estimate < {FLEET_OVERHEAD_BAR} x total_s", "entry_bytes": entry_bytes}})
     if not ok:
         raise RuntimeError("monitor_async_take: progress not monotone or not ending at async_take.end's bytes, fewer "
-                           "than two heartbeats mid-drain, a stall, a ring without the op or progress records, or no "
-                           "RSS high water in the sidecar")
+                           "than two heartbeats mid-drain, a stall, a ring without the op or progress records, no "
+                           "RSS high water in the sidecar, or the fleet spool short of two live entries with "
+                           "monotone bytes, a terminal entry at async_take.end's bytes, each op counted once and "
+                           "a calibrated publish bill under 1% of the take's wall")
     restore_stalls = [e.metadata for e in restore_events if e.name == "watchdog.stall"]
     ok = (not mismatched and not moved and not restore_stalls and stalls_total == 0
           and {"restore.start", "restore.end"} <= set(op_names(records)))
     emit({"phase": "monitor_restore", "ok": ok, "restore_s": round(seconds, 3), "state_bytes": nbytes,
           "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
           "watchdog_stalls": len(restore_stalls), "stalls_total": stalls_total,
-          "ring_op_records": op_names(records)})
+          "ring_op_records": op_names(records),
+          "fleet_terminal": {k: restore_entries[0]["op"].get(k) for k in ("done", "success", "requests", "bytes")}
+          if restore_entries else None})
     metrics.reset()
-    for path in (snap_path, bb_dir, heartbeat):
+    for path in (snap_path, bb_dir, heartbeat, spool):
         (shutil.rmtree if os.path.isdir(path) else os.unlink)(path)
     if not ok:
         raise RuntimeError("monitor_restore: not bit-exact in place, a false stall, or no restore op records")

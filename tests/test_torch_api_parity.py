@@ -105,7 +105,7 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     assert meaningless == {"TPUSNAP_D2H_BITCAST", "TPUSNAP_H2D_BITCAST"}
     assert {"TPUSNAP_GCS_ENDPOINT", "TPUSNAP_S3_ENDPOINT", "TPUSNAP_CAS", "TPUSNAP_CACHE_DIR", "TPUSNAP_CACHE_MAX_BYTES"} <= read
     assert set(PEER_KNOBS) <= read
-    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 4
+    assert len(unimplemented) == len(port_knobs.UNIMPLEMENTED_KNOBS) == 1
     # Read since the telemetry slice (tracing, metrics, the daemon's server
     # tracer and access log) and the sharded-elasticity repair.
     assert {
@@ -129,12 +129,9 @@ def test_every_jax_knob_is_read_unimplemented_or_meaningless_in_the_port():
     } <= read
     # Read since the sampling profiler's slice.
     assert {"TPUSNAP_PROFILE", "TPUSNAP_PROFILE_HZ"} <= read
-    assert unimplemented == {
-        "TPUSNAP_NATIVE",
-        "TPUSNAP_FLEET_TELEMETRY",
-        "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S",
-        "TPUSNAP_FLEET_TELEMETRY_STALE_S",
-    }
+    # Read since the fleet-telemetry slice.
+    assert {"TPUSNAP_FLEET_TELEMETRY", "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S", "TPUSNAP_FLEET_TELEMETRY_STALE_S"} <= read
+    assert unimplemented == {"TPUSNAP_NATIVE"}
 
 
 # The peer tier's knobs, each with a value to set and its getter's name.

@@ -10,6 +10,7 @@ made from seeded numpy generators."""
 import asyncio
 import datetime
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -282,15 +283,29 @@ def test_sigv4_headers_equal_the_jax_plugins(monkeypatch):
             assert port_headers == jax_headers, target
 
 
-def test_one_connection_per_thread_and_none_after_close(s3_server, s3_plugin):
-    """Sequential requests reuse the worker thread's connection; close()
-    joins the pools and closes every connection it opened."""
+def test_one_connection_per_thread_and_none_after_close(s3_server, s3_plugin, monkeypatch):
+    """Each thread that issues requests reuses one connection; close()
+    joins the pools and closes every connection it opened.  How many pool
+    threads serve the sequential calls is the executor's choice (a caller
+    woken by its result can submit before the worker goes idle), so the
+    connections are counted against the threads that asked for one."""
+    from torchsnapshot_tpu_torch.storage_plugins import s3 as s3_mod
+
     plugin = s3_plugin()
+    callers = set()
+    connection = plugin._connection
+
+    def counted_connection():
+        callers.add(threading.get_ident())
+        return connection()
+
+    monkeypatch.setattr(plugin, "_connection", counted_connection)
     for i in range(6):
         plugin.sync_write(WriteIO(path=f"o{i}", buf=_bytes(1024, seed=i)))
         read_io = ReadIO(path=f"o{i}")
         plugin.sync_read(read_io)
-    assert 1 <= len(plugin._conns) <= 2
+    assert 1 <= len(callers) <= s3_mod._IO_THREADS + s3_mod._CHUNK_THREADS
+    assert len(plugin._conns) == len(callers)
     conns = list(plugin._conns)
     plugin.sync_close()
     assert plugin._conns == [] and all(c.sock is None for c in conns)

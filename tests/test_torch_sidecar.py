@@ -207,10 +207,12 @@ def test_deadline_mode_drops_compression_and_sheds_sidecar(tmp_path):
 
 
 def test_unimplemented_knobs_warn_once_naming_themselves(tmp_path, monkeypatch):
-    """Each knob of the JAX package that the port does not implement yet
-    warns once per process when set, naming itself.  One case loops over
-    the tuple, so that the file's case count stays put."""
-    assert len(knobs.UNIMPLEMENTED_KNOBS) == len(set(knobs.UNIMPLEMENTED_KNOBS)) > 1
+    """Each knob of the JAX package that the port does not implement warns
+    once per process when set, naming itself.  One case loops over the
+    tuple, so that the file's case count stays put; since fleet telemetry
+    landed the tuple holds ``TPUSNAP_NATIVE`` alone (no pure-Python data
+    plane to switch to)."""
+    assert knobs.UNIMPLEMENTED_KNOBS == (knobs.NATIVE_ENV_VAR,)
     for i, name in enumerate(knobs.UNIMPLEMENTED_KNOBS):
         monkeypatch.setattr(knobs, "_warned_knobs", set())
         with knobs.override_env(name, "1"):

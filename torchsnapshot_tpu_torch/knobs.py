@@ -28,16 +28,16 @@ the peer daemon's server tracer (``TPUSNAP_PEER_TRACE_MAX_SPANS``,
 (``TPUSNAP_PROGRESS_INTERVAL_S``), the health monitor's stall watchdog
 (``TPUSNAP_STALL_TIMEOUT_S``, ``TPUSNAP_STALL_ESCALATE``) and heartbeat
 (``TPUSNAP_HEARTBEAT_FILE``), the flight recorder
-(``TPUSNAP_BLACKBOX``, ``_SLOTS``, ``_SLOT_BYTES``) and the sampling
-profiler (``TPUSNAP_PROFILE``, ``TPUSNAP_PROFILE_HZ``).
+(``TPUSNAP_BLACKBOX``, ``_SLOTS``, ``_SLOT_BYTES``), the sampling
+profiler (``TPUSNAP_PROFILE``, ``TPUSNAP_PROFILE_HZ``) and fleet telemetry
+(``TPUSNAP_FLEET_TELEMETRY``, ``_INTERVAL_S``, ``_STALE_S``).
 
 Every other knob of the JAX package is named here too, so that none is
-ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds those of a
-module this package does not have yet (fleet telemetry), and
-``TPUSNAP_NATIVE``, whose ``0``
-selects the JAX package's pure-Python data plane (this package requires
-its native library): :func:`warn_unimplemented_knobs` warns once per
-process for each one that is set.  :data:`MEANINGLESS_IN_TORCH_KNOBS` holds
+ignored without a word.  :data:`UNIMPLEMENTED_KNOBS` holds
+``TPUSNAP_NATIVE``, whose ``0`` selects the JAX package's pure-Python data
+plane (this package requires its native library):
+:func:`warn_unimplemented_knobs` warns once per process when it is set.
+:data:`MEANINGLESS_IN_TORCH_KNOBS` holds
 ``TPUSNAP_D2H_BITCAST`` and ``TPUSNAP_H2D_BITCAST``: they force the JAX
 package's sub-word bitcast staging, and torch moves every dtype's bytes
 through a ``view(torch.uint8)`` with no repack.
@@ -113,7 +113,6 @@ H2D_BITCAST_ENV_VAR = _ENV_PREFIX + "H2D_BITCAST"
 ENABLE_SHARDED_ELASTICITY_ROOT_ONLY_ENV_VAR = _ENV_PREFIX + "ENABLE_SHARDED_ARRAY_ELASTICITY_ROOT_ONLY"
 TRACE_DIR_ENV_VAR = _ENV_PREFIX + "TRACE_DIR"
 METRICS_ENV_VAR = _ENV_PREFIX + "METRICS"
-# Knobs of the JAX package's modules that this package does not have yet.
 PROGRESS_INTERVAL_S_ENV_VAR = _ENV_PREFIX + "PROGRESS_INTERVAL_S"
 STALL_TIMEOUT_S_ENV_VAR = _ENV_PREFIX + "STALL_TIMEOUT_S"
 STALL_ESCALATE_ENV_VAR = _ENV_PREFIX + "STALL_ESCALATE"
@@ -140,15 +139,9 @@ BLACKBOX_SLOT_BYTES_ENV_VAR = _ENV_PREFIX + "BLACKBOX_SLOT_BYTES"
 PROFILE_DIR_ENV_VAR = _ENV_PREFIX + "PROFILE"
 PROFILE_HZ_ENV_VAR = _ENV_PREFIX + "PROFILE_HZ"
 
-# The JAX package's knobs this package reads nothing of: the modules that
-# read them are not ported yet (each leaves this tuple when its module
-# lands), and there is no pure-Python data plane to switch to.
-UNIMPLEMENTED_KNOBS = (
-    NATIVE_ENV_VAR,
-    FLEET_TELEMETRY_ENV_VAR,
-    FLEET_TELEMETRY_INTERVAL_S_ENV_VAR,
-    FLEET_TELEMETRY_STALE_S_ENV_VAR,
-)
+# The JAX package's knobs this package reads nothing of: there is no
+# pure-Python data plane to switch to.
+UNIMPLEMENTED_KNOBS = (NATIVE_ENV_VAR,)
 # Knobs of the JAX package with no meaning in torch (sub-word bitcast
 # staging); set or not, they change nothing here.
 MEANINGLESS_IN_TORCH_KNOBS = (D2H_BITCAST_ENV_VAR, H2D_BITCAST_ENV_VAR)
@@ -220,6 +213,10 @@ _DEFAULT_BLACKBOX_SLOT_BYTES = 512
 # Sampling profiler: wall-clock ticks per second, 99 rather than 100 so the
 # ticks do not run in lockstep with work on a round period.
 _DEFAULT_PROFILE_HZ = 99.0
+# Fleet telemetry: one small JSON write per op a second, and an entry older
+# than 30 s is aged out (a crashed worker's stays visible as suspected-dead).
+_DEFAULT_FLEET_TELEMETRY_INTERVAL_S = 1.0
+_DEFAULT_FLEET_TELEMETRY_STALE_S = 30.0
 # Sanitizer builds of the native library (_native/build.py).
 _SUPPORTED_SANITIZERS = ("tsan", "asan", "ubsan")
 # Smallest object-store read that fans out across concurrent ranged GETs
@@ -604,6 +601,33 @@ def get_profile_dir() -> Optional[str]:
     there; by convention the directory of ``TPUSNAP_TRACE_DIR``."""
     val = os.environ.get(PROFILE_DIR_ENV_VAR, "").strip()
     return val or None
+
+
+def get_fleet_telemetry_dir() -> Optional[str]:
+    """Spool directory of fleet telemetry (``telemetry/fleet.py``), or None:
+    publishing off (the default; ``0``, ``false``, ``off`` and ``none`` are
+    off too).  Every monitored op writes an atomic progress and metrics entry
+    there each interval and once at its end; point every worker of a job at
+    one directory, by convention ``<root>/telemetry/live``."""
+    val = os.environ.get(FLEET_TELEMETRY_ENV_VAR, "").strip()
+    if not val or val.lower() in ("0", "false", "off", "none"):
+        return None
+    return val
+
+
+def get_fleet_telemetry_interval_s() -> float:
+    """Seconds between an op's fleet-telemetry publishes (at least 0.05);
+    the terminal state publishes once more at the op's end."""
+    val = os.environ.get(FLEET_TELEMETRY_INTERVAL_S_ENV_VAR)
+    return max(0.05, float(val)) if val is not None else _DEFAULT_FLEET_TELEMETRY_INTERVAL_S
+
+
+def get_fleet_telemetry_stale_s() -> float:
+    """Age (at least 1 s) past which a spool entry counts as dead: the
+    collector skips and sweeps a finished op's, and shows an in-flight op's
+    as suspected-dead."""
+    val = os.environ.get(FLEET_TELEMETRY_STALE_S_ENV_VAR)
+    return max(1.0, float(val)) if val is not None else _DEFAULT_FLEET_TELEMETRY_STALE_S
 
 
 def get_profile_hz() -> float:
@@ -1249,6 +1273,24 @@ def override_blackbox_slots(value: int) -> Generator[None, None, None]:
 @contextmanager
 def override_blackbox_slot_bytes(value: int) -> Generator[None, None, None]:
     with override_env(BLACKBOX_SLOT_BYTES_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_fleet_telemetry(value: Optional[str]) -> Generator[None, None, None]:
+    with override_env(FLEET_TELEMETRY_ENV_VAR, value):
+        yield
+
+
+@contextmanager
+def override_fleet_telemetry_interval_s(value: float) -> Generator[None, None, None]:
+    with override_env(FLEET_TELEMETRY_INTERVAL_S_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
+def override_fleet_telemetry_stale_s(value: float) -> Generator[None, None, None]:
+    with override_env(FLEET_TELEMETRY_STALE_S_ENV_VAR, str(value)):
         yield
 
 

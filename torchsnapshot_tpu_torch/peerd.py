@@ -30,9 +30,12 @@ Observability: with ``TPUSNAP_TRACE_DIR`` set, each request is a
 ``peerd_handle`` span in the daemon's own trace file (telemetry/trace.py
 ``ServerTracer``), parented on the client's ``peer_fetch`` span through the
 request's ``traceparent``, and a line of the JSON-lines access log
-(``TPUSNAP_PEERD_ACCESS_LOG``, by default beside the traces).  Not here
-yet: the monitored ``serve`` and ``rollout`` operations and the rollout's
-fleet-spool progress document.
+(``TPUSNAP_PEERD_ACCESS_LOG``, by default beside the traces).  The daemon's
+lifetime is a monitored ``serve`` op and each rollout a monitored
+``rollout`` op; with ``TPUSNAP_FLEET_TELEMETRY`` set their monitors keep
+fleet-spool entries fresh, and :func:`rollout_fleet` publishes its live
+progress document (wave, hosts completed of total, delta bytes from peers
+and from origin, ETA) at each wave and after every host.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from . import peer as peer_mod
 from .event import Event
 from .event_handlers import log_event
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import fleet as tfleet
 from .telemetry import metrics as tmetrics
 from .telemetry import monitor as tmonitor
 from .telemetry import trace as ttrace
@@ -602,13 +606,31 @@ def rollout_fleet(
                 return {"peer": p.addr, "ok": False, "error": f"digest mismatch serving {expect}"}
         return {"peer": p.addr, "ok": True, "chunks_verified": len(sample)}
 
-    def _wave(pool, wave: str, fn, targets) -> List[Dict[str, Any]]:
+    def _enter_wave(wave: str, total: int) -> None:
+        progress.update(wave=wave, completed=0, total=total, eta_s=None)
         tmetrics.record_rollout_wave(wave)
-        log_event(Event(name="rollout.wave", metadata={"root": root, "step": result["step"], "wave": wave, "hosts": len(targets)}))
+        log_event(Event(name="rollout.wave", metadata={"root": root, "step": progress["step"], "wave": wave, "hosts": total}))
+        tfleet.publish(mon)
+
+    def _run_wave(pool, fn, targets) -> List[Dict[str, Any]]:
+        """Order-preserving fan-out that publishes the progress document
+        (hosts done, delta bytes from peers and from origin, an ETA from the
+        pace so far) after every host that completes."""
+        begin = time.monotonic()
         futures = {pool.submit(fn, p): i for i, p in enumerate(targets)}
         out: Dict[int, Dict[str, Any]] = {}
         for fut in as_completed(futures):
-            out[futures[fut]] = fut.result()
+            r = fut.result()
+            out[futures[fut]] = r
+            progress["completed"] += 1
+            peer_split = (r.get("warm") or {}).get("peer") or {}
+            progress["peer_bytes"] += int(peer_split.get("hit_bytes", 0) or 0)
+            progress["origin_bytes"] += int(peer_split.get("miss_bytes", 0) or 0)
+            remaining = len(targets) - progress["completed"]
+            progress["eta_s"] = (
+                round((time.monotonic() - begin) / progress["completed"] * remaining, 1) if remaining else 0.0
+            )
+            tfleet.publish(mon)
         return [out[i] for i in range(len(targets))]
 
     def _end(success: bool) -> Dict[str, Any]:
@@ -623,17 +645,31 @@ def rollout_fleet(
         "fleet": [p.addr for p in fleet],
     }
     # The rollout is a monitored op: its start and end go to the flight
-    # recorder, and it is among the process's live ops while it runs.
+    # recorder, its tick thread refreshes its fleet-spool entry, and the
+    # progress document rides every entry it publishes (fleet_extra), which
+    # `top` renders as the in-flight rollout.
     mon = tmonitor.op_started("rollout", uuid.uuid4().hex, 0, watchdog=False)
+    progress: Dict[str, Any] = {
+        "root": root,
+        "step": step,
+        "wave": "canary",
+        "completed": 0,
+        "total": len(canaries),
+        "peer_bytes": 0,
+        "origin_bytes": 0,
+        "eta_s": None,
+    }
+    mon.fleet_extra = {"rollout": progress}
     try:
         with ThreadPoolExecutor(max_workers=max(1, len(peers)), thread_name_prefix="tpusnap_rollout") as pool:
-            result["canary_results"] = _wave(pool, "canary", _roll_one, canaries)
+            _enter_wave("canary", len(canaries))
+            result["canary_results"] = _run_wave(pool, _roll_one, canaries)
             if not all(r["ok"] for r in result["canary_results"]):
                 result["aborted"] = "canary warm failed"
                 return _end(False)
             # Spot-check each canary on a sample of the delta it warmed.
             resolved_step, _, metadata, prev_md = resolve_rollout_target(root, step)
-            result["step"] = resolved_step
+            result["step"] = progress["step"] = resolved_step
             sample: List[Tuple[str, str]] = []
             for loc, _ in delta_locations(metadata, prev_md):
                 if cas_mod.is_cas_location(loc):
@@ -643,13 +679,15 @@ def rollout_fleet(
                 if len(sample) >= verify_chunks:
                     break
             sample = sample[:verify_chunks]
-            result["canary_verify"] = _wave(pool, "verify", lambda p: _verify_one(p, sample), canaries)
+            _enter_wave("verify", len(canaries))
+            result["canary_verify"] = _run_wave(pool, lambda p: _verify_one(p, sample), canaries)
             if not all(r["ok"] for r in result["canary_verify"]):
                 result["aborted"] = "canary digest verification failed"
                 return _end(False)
-            result["fleet_results"] = _wave(pool, "fleet", _roll_one, fleet)
+            _enter_wave("fleet", len(fleet))
+            result["fleet_results"] = _run_wave(pool, _roll_one, fleet)
             return _end(all(r["ok"] for r in result["fleet_results"]))
     finally:
-        # Success mirrors the rollout's outcome; an abort or a raise folds
-        # as failed.
+        # The terminal entry: success mirrors the rollout's outcome, and an
+        # abort or a raise folds as failed.
         tmonitor.op_finished(mon, success=bool(result.get("ok")))

@@ -1,7 +1,7 @@
 """Telemetry: sidecars, step history, traces, metrics, the health monitor,
-the flight recorder and the sampling profiler.
+the flight recorder, the sampling profiler and fleet telemetry.
 
-Counterpart of ``torchsnapshot_tpu/telemetry/`` for seven of its modules:
+Counterpart of ``torchsnapshot_tpu/telemetry/`` for eight of its modules:
 
 - :mod:`.sidecar` — a small ``telemetry/<op>.json`` next to
   ``.snapshot_metadata`` for each take, async take and restore
@@ -23,11 +23,15 @@ Counterpart of ``torchsnapshot_tpu/telemetry/`` for seven of its modules:
   JAX package's file format;
 - :mod:`.profiler` — phase-attributed on- and off-CPU stack samples of
   each monitored operation under ``TPUSNAP_PROFILE``, and the stall
-  bundle's sampled profile, in the JAX package's profile format.
+  bundle's sampled profile, in the JAX package's profile format;
+- :mod:`.fleet` — the live fleet view: every monitored op publishes its
+  progress, process totals and cache and peer splits into the
+  ``TPUSNAP_FLEET_TELEMETRY`` spool, which both packages share, and
+  ``collect``/``aggregate``/``render`` fold the spool into one view.
 
-Fleet telemetry, the analysis and the postmortem are later slices.
+The analysis and the postmortem are later slices.
 """
 
-from . import blackbox, history, metrics, monitor, profiler, sidecar, trace
+from . import blackbox, fleet, history, metrics, monitor, profiler, sidecar, trace
 
-__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler"]
+__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler", "fleet"]

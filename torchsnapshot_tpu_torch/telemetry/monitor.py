@@ -1,7 +1,6 @@
 """Pipeline health monitor: live progress, stall watchdog, heartbeat.
 
-Counterpart of ``torchsnapshot_tpu/telemetry/monitor.py`` without its
-fleet-telemetry calls (the port has no fleet module yet).  Its progress
+Counterpart of ``torchsnapshot_tpu/telemetry/monitor.py``.  Its progress
 document, heartbeat document, bundle section names, ``watchdog.stall``
 event and metric families are the JAX package's.
 
@@ -29,6 +28,11 @@ event and metric families are the JAX package's.
   (``phase_stats.register_driver``, tag ``<kind>_drive``) and, with
   ``TPUSNAP_PROFILE`` set, begins and ends its profile
   (telemetry/profiler.py).
+- **Fleet telemetry**: with ``TPUSNAP_FLEET_TELEMETRY`` set the thread
+  publishes the op's spool entry each interval while the publishes stay
+  within their overhead budget, and at least every half stale bound
+  whatever the budget, so a live op never ages into a suspected-dead row;
+  the op's end publishes its terminal entry (telemetry/fleet.py).
 
 With every knob unset no thread starts: one small object per operation.
 """
@@ -48,7 +52,7 @@ from typing import Any, Callable, Dict, List, Optional
 from .. import knobs, phase_stats, rss_profiler
 from ..event import Event
 from ..event_handlers import log_event
-from . import blackbox, profiler
+from . import blackbox, fleet, profiler
 
 logger = logging.getLogger(__name__)
 
@@ -98,6 +102,12 @@ class OpMonitor:
         # heartbeat with its own terminal document.
         self._heartbeat_path = knobs.get_heartbeat_file() if watchdog else None
         self._blackbox = blackbox.enabled()
+        # Fleet telemetry covers every monitored op (serving workers run read
+        # ops): entries are keyed by pid, kind and rank, so a read_object
+        # never overwrites an in-flight save's entry.
+        self._fleet = fleet.enabled()
+        self._fleet_next = 0.0
+        self._fleet_last = self._begin
         # The registering thread drives this op: its samples outside any
         # timed()/tagged() scope (planning, event-loop turns) are the op's.
         # Keyed by ident, since finish() may run on another thread (an
@@ -108,7 +118,7 @@ class OpMonitor:
         self._profile_op = profiler.begin_op(kind, op_id, rank)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        if self._stall_timeout_s > 0 or self._heartbeat_path or self._blackbox:
+        if self._stall_timeout_s > 0 or self._heartbeat_path or self._fleet or self._blackbox:
             self._thread = threading.Thread(target=self._run, name=f"tpusnap-torch-monitor-{kind}", daemon=True)
             self._thread.start()
 
@@ -215,7 +225,33 @@ class OpMonitor:
             candidates.append(self._stall_timeout_s / 4.0)
         if self._heartbeat_path or self._blackbox:
             candidates.append(min(knobs.get_progress_interval_s() or 5.0, 5.0))
+        if self._fleet:
+            candidates.append(knobs.get_fleet_telemetry_interval_s())
         return max(_MIN_TICK_S, min(min(candidates), _MAX_TICK_S))
+
+    def _fleet_tick(self, now: float) -> None:
+        """One tick's periodic publish, at monotonic time ``now``: due each
+        interval (at least half the stale bound in deadline mode, which sheds
+        the cadence but not liveness) while the publishes stay within their
+        overhead budget.  The budget alone spaces the beacons at the publish
+        cost over ``OVERHEAD_BUDGET_FRAC`` (200 ms at 1 ms a publish), which
+        on a loaded host can pass the stale bound and show a live op as
+        suspected-dead; so a beacon older than half the stale bound is
+        published whatever the budget (the JAX monitor gives this floor to
+        deadline mode only)."""
+        from .. import preemption
+
+        interval = knobs.get_fleet_telemetry_interval_s()
+        half_stale_s = knobs.get_fleet_telemetry_stale_s() / 2.0
+        if preemption.deadline_active():
+            interval = max(interval, half_stale_s)
+        if now < self._fleet_next:
+            return
+        if not fleet.within_overhead_budget(self, now - self._begin) and now - self._fleet_last < half_stale_s:
+            return
+        self._fleet_next = now + interval
+        self._fleet_last = now
+        fleet.publish(self)
 
     def _run(self) -> None:
         tick = self._tick_interval_s()
@@ -228,6 +264,8 @@ class OpMonitor:
                 self._write_heartbeat()
             if self._blackbox:
                 self._record_blackbox_progress()
+            if self._fleet:
+                self._fleet_tick(time.monotonic())
             if self._stall_timeout_s <= 0:
                 continue
             fp = self._fingerprint()
@@ -462,6 +500,11 @@ class OpMonitor:
         phase_stats.unregister_driver(self._driver_ident, self._driver_tag)
         profiler.end_op(self._profile_op, success)
         self._profile_op = None
+        # The terminal entry: done and success, the op's bytes folded into
+        # the process totals once.  Every monitored op lands one, also a
+        # read op that never lived a tick.
+        if self._fleet:
+            fleet.publish(self, final=True)
         # Release the scheduler containers the debug closures (and the
         # closed event loop) pin: a caller holding a PendingSnapshot must not
         # keep every pipeline object alive through this monitor.  The plain
