@@ -353,6 +353,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GB = 1e9
@@ -2482,7 +2483,8 @@ def peer_trace_split(trace_dir, daemons):
     first byte and transfer (sums and medians); daemon A's ``peerd_handle``
     total; the spans of A that joined the worker's trace id, with their
     parents among the worker's ``peer_fetch`` spans; daemon A's /metrics
-    count of 200 chunk answers; every file and access log validated."""
+    count of 200 chunk answers; every file and access log validated.  With
+    them, the loaded documents by file name."""
     import urllib.request
 
     from torchsnapshot_tpu_torch.telemetry import trace
@@ -2518,7 +2520,7 @@ def peer_trace_split(trace_dir, daemons):
                 [ev["dur"] / 1e6 for ev in handles if ev["args"]["status"] == 200] or [0.0]), 3),
             "stitched_spans": len(handles),
             "unparented_spans": sum(1 for ev in handles if ev["args"].get("parent") not in fetch_ids),
-            "daemon_a_chunk_200s": chunk_200s, "invalid": invalid}
+            "daemon_a_chunk_200s": chunk_200s, "invalid": invalid}, docs
 
 
 def peer_worker_line(w):
@@ -2569,7 +2571,7 @@ def peer_fetch_phases(torch, ts, knobs, args):
         wall = time.monotonic() - begin
         shutil.rmtree(os.path.join(work, "cache_restore"))
         time.sleep(3 * PEER_TRACE_FLUSH_S)  # the daemons' flushers rewrite their files
-        traced = peer_trace_split(trace_dir, daemons)
+        traced, trace_docs = peer_trace_split(trace_dir, daemons)
         ok = (w["origin_payload_bytes"] == 0 and w["peer"]["hit_bytes"] == chunk_bytes and w["peer"]["rejects"] == 0
               and w["peer"]["misses"] == 0 and not w["mismatched"] and not w["jax_imported"]
               and traced["stitched_spans"] > 0 and traced["unparented_spans"] == 0 and not traced["invalid"]
@@ -2580,11 +2582,15 @@ def peer_fetch_phases(torch, ts, knobs, args):
               "warm_a_s": round(warm_s, 3), "warm_a_bytes": warmed["bytes"], "worker_wall_s": round(wall, 3),
               "gbps": round(logical / GB / w["restore_s"], 3), "daemons": daemons.addrs,
               "registered": ["a: warmed", "b: empty"], "trace": traced, **peer_worker_line(w)})
+        analyzed = analyze_peer_phase(trace_docs, daemons)
         if not ok:
             raise RuntimeError("peer_restore: origin was read, peer hit bytes differ from the chunk bytes, a reject, "
                                "the worker's tensors differ from the seeded values, a trace file or access log is "
                                "invalid, no daemon span joined the worker's trace, or daemon A's /metrics counts "
                                "other 200 chunk answers than the worker's peer hits")
+        if not analyzed:
+            raise RuntimeError("analyze_peer: the per-peer fetch counts or daemon A's request count differ from the "
+                               "spans in the trace files, or the slowest peer is not one of the two daemons")
 
         daemons.stop(1)
         w = peer_restore_worker(snap_path, os.path.join(work, "cache_fault"), kv, "peer:2:peer_truncated", args.seed,
@@ -2803,11 +2809,136 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
           "metrics_read_bytes": read, "read_pipeline_bytes": want_read, "operations": ops,
           "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5]})
     metrics.reset()
+    analyzed = analyze_traces_phase(trace_dir, snap_path)
     for path in (snap_path, trace_dir):
         shutil.rmtree(path)
     if not ok:
         raise RuntimeError("trace_take_restore: a trace file is invalid, the d2h spans miss state bytes, the metrics' "
                            "byte counters differ from the bytes written and read, or the restore is not bit-exact")
+    if not analyzed:
+        raise RuntimeError("analyze_traces: the report lacks the take or the restore of rank 0, an op's scheduler "
+                           "idle lies outside 0 and its wall, the take has no d2h wall or the restore no h2d wall, "
+                           "a limiting resource names no group, a phase is classified other, or the rendering "
+                           "misses an op")
+
+
+# ------------------------------------------------------------ the analyses
+#
+# The bottleneck analyzer (telemetry/analyze.py) over files the phases above
+# already write, each run inside the phase that writes its input, before
+# that phase removes it: the traced take and restore, their profiles, the
+# four ranks' async take's sidecars and the peer restore's traces.  No
+# check reads a clock: each holds the report against the files' own
+# counts, against what the writing phase computed from the same files, or
+# against the shape the analyzer promises.
+
+
+def analyze_traces_phase(trace_dir, snap_path) -> bool:
+    """analyze_traces: ``analyze_traces`` over trace_take_restore's trace
+    files and its snapshot's sidecars: exactly the take and the restore,
+    rank 0 each; per op a scheduler idle between 0 and the op's wall; a
+    ``d2h`` group wall above 0 in the take and an ``h2d`` one in the
+    restore; a limiting resource that is one of the groups; no phase in
+    ``other`` (the line lists any); ``render`` naming both ops."""
+    from torchsnapshot_tpu_torch.telemetry import analyze
+
+    begin = time.monotonic()
+    report = analyze.analyze_traces(analyze.load_trace_dir(trace_dir), analyze.load_sidecars(snap_path))
+    text = analyze.render(report)
+    read_s = time.monotonic() - begin
+    ops = {op["kind"]: op for op in report["ops"]}
+    other = {op["kind"]: sorted(n for n, i in op["phases"].items() if i["group"] == "other") for op in report["ops"]}
+    ok = (len(report["ops"]) == 2 and set(ops) == {"take", "restore"}
+          and all(op["ranks"] == [0] for op in ops.values())
+          and all(0 <= op["idle"]["by_rank"]["0"] <= op["duration_s"]["by_rank"]["0"] for op in ops.values())
+          and (ops["take"]["groups"].get("d2h", 0) > 0 or DEV != "cuda")
+          and (ops["restore"]["groups"].get("h2d", 0) > 0 or DEV != "cuda")
+          and all(op["limiting_resource"] in analyze.PHASE_GROUPS for op in ops.values())
+          and not any(other.values())
+          and all(f"{op['kind']} {op['op'][:8]} " in text for op in ops.values()))
+    emit({"phase": "analyze_traces", "ok": ok, "trace_dir_files": len(os.listdir(trace_dir)),
+          "ops": [{"kind": op["kind"], "op": op["op"][:8], "ranks": op["ranks"], "duration_s": op["duration_s"]["p50"],
+                   "idle_s": op["idle"]["mean_s"], "limiting_resource": op["limiting_resource"],
+                   "dominant_phase": op["dominant_phase"], "groups": op["groups"],
+                   "sidecar_joined": bool(op.get("sidecars")), "phases_in_other": other[op["kind"]]}
+                  for op in report["ops"]],
+          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3)})
+    return ok
+
+
+def analyze_profile_phase(prof_dir, ops) -> bool:
+    """analyze_profile: ``profile_report`` over profile_take_restore's
+    profile files: two ops; each op's untagged on-CPU share equal to the one
+    the phase computed from the same metas (``ops``, from
+    ``profile_summary``); a dominant CPU sink naming one of the op's tagged
+    phases."""
+    from torchsnapshot_tpu_torch.telemetry import analyze
+
+    begin = time.monotonic()
+    report = analyze.profile_report(analyze.load_profile_dir(prof_dir))
+    text = analyze.render_profile(report)
+    read_s = time.monotonic() - begin
+    profs = {p["kind"]: p for p in report["profiles"]}
+    sinks = {k: p["dominant_cpu_sink"] for k, p in profs.items()}
+    ok = (len(report["profiles"]) == 2 and set(profs) == set(ops) == {"take", "restore"}
+          and all(profs[k]["untagged_oncpu_share"] == ops[k]["untagged_oncpu_share"] for k in ops)
+          and all(sink is not None and sink["phase"] in profs[k]["phases"] and sink["phase"] != "<untagged>"
+                  for k, sink in sinks.items()))
+    emit({"phase": "analyze_profile", "ok": ok,
+          "profiles": [{"kind": p["kind"], "op": p["op"][:8], "samples_total": p["samples_total"],
+                        "oncpu_s": p["oncpu_s"], "untagged_oncpu_share": p["untagged_oncpu_share"],
+                        "phase_untagged_oncpu_share": ops.get(p["kind"], {}).get("untagged_oncpu_share"),
+                        "dominant_cpu_sink": p["dominant_cpu_sink"], "groups_cpu_s": p["groups_cpu_s"]}
+                       for p in report["profiles"]],
+          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3)})
+    return ok
+
+
+def analyze_barrier_phase(snap_path, world) -> bool:
+    """analyze_barrier: ``barrier_blame`` over the sidecars of the ``world``
+    ranks' async take: one report, the async take's, with ``world`` ranks
+    in its arrival table, a skew of 0 or more, a blamed rank among them and
+    a phase named."""
+    from torchsnapshot_tpu_torch.telemetry import analyze
+
+    sidecars = analyze.load_sidecars(snap_path)
+    reports = analyze.barrier_blame(sidecars)
+    rep = reports[0] if len(reports) == 1 else {}
+    ok = (rep.get("kind") == "async_take" and rep.get("world") == world and len(rep["arrivals_rel_s"]) == world
+          and rep["skew_s"] >= 0 and rep["blamed_rank"] in range(world) and rep["blamed_phase"] is not None)
+    emit({"phase": "analyze_barrier", "ok": ok, "ranks": world,
+          "sidecars": sorted(f"{d.get('action')}/rank{d.get('rank')}" for d in sidecars), "reports": len(reports),
+          **{k: rep.get(k) for k in ("kind", "world", "skew_s", "first_rank", "blamed_rank", "blamed_phase",
+                                     "blamed_phase_wall_s", "arrivals_rel_s", "barrier_wait_s")}})
+    return ok
+
+
+def analyze_peer_phase(docs, daemons) -> bool:
+    """analyze_peer: ``peer_report`` over the peer restore's trace files, as
+    ``peer_trace_split`` loaded them: the worker's ``peer_fetch`` spans per
+    peer and daemon A's ``peerd_handle`` spans counted as in the files, and
+    a slowest peer that is one of the two daemons."""
+    from torchsnapshot_tpu_torch.telemetry import analyze, trace
+
+    report = analyze.peer_report(list(docs.values()))
+    text = analyze.render_peer(report)
+    worker = next(doc for name, doc in docs.items() if name.startswith("restore-"))
+    fetches: dict = {}
+    for ev in worker["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("name") == "peer_fetch":
+            fetches[ev["args"]["peer"]] = fetches.get(ev["args"]["peer"], 0) + 1
+    daemon_a = docs[f"peerd-{daemons.idents[0][:8]}-rank0{trace.TRACE_FILE_SUFFIX}"]
+    handles_a = sum(1 for ev in daemon_a["traceEvents"] if ev.get("ph") == "X" and ev.get("name") == "peerd_handle")
+    ident_a = f"{daemon_a['otherData'].get('host', '?')}/{str(daemon_a['otherData'].get('op', '?'))[:8]}"
+    ok = ({a: row["fetches"] for a, row in report["peers"].items()} == fetches and bool(fetches)
+          and report["daemons"].get(ident_a, {}).get("requests") == handles_a > 0
+          and report["slowest_peer"] in daemons.addrs and report["slowest_peer"] in text)
+    emit({"phase": "analyze_peer", "ok": ok, "fetches_in_files": fetches, "daemon_a_handles_in_file": handles_a,
+          "peers": {a: {k: row[k] for k in ("fetches", "hit_rate", "fallback_rate", "p50_s", "p99_s", "bytes")}
+                    for a, row in report["peers"].items()},
+          "daemons": report["daemons"], "daemon_a": ident_a, "slowest_peer": report["slowest_peer"],
+          "daemon_addrs": daemons.addrs})
+    return ok
 
 
 # ---------------------------------------------------------- profiled phase
@@ -2924,12 +3055,17 @@ def profile_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nb
                                   "estimated_s": round(cost["estimated_s"], 6)},
           "cpu_time_readers": readers, "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
           "mismatched": mismatched[:5]})
+    analyzed = analyze_profile_phase(prof_dir, ops)
     for path in (snap_path, prof_dir):
         shutil.rmtree(path)
     if not ok:
         raise RuntimeError("profile_take_restore: a profile file is invalid or missing, a collapsed line does not "
                            "parse, an op's untagged on-CPU share is 5% or more (or it has under 20 on-CPU samples), "
                            "or the restore is not bit-exact")
+    if not analyzed:
+        raise RuntimeError("analyze_profile: the report lacks the take or the restore, an op's untagged on-CPU share "
+                           "differs from the one the profile phase computed, or an op has no dominant CPU sink in "
+                           "a tagged phase")
 
 
 # ---------------------------------------------------------- monitor phases
@@ -3025,8 +3161,17 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
     the recorder, the metrics and the fleet spool (1 s interval) on,
     ``progress()`` polled every 0.25 s until the commit, each poll beside a
     ``collect`` and ``aggregate`` of the spool; then the in-place restore
-    under the same knobs."""
+    under the same knobs.
+
+    The heartbeats and the live entries are counted as they were written:
+    each heartbeat and each spool entry of the take is read back on the
+    monitor thread right after its write, as a supervisor reading the file
+    then would find it.  A poll from this process waits for the
+    interpreter lock and the file system behind the drain (three to four
+    polls in a 3 s drain on the card), so it can miss a version; what the
+    polls saw is printed beside."""
     from torchsnapshot_tpu_torch.telemetry import blackbox, fleet, metrics
+    from torchsnapshot_tpu_torch.telemetry import monitor as tmonitor
 
     snap_path = os.path.join(workdir, "monitor_snap")
     heartbeat = os.path.join(workdir, "monitor_heartbeat.json")
@@ -3036,13 +3181,31 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
     fleet.reset_process_totals()
     n_events = len(events)
     samples, mid_drain, live = [], set(), {}
+    written_beats, written_entries = [], []
+    write_heartbeat, publish = tmonitor.OpMonitor._write_heartbeat, fleet.publish
+
+    def read_back_heartbeat(mon):
+        write_heartbeat(mon)
+        if mon.kind == "async_take":
+            written_beats.append(read_heartbeat(heartbeat))
+
+    def read_back_publish(mon, final=False):
+        path = publish(mon, final=final)
+        if path and mon.kind == "async_take":
+            with open(path, encoding="utf-8") as f:
+                written_entries.append(json.load(f))
+        return path
+
+    tmonitor.OpMonitor._write_heartbeat, fleet.publish = read_back_heartbeat, read_back_publish
     with contextlib.ExitStack() as stack:
+        stack.callback(setattr, tmonitor.OpMonitor, "_write_heartbeat", write_heartbeat)
+        stack.callback(setattr, fleet, "publish", publish)
         monitor_knobs(knobs, stack, heartbeat, bb_dir)
         stack.enter_context(knobs.override_fleet_telemetry(spool))
         stack.enter_context(knobs.override_fleet_telemetry_interval_s(MONITOR_FLEET_INTERVAL_S))
         stack.enter_context(knobs.override_fleet_telemetry_stale_s(MONITOR_FLEET_STALE_S))
         device_sync(torch)
-        begin = time.monotonic()
+        begin, begin_wall = time.monotonic(), time.time()
         with knobs.override_async_staging("pinned_host"):
             pending = ts.Snapshot.async_take(snap_path, app_state)
         stall_s = time.monotonic() - begin
@@ -3092,8 +3255,17 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
         if n.startswith("async_take-"))]
     monotone = all(a[0] <= b[0] and a[1] <= b[1] for a, b in zip(samples, samples[1:]))
     take_stalls = [e.metadata for e in take_events if e.name == "watchdog.stall"]
+    beats = {hb["heartbeat_time"]: hb for hb in written_beats if hb is not None and not hb["done"]}
+    written_live = {}
+    for entry in written_entries:
+        (worker,) = fleet.aggregate([entry])["workers"]
+        if worker["state"] not in ("done", "failed", "suspected-dead"):
+            written_live[entry["publish_time"]] = (worker["bytes_staged"], worker["bytes_written"])
+    polled = {"heartbeats_mid_drain": len(mid_drain), "live_entries": len(live)}
+    mid_drain, live = beats, written_live
     live_bytes = [live[t] for t in sorted(live)]
     fleet_monotone = all(a[0] <= b[0] and a[1] <= b[1] for a, b in zip(live_bytes, live_bytes[1:]))
+    beat_times = [round(t - begin_wall, 3) for t in sorted(beats)]
     take_entry = take_entries[-1]["op"] if len(take_entries) == 1 else {}
     fleet_ok = (len(live) >= 2 and fleet_monotone and take_entry.get("done") is True
                 and take_entry.get("success") is True and take_entry["bytes"]["written"] == take_end["bytes"]
@@ -3111,7 +3283,8 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
           "unmonitored_total_s": round(unmonitored_total_s, 3), "state_bytes": nbytes,
           "polls": len(samples), "monotone": monotone, "bytes_staged": final["bytes"]["staged"],
           "bytes_written": final["bytes"]["written"], "take_end_bytes": take_end["bytes"],
-          "requests": final["requests"], "heartbeats_mid_drain": len(mid_drain),
+          "requests": final["requests"], "heartbeats_mid_drain": len(mid_drain), "heartbeat_at_s": beat_times,
+          "polled": polled,
           "terminal_heartbeat_done": terminal is not None and terminal["done"], "watchdog_stalls": len(take_stalls),
           "ring_records": len(records), "ring_progress_records": len(progress_records),
           "ring_op_records": op_names(records), "rings": len(rings),
@@ -3130,8 +3303,8 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
                     "bar": f"calibrated estimate < {FLEET_OVERHEAD_BAR} x total_s", "entry_bytes": entry_bytes}})
     if not ok:
         raise RuntimeError("monitor_async_take: progress not monotone or not ending at async_take.end's bytes, fewer "
-                           "than two heartbeats mid-drain, a stall, a ring without the op or progress records, no "
-                           "RSS high water in the sidecar, or the fleet spool short of two live entries with "
+                           "than two heartbeats written mid-drain, a stall, a ring without the op or progress records, no "
+                           "RSS high water in the sidecar, or the fleet spool short of two live entries written with "
                            "monotone bytes, a terminal entry at async_take.end's bytes, each op counted once and "
                            "a calibrated publish bill under 1% of the take's wall")
     restore_stalls = [e.metadata for e in restore_events if e.name == "watchdog.stall"]
@@ -3947,8 +4120,12 @@ def dist_phases(torch, ts, args) -> None:
           "max_total_s": round(max(r["total_s"] for r in async_), 3),
           "per_rank": [{k: r[k] for k in ("stall_s", "total_s", "staging_mode", "bytes_written", "mismatched",
                                           "mem_at_start", "phases")} for r in async_]})
+    analyzed = analyze_barrier_phase(async_snap, 4)
     if not async_ok:
         raise RuntimeError("dist_async_take: not bit-exact, wrong mode, not one commit, or bytes differ")
+    if not analyzed:
+        raise RuntimeError("analyze_barrier: not one report for the async take with the four ranks' arrivals, a "
+                           "skew below 0, or no blamed rank and phase")
     shutil.rmtree(async_snap)
 
     cas_ = [r["dist_cas_take"] for r in ranks]
@@ -4250,6 +4427,7 @@ def main() -> int:
         return run(args)
     except Exception as e:  # noqa: BLE001 — report the failed phase, exit non-zero
         emit({"phase": "error", "ok": False, "error": f"{type(e).__name__}: {e}"})
+        print(traceback.format_exc(), file=sys.stderr, flush=True)
         return 1
     finally:
         shutil.rmtree(args.workdir, ignore_errors=True)

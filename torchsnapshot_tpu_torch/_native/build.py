@@ -97,6 +97,14 @@ def _build(out: str = _LIB, extra_flags=()) -> None:
         raise NativeBuildError(
             f"g++ failed (rc {proc.returncode}): {proc.stderr.strip()[-2000:]}"
         )
+    # fsync before publishing, as the JAX build does: a host crash
+    # mid-build must leave the old library or the new one, never a
+    # truncated .so that every later process would dlopen.
+    fd = os.open(tmp, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
     os.replace(tmp, out)
 
 

@@ -1085,6 +1085,12 @@ def override_journal_max_bytes(value: int) -> Generator[None, None, None]:
 
 
 @contextmanager
+def override_regression_factor(value: float) -> Generator[None, None, None]:
+    with override_env(REGRESSION_FACTOR_ENV_VAR, str(value)):
+        yield
+
+
+@contextmanager
 def override_regression_window(value: int) -> Generator[None, None, None]:
     with override_env(REGRESSION_WINDOW_ENV_VAR, str(value)):
         yield

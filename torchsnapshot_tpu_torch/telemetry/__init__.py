@@ -1,7 +1,8 @@
 """Telemetry: sidecars, step history, traces, metrics, the health monitor,
-the flight recorder, the sampling profiler and fleet telemetry.
+the flight recorder, the sampling profiler, fleet telemetry and the
+bottleneck analysis.
 
-Counterpart of ``torchsnapshot_tpu/telemetry/`` for eight of its modules:
+Counterpart of ``torchsnapshot_tpu/telemetry/`` for nine of its modules:
 
 - :mod:`.sidecar` — a small ``telemetry/<op>.json`` next to
   ``.snapshot_metadata`` for each take, async take and restore
@@ -27,11 +28,15 @@ Counterpart of ``torchsnapshot_tpu/telemetry/`` for eight of its modules:
 - :mod:`.fleet` — the live fleet view: every monitored op publishes its
   progress, process totals and cache and peer splits into the
   ``TPUSNAP_FLEET_TELEMETRY`` spool, which both packages share, and
-  ``collect``/``aggregate``/``render`` fold the spool into one view.
+  ``collect``/``aggregate``/``render`` fold the spool into one view;
+- :mod:`.analyze` — the bottleneck analysis over trace directories,
+  profile directories and sidecars: per-phase walls and resource groups,
+  the limiting resource and the straggler, the profile's CPU sinks, the
+  commit barrier's blamed rank and the serving plane's per-peer report.
 
-The analysis and the postmortem are later slices.
+The postmortem is a later slice.
 """
 
-from . import blackbox, fleet, history, metrics, monitor, profiler, sidecar, trace
+from . import analyze, blackbox, fleet, history, metrics, monitor, profiler, sidecar, trace
 
-__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler", "fleet"]
+__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler", "fleet", "analyze"]

@@ -62,6 +62,10 @@ _ACTIVE: List["OpMonitor"] = []
 
 _MIN_TICK_S = 0.02
 _MAX_TICK_S = 60.0
+# A periodic publish is due at the first tick within this much of its time:
+# ticks are scheduled by repeated addition, which may land a rounding error
+# short of a due time computed from another tick.
+_DUE_SLACK_S = 1e-3
 STALL_BUNDLE_PREFIX = "stall-"
 # Length of a stall bundle's sampled profile, cut to the stall timeout so a
 # short timeout does not hold the watchdog thread for 5 s a stall.
@@ -245,9 +249,12 @@ class OpMonitor:
         half_stale_s = knobs.get_fleet_telemetry_stale_s() / 2.0
         if preemption.deadline_active():
             interval = max(interval, half_stale_s)
-        if now < self._fleet_next:
+        if now + _DUE_SLACK_S < self._fleet_next:
             return
-        if not fleet.within_overhead_budget(self, now - self._begin) and now - self._fleet_last < half_stale_s:
+        if (
+            not fleet.within_overhead_budget(self, now - self._begin)
+            and now - self._fleet_last + _DUE_SLACK_S < half_stale_s
+        ):
             return
         self._fleet_next = now + interval
         self._fleet_last = now
@@ -258,14 +265,25 @@ class OpMonitor:
         last_fp = self._fingerprint()
         last_change = time.monotonic()
         fired = False
-        while not self._stop.wait(tick):
+        # Ticks keep their cadence: a tick's own work (the heartbeat's and
+        # the spool entry's writes, which the op's I/O on the same file
+        # system can hold up for most of a second) does not push the later
+        # ticks back, and the publish is judged at the tick's scheduled time.
+        # A tick that wakes more than a tick late skips the ones it missed.
+        due = last_change + tick
+        while not self._stop.wait(max(0.0, due - time.monotonic())):
+            scheduled = due
+            due += tick
+            woke = time.monotonic()
+            if due <= woke:
+                due = woke + tick
             self.watermark.sample()
             if self._heartbeat_path:
                 self._write_heartbeat()
             if self._blackbox:
                 self._record_blackbox_progress()
             if self._fleet:
-                self._fleet_tick(time.monotonic())
+                self._fleet_tick(scheduled)
             if self._stall_timeout_s <= 0:
                 continue
             fp = self._fingerprint()
