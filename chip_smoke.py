@@ -77,9 +77,10 @@ calls, in phases that each print one JSON line:
    adaptive_restore — that snapshot restored with ``TPUSNAP_CHECKSUM=0``
                 (unhashed reads, so large ones take the adaptive path)
                 under ``TPUSNAP_PARALLEL_READ_WAYS`` 1, 8 and unset, each
-                after evicting its files from the page cache and again
-                warm: sequential and parallel read counts, the measured
-                rates and the pick; bit-exact in place
+                after evicting its files from the page cache (no warm
+                repeat: on the card's 9p mount a cold restore ran within
+                12% of a warm one): sequential and parallel read counts,
+                the measured rates and the pick; bit-exact in place
    torch_layout_take — the same weights as an ``nn.Module.state_dict()`` of
                 Llama-3-8B holds them (291 per-layer views), taken with
                 ``TPUSNAP_NATIVE_BATCH=0`` and then 8: native write+hash,
@@ -131,11 +132,26 @@ calls, in phases that each print one JSON line:
                 one sample), ``tpusnap_stalls_total`` >= 1; the take commits
                 and restores bit-exact
    monitor_crash — a spawned process builds the 8-layer cut of the same
-                widths on the card and takes it with
-                ``TPUSNAP_FAULTS=write:3:crash`` and ``TPUSNAP_BLACKBOX``: it
-                exits 1, and its ring (read with the port's
-                ``blackbox.read_all``) names ``take.start``, the ``crash``
-                fault (op ``write``, its path, a phase) and no ``take.end``
+                widths on the card and saves it as step 0 of a manager root
+                (``SnapshotManager(root).save``) with
+                ``TPUSNAP_FAULTS=write:3:crash@0/*`` (the third payload
+                write) and ``TPUSNAP_BLACKBOX``: it exits 1, and its ring
+                (read with the port's ``blackbox.read_all``) names
+                ``take.start``, the ``crash`` fault (op ``write``, its path,
+                a phase) and no ``take.end``
+   postmortem_crash — before that root goes, ``postmortem.analyze_root``
+                over it and the ring: ``killed_mid_take``, the child's pid
+                (not this one's), verdict ``crash_fault``, op ``take``, the
+                ring's fault op and path, a phase group that is the
+                analyzer's group of the phase (printed, not required to be
+                a write's: on the card the crash has come in ``d2h``), an
+                in-flight marker of the child's pid, a forced ``gc`` action,
+                no committed point, a timeline sorted by time with one
+                Perfetto event for each entry, and ``format_report`` naming
+                the classification and the pid; then the prescribed
+                ``gc_detail(apply=True, force=True)`` and a second report
+                with no orphan step, chunk, segment or marker and no ``gc``
+                action; both reports' walls printed
    storage depth — each phase removes its directories before the next:
    compress_take / compress_restore — ``TPUSNAP_COMPRESSION=zstd``
                 (native libzstd; zlib, said so, where the machine has no
@@ -3094,7 +3110,10 @@ STALL_ELEMS = 64 << 20  # one float32 tensor of 256 MiB
 STALL_TIMEOUT_S = 0.5
 STALL_LATENCY_S = 3
 CRASH_LAYERS = 8
-CRASH_FAULT = "write:3:crash"
+# The third payload write of the take (payload paths start with the rank):
+# the glob keeps the crash off the manager's in-flight marker, which has a
+# plugin (and so a fault counter) of its own.
+CRASH_FAULT = "write:3:crash@0/*"
 CRASH_TIMEOUT_S = 300
 BUNDLE_SECTIONS = ("progress", "pipeline states", "pending asyncio tasks", "thread stacks (faulthandler)",
                    "sampled profile")
@@ -3369,10 +3388,11 @@ def monitor_stall_phase(torch, ts, knobs, events, workdir, seed):
                            "bit-exact")
 
 
-def crash_worker_entry(snap, knob_env, seed, n_layers) -> None:
-    """A spawned process on the card: with ``knob_env`` set, take the seeded
-    parameter set at ``n_layers``; the crash fault ends the process with
-    exit code 1 mid-take (a take that completes exits 0)."""
+def crash_worker_entry(root, knob_env, seed, n_layers) -> None:
+    """A spawned process on the card: with ``knob_env`` set, save the seeded
+    parameter set at ``n_layers`` as step 0 of the manager root ``root``;
+    the crash fault ends the process with exit code 1 mid-take (a save that
+    completes exits 0)."""
     os.environ.update(knob_env)
     import torch
 
@@ -3383,25 +3403,26 @@ def crash_worker_entry(snap, knob_env, seed, n_layers) -> None:
 
     params = seeded_params(torch, n_layers, seed)
     device_sync(torch)
-    ts.Snapshot.take(snap, {"model": ts.StateDict(params)})
+    ts.SnapshotManager(root).save(0, {"model": ts.StateDict(params)})
 
 
 def monitor_crash_phase(workdir, seed, n_layers):
-    """monitor_crash: a spawned process takes the 8-layer cut of the same
-    widths with ``TPUSNAP_FAULTS=write:3:crash`` and ``TPUSNAP_BLACKBOX``: it
-    exits 1, and its ring, read here with the port's ``blackbox.read_all``,
-    names ``take.start``, the ``crash`` fault (op ``write``, its path, a
-    phase) and no ``take.end``."""
+    """monitor_crash: a spawned process saves the 8-layer cut of the same
+    widths as step 0 of a manager root with ``TPUSNAP_FAULTS=CRASH_FAULT``
+    and ``TPUSNAP_BLACKBOX``: it exits 1, and its ring, read here with the
+    port's ``blackbox.read_all``, names ``take.start``, the ``crash`` fault
+    (op ``write``, its path, a phase) and no ``take.end``.  Then
+    postmortem_crash reads the root and the ring before they go."""
     import torch.multiprocessing as tmp
 
     from torchsnapshot_tpu_torch.telemetry import blackbox
 
-    snap_path = os.path.join(workdir, "crash_snap")
+    crash_root = os.path.join(workdir, "crash_root")
     bb_dir = os.path.join(workdir, "crash_blackbox")
     knob_env = {"TPUSNAP_FAULTS": CRASH_FAULT, "TPUSNAP_BLACKBOX": bb_dir}
     ctx = tmp.get_context("spawn")
     begin = time.monotonic()
-    proc = ctx.Process(target=crash_worker_entry, args=(snap_path, knob_env, seed, n_layers))
+    proc = ctx.Process(target=crash_worker_entry, args=(crash_root, knob_env, seed, n_layers))
     proc.start()
     proc.join(CRASH_TIMEOUT_S)
     if proc.is_alive():
@@ -3418,11 +3439,61 @@ def monitor_crash_phase(workdir, seed, n_layers):
           "fault": CRASH_FAULT, "exit_code": proc.exitcode, "wall_s": round(wall, 3), "ring_pid": proc.pid,
           "ring_records": len(records), "ring_op_records": ops, "crash": crash,
           "last_records": [[r["kind"], r["name"]] for r in records[-6:]]})
-    for path in (snap_path, bb_dir):
+    pm_ok = ok and postmortem_crash_phase(crash_root, bb_dir, proc.pid, crash)
+    for path in (crash_root, bb_dir):
         shutil.rmtree(path, ignore_errors=True)
     if not ok:
         raise RuntimeError("monitor_crash: the child did not die on the crash fault, or its ring does not name the "
                            "open take and the fault")
+    if not pm_ok:
+        raise RuntimeError("postmortem_crash: the postmortem did not name the killed child's take, or its gc "
+                           "prescription did not converge")
+
+
+def postmortem_crash_phase(crash_root, bb_dir, child_pid, crash) -> bool:
+    """postmortem_crash: ``analyze_root`` over monitor_crash's killed root
+    and ring, its checks, the prescribed gc, and a second report that must
+    find the debris gone.  Prints its line, then returns whether it held."""
+    import torchsnapshot_tpu_torch as ts
+    from torchsnapshot_tpu_torch.telemetry import analyze, postmortem
+
+    begin = time.monotonic()
+    report = postmortem.analyze_root(crash_root, blackbox_dir=bb_dir)
+    first_s = time.monotonic() - begin
+    fd = report["first_dead"] or {}
+    fault = fd.get("fault") or {}
+    markers = report["debris"]["inflight_markers"]
+    gc = [a for a in report["remediation"]["actions"] if a["action"] == "gc"]
+    stamps = [e["t"] for e in report["timeline"]]
+    events = postmortem.to_perfetto(report)["traceEvents"]
+    text = postmortem.format_report(report)
+    ok = (report["classification"] == "killed_mid_take" and fd.get("pid") == child_pid != os.getpid()
+          and fd.get("verdict") == "crash_fault" and fd.get("op") == "take"
+          and (fault.get("op"), fault.get("path")) == (crash.get("op"), crash.get("path"))
+          and bool(fd.get("phase")) and fd.get("phase_group") == analyze.classify_phase(fd["phase"])
+          and any(m.get("pid") == child_pid for m in markers) and len(gc) == 1 and gc[0]["force"] is True
+          and report["remediation"]["restore"]["committed_points"] == 0
+          and stamps == sorted(stamps) and len(events) == len(stamps) and all("ts" in e for e in events)
+          and "classification: killed_mid_take" in text and f"pid {child_pid}" in text)
+
+    ts.SnapshotManager(crash_root).gc_detail(apply=True, force=True)
+    begin = time.monotonic()
+    after = postmortem.analyze_root(crash_root, blackbox_dir=bb_dir)
+    second_s = time.monotonic() - begin
+    left = {k: after["debris"][k] for k in ("orphan_steps", "orphan_chunks", "orphan_segments", "inflight_markers")}
+    converged = not any(left.values()) and not any(a["action"] == "gc" for a in after["remediation"]["actions"])
+    emit({"phase": "postmortem_crash", "ok": ok and converged, "fault_spec": CRASH_FAULT,
+          "classification": report["classification"], "first_dead_pid": fd.get("pid"), "child_pid": child_pid,
+          "verdict": fd.get("verdict"), "op": fd.get("op"), "fault": fault, "phase_at_death": fd.get("phase"),
+          "phase_group": fd.get("phase_group"),
+          "bytes_at_death": report["bytes"] if report["bytes"]["staged"] is not None else None,
+          "markers": [[m.get("name"), m.get("pid")] for m in markers],
+          "gc": gc[0] if gc else None, "committed_points": report["remediation"]["restore"]["committed_points"],
+          "processes": len(report["processes"]), "timeline_entries": len(stamps), "perfetto_events": len(events),
+          "report_lines": len(text.splitlines()), "analyze_s": round(first_s, 4),
+          "after": {"classification": after["classification"], "debris_left": left, "converged": converged,
+                    "actions": [a["action"] for a in after["remediation"]["actions"]], "analyze_s": round(second_s, 4)}})
+    return ok and converged
 
 
 def monitor_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args, unmonitored_total_s):
@@ -3511,7 +3582,7 @@ def adaptive_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes
     """Unhashed restores (TPUSNAP_CHECKSUM=0) of the direct-I/O snapshot,
     so that the large reads take the adaptive path: pinned sequential
     (ways 1), pinned parallel (ways 8) and measured (unset), each from a
-    cold page cache (evicted) and then a warm one."""
+    cold page cache (evicted)."""
     from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 
     measured = []
@@ -3525,22 +3596,21 @@ def adaptive_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes
     try:
         with knobs.override_env("TPUSNAP_CHECKSUM", "0"):
             for ways in READ_WAYS:
-                for cache in ("cold", "warm"):
-                    evicted = evict_page_cache(path) if cache == "cold" else 0
-                    del measured[:]
-                    with knobs.override_env("TPUSNAP_PARALLEL_READ_WAYS", ways):
-                        seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
-                    seq, par = next(((s, p) for s, p in measured if s or p), (None, None))
-                    pick = None if seq is None or par is None else ("parallel" if par > seq else "sequential")
-                    ok = not mismatched and not moved and "checksum" not in stats
-                    emit({"phase": "adaptive_restore", "ok": ok, "ways": ways or "auto", "cache": cache,
-                          "evicted_bytes": evicted, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
-                          "sequential_reads": phase_n(stats, "fs_read"), "parallel_reads": phase_n(stats, "native_read"),
-                          "measured_seq_gbps": seq and round(seq, 3), "measured_par_gbps": par and round(par, 3),
-                          "adaptive_pick": pick, "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
-                          "phases": phase_summary(stats)})
-                    if not ok:
-                        raise RuntimeError(f"adaptive_restore ways={ways} {cache}: not bit-exact in place, or hashed")
+                evicted = evict_page_cache(path)
+                del measured[:]
+                with knobs.override_env("TPUSNAP_PARALLEL_READ_WAYS", ways):
+                    seconds, mismatched, moved, stats = restore_check(torch, ts, path, app_state, ref, phase_stats)
+                seq, par = next(((s, p) for s, p in measured if s or p), (None, None))
+                pick = None if seq is None or par is None else ("parallel" if par > seq else "sequential")
+                ok = not mismatched and not moved and "checksum" not in stats
+                emit({"phase": "adaptive_restore", "ok": ok, "ways": ways or "auto", "cache": "cold",
+                      "evicted_bytes": evicted, "seconds": round(seconds, 3), "gbps": round(nbytes / GB / seconds, 3),
+                      "sequential_reads": phase_n(stats, "fs_read"), "parallel_reads": phase_n(stats, "native_read"),
+                      "measured_seq_gbps": seq and round(seq, 3), "measured_par_gbps": par and round(par, 3),
+                      "adaptive_pick": pick, "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
+                      "phases": phase_summary(stats)})
+                if not ok:
+                    raise RuntimeError(f"adaptive_restore ways={ways}: not bit-exact in place, or hashed")
     finally:
         FSStoragePlugin.close = close
 

@@ -8,11 +8,11 @@ child process that runs the port and imports no JAX.  After every scenario:
 the store-wide ``chunk_classification`` accounts for every present chunk,
 no committed manifest of any root references a chunk missing from both
 ``cas/`` and the quarantine, and ``restore_latest`` lands a good snapshot
-on every root.
-
-The JAX tests also hold each kill to its postmortem classification
-(``killed_mid_take``/``_sweep``/``_condemn``); the port has no postmortem
-module yet, so those assertions wait for it."""
+on every root.  The port's postmortem reads each killed child's
+flight-recorder ring and the store: ``killed_mid_take``,
+``killed_mid_sweep`` and ``killed_mid_condemn``, each with the remediation
+it prescribes, and no prescription left once that remediation ran; the
+soak's roots, where faults raise and nothing dies, are ``no_failure``."""
 
 import os
 import subprocess
@@ -30,6 +30,7 @@ from torchsnapshot_tpu_torch.io_types import ReadIO, WriteIO
 from torchsnapshot_tpu_torch.manager import SnapshotManager
 from torchsnapshot_tpu_torch.manifest import SnapshotMetadata
 from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+from torchsnapshot_tpu_torch.telemetry import blackbox, postmortem
 
 from torch_env import default_knob_env, no_leaked_threads  # noqa: F401  fixtures
 
@@ -181,7 +182,9 @@ os._exit(7)  # never reached: the crash fault fires mid-sweep
 """
 
 
-def _run_child(code, args, faults):
+def _run_child(code, args, faults, blackbox_dir):
+    """Run ``code`` in a port child under ``faults`` with its flight
+    recorder in ``blackbox_dir``; returns the child's pid (its ring's)."""
     env = dict(os.environ)  # default_knob_env left no TPUSNAP_ knob set
     env.update(
         {
@@ -190,12 +193,23 @@ def _run_child(code, args, faults):
             # Lease refreshers quiet, so the fault counters follow the op
             # sequence and not a timer.
             "TPUSNAP_LEASE_INTERVAL_S": "9999",
+            "TPUSNAP_BLACKBOX": str(blackbox_dir),
         }
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, *[str(a) for a in args]], env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 1, f"child should die on the crash fault, got {proc.returncode}: {proc.stderr[-2000:]}"
+    (ring_path,) = blackbox.read_all(str(blackbox_dir)).keys()
+    return int(os.path.basename(ring_path).rsplit("-", 1)[1][: -len(".ring")])
+
+
+def _postmortem(root, store, bb):
+    return postmortem.analyze_root(str(root), store_url=str(store), blackbox_dir=str(bb))
+
+
+def _sweep_actions(report):
+    return [a for a in report["remediation"]["actions"] if a["action"] == "store_sweep"]
 
 
 def test_kill_mid_take_debris_swept_by_survivor(tmp_path):
@@ -204,10 +218,22 @@ def test_kill_mid_take_debris_swept_by_survivor(tmp_path):
     tenant's sweep condemns and deletes them."""
     store = tmp_path / "store"
     ra, rb = tmp_path / "ra", tmp_path / "rb"
+    bb = tmp_path / "bb"
     # Crash at the reference-journal append: every chunk is in the store,
     # neither the journal nor the commit marker landed.
-    _run_child(_CHILD_TAKE, [ra, store], "ledger:1:crash@ledger/*")
+    pid = _run_child(_CHILD_TAKE, [ra, store], "ledger:1:crash@ledger/*", bb)
     assert store_mod.chunk_classification(str(store))["orphan"]
+    # The postmortem names the dead writer from its ring, mid-take at the
+    # journal append, and prescribes a store sweep for its orphan chunks.
+    report = _postmortem(ra, store, bb)
+    assert report["classification"] == "killed_mid_take", report
+    fd = report["first_dead"]
+    assert fd["pid"] == pid != os.getpid(), fd
+    assert fd["verdict"] == "crash_fault" and fd["op"] == "take", fd
+    assert fd["fault"]["path"].startswith("ledger/"), fd
+    assert report["store"]["chunks"]["orphan"] > 0, report["store"]
+    (sweep,) = _sweep_actions(report)
+    assert sweep["store"] == str(store) and "from torchsnapshot_tpu_torch import store" in sweep["command"], sweep
     mb = SnapshotManager(str(rb), max_to_keep=10, store=str(store))
     mb.save(2, _state(2))
     with knobs.override_lease_interval_s(0.05), knobs.override_lease_grace_s(0.3), knobs.override_store_quarantine_s(
@@ -226,6 +252,10 @@ def test_kill_mid_take_debris_swept_by_survivor(tmp_path):
     assert ma.restore_points() == []
     cls = store_mod.chunk_classification(str(store))
     assert cls["orphan"] == [] and cls["condemned"] == []
+    # Converged: the postmortem finds no debris left at the store or root.
+    after = _postmortem(ra, store, bb)
+    assert after["store"]["chunks"]["orphan"] == 0 and after["store"]["quarantined"] == [], after["store"]
+    assert after["debris"]["orphan_steps"] == [], after["debris"]
 
 
 def test_kill_mid_sweep_lease_adopted(tmp_path):
@@ -238,8 +268,17 @@ def test_kill_mid_sweep_lease_adopted(tmp_path):
     # Touches of sweep/epoch.json in a sweep: the report's read, the bump's
     # read, the bump's WRITE; crashing on the third dies right after the
     # lease is acquired, with the lease on storage.
-    _run_child(_CHILD_SWEEP, [store], "ledger:3:crash@sweep/epoch.json")
+    bb = tmp_path / "bb"
+    _run_child(_CHILD_SWEEP, [store], "ledger:3:crash@sweep/epoch.json", bb)
     assert (store / store_mod.SWEEP_LEASE_FNAME).exists()
+    # The postmortem places the kill inside the two-phase GC and prescribes
+    # the adopting sweep the rest of this test performs.
+    report = _postmortem(ra, store, bb)
+    assert report["classification"] == "killed_mid_sweep", report
+    assert report["first_dead"]["verdict"] == "crash_fault", report["first_dead"]
+    assert report["store"]["sweep_lease"] is not None, report["store"]
+    (sweep,) = _sweep_actions(report)
+    assert sweep["force"] is True, report["remediation"]
     with pytest.raises(store_mod.StoreSweepBusyError):
         store_mod.sweep(str(store))
     with knobs.override_lease_interval_s(0.05), knobs.override_lease_grace_s(0.3), knobs.override_store_quarantine_s(
@@ -250,6 +289,10 @@ def test_kill_mid_sweep_lease_adopted(tmp_path):
     _assert_store_invariants(store, [ra])
     assert _restore_ok(ra, store) == 1.0
     assert not (store / store_mod.SWEEP_LEASE_FNAME).exists()
+    # Adoption converged: no sweep lease, so no sweep prescribed.
+    after = _postmortem(ra, store, bb)
+    assert after["store"]["sweep_lease"] is None, after["store"]
+    assert _sweep_actions(after) == [], after["remediation"]
 
 
 def test_kill_mid_condemn_quarantine_converges(tmp_path):
@@ -266,8 +309,15 @@ def test_kill_mid_condemn_quarantine_converges(tmp_path):
         storage.sync_close()
     # The first quarantine write is the .condemned stamp; crashing on the
     # SECOND dies between the stamp and the chunk move.
-    _run_child(_CHILD_SWEEP, [store], "ledger:2:crash@quarantine/*")
+    bb = tmp_path / "bb"
+    _run_child(_CHILD_SWEEP, [store], "ledger:2:crash@quarantine/*", bb)
     assert list((store / store_mod.QUARANTINE_DIR).glob(f"*/{store_mod.CONDEMNED_FNAME}"))
+    # The postmortem tells this window from mid-sweep: the fault landed on a
+    # quarantine/ path, between the condemn stamp and the chunk moves.
+    report = _postmortem(ra, store, bb)
+    assert report["classification"] == "killed_mid_condemn", report
+    assert report["first_dead"]["fault"]["path"].startswith("quarantine/"), report["first_dead"]
+    assert any(a["force"] for a in _sweep_actions(report)), report["remediation"]
     with knobs.override_lease_interval_s(0.05), knobs.override_lease_grace_s(0.3), knobs.override_store_quarantine_s(
         0.0
     ):
@@ -282,6 +332,8 @@ def test_kill_mid_condemn_quarantine_converges(tmp_path):
         assert not storage.sync_exists(store_mod.SWEEP_LEASE_FNAME)
     finally:
         storage.sync_close()
+    after = _postmortem(ra, store, bb)
+    assert after["store"]["quarantined"] == [] and after["store"]["sweep_lease"] is None, after["store"]
 
 
 # -------------------------------------------------------------------- soak
@@ -312,3 +364,7 @@ def test_store_chaos_soak(tmp_path, seed):
         _assert_store_invariants(store, roots)
         for root in roots:
             _restore_ok(root, store)
+        # Faults here raise, nothing dies: the postmortem invents no death.
+        for root in roots:
+            verdict = _postmortem(root, store, tmp_path / "bb")["classification"]
+            assert verdict == "no_failure", (seed, spec, verdict)

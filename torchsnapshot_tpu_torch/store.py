@@ -44,8 +44,9 @@ orphan.  Three mechanisms close every window:
 Each condemned, restored, deleted and resurrected chunk counts on
 ``tpusnap_gc_actions_total`` and the sweep's ``store.sweep`` event is
 logged, as in the JAX package; :func:`publish_usage_metrics` exports a
-:func:`tenant_usage` report.  Not in this package yet: the flight-recorder
-records of the leases.
+:func:`tenant_usage` report.  The writer and sweep leases leave their
+flight-recorder records (``store_writer.*``, ``store_sweep.*``), which the
+postmortem reads.
 """
 
 from __future__ import annotations
@@ -155,6 +156,39 @@ def read_store_pointer(root_storage: StoragePlugin) -> Optional[str]:
     doc = _read_json(root_storage, STORE_POINTER_FNAME)
     if doc and isinstance(doc.get("store"), str) and doc["store"]:
         return doc["store"]
+    return None
+
+
+def _resolve_store_url(path: str) -> Optional[str]:
+    """Shared-store URL a path participates in, if any: the
+    ``TPUSNAP_STORE`` knob wins, else the ``.store`` pointer at ``path``
+    (a manager root) or, for a snapshot or segment path, at its parent.
+    The postmortem reads it here, and so will the command line.  Unlike
+    ``SnapshotManager._resolve_store_url``, which reads only its root and
+    caches the answer, each call reads again."""
+    from . import knobs
+    from .storage_plugin import url_to_storage_plugin
+
+    store_url = knobs.get_store_url()
+    if store_url is not None:
+        return store_url
+    candidates = [path]
+    parent, _, _ = path.rstrip("/").rpartition("/")
+    if parent:
+        candidates.append(parent)
+    for candidate in candidates:
+        try:
+            storage = url_to_storage_plugin(candidate)
+        except Exception:  # noqa: BLE001 — not a root this process can open
+            continue
+        try:
+            store_url = read_store_pointer(storage)
+        except Exception:  # noqa: BLE001 — unreadable pointer: not joined
+            store_url = None
+        finally:
+            storage.sync_close()
+        if store_url is not None:
+            return store_url
     return None
 
 

@@ -1,8 +1,8 @@
 """Telemetry: sidecars, step history, traces, metrics, the health monitor,
-the flight recorder, the sampling profiler, fleet telemetry and the
-bottleneck analysis.
+the flight recorder, the sampling profiler, fleet telemetry, the
+bottleneck analysis and the postmortem.
 
-Counterpart of ``torchsnapshot_tpu/telemetry/`` for nine of its modules:
+Counterpart of ``torchsnapshot_tpu/telemetry/``, module for module:
 
 - :mod:`.sidecar` — a small ``telemetry/<op>.json`` next to
   ``.snapshot_metadata`` for each take, async take and restore
@@ -32,11 +32,24 @@ Counterpart of ``torchsnapshot_tpu/telemetry/`` for nine of its modules:
 - :mod:`.analyze` — the bottleneck analysis over trace directories,
   profile directories and sidecars: per-phase walls and resource groups,
   the limiting resource and the straggler, the profile's CPU sinks, the
-  commit barrier's blamed rank and the serving plane's per-peer report.
-
-The postmortem is a later slice.
+  commit barrier's blamed rank and the serving plane's per-peer report;
+- :mod:`.postmortem` — crash forensics of a manager root: the rings, the
+  spool, the heartbeat, the coordination leases, the root's debris and the
+  shared store's state stitched into one timeline, the failure classified
+  and the remediation that converges.
 """
 
-from . import analyze, blackbox, fleet, history, metrics, monitor, profiler, sidecar, trace
+from . import analyze, blackbox, fleet, history, metrics, monitor, postmortem, profiler, sidecar, trace
 
-__all__ = ["trace", "metrics", "sidecar", "monitor", "history", "blackbox", "profiler", "fleet", "analyze"]
+__all__ = [
+    "trace",
+    "metrics",
+    "sidecar",
+    "monitor",
+    "history",
+    "blackbox",
+    "profiler",
+    "fleet",
+    "analyze",
+    "postmortem",
+]

@@ -173,8 +173,12 @@ def _join(procs: list, conns: list, timeout_s: float) -> list:
             if rank in results:
                 continue
             if conn.poll():
-                results[rank] = conn.recv()
-                p.join()
+                try:
+                    results[rank] = conn.recv()
+                    p.join()
+                except EOFError:  # died without a report: its pipe closed
+                    p.join()
+                    results[rank] = f"exit code {p.exitcode}"
                 if results[rank] is not None:
                     deadline = min(deadline, time.monotonic() + _FAILED_PEER_GRACE_S)
             elif not p.is_alive():
