@@ -48,6 +48,11 @@ calls, in phases that each print one JSON line:
                 bytes equal to the state's bytes
 6. read_object — reads the chunked ``embed.tokens`` onto the card
 7. integrity  — a flipped payload byte must raise ``ChecksumError``
+   cli_take   — the port's CLI (``torchsnapshot_tpu_torch.__main__.main``,
+                in this process) over the take's snapshot before it goes:
+                ``info`` states its array bytes, ``ls`` prints one line per
+                manifest entry, ``cat`` of the 8 KiB ``final_norm`` reads it
+                onto the default device (the card) and prints its values
    trace_take_restore — the take and the in-place restore again with
                 ``TPUSNAP_TRACE_DIR`` and ``TPUSNAP_METRICS`` set (through
                 ``knobs.override_*``): both walls beside the untraced ones,
@@ -148,8 +153,14 @@ calls, in phases that each print one JSON line:
                 in-flight marker of the child's pid, a forced ``gc`` action,
                 no committed point, a timeline sorted by time with one
                 Perfetto event for each entry, and ``format_report`` naming
-                the classification and the pid; then the prescribed
-                ``gc_detail(apply=True, force=True)`` and a second report
+                the classification and the pid; ``postmortem --json``
+                through the port's CLI in this process names the same
+                classification and pid; then the report's own ``gc``
+                command (``python -m torchsnapshot_tpu_torch gc <root>
+                --apply --force``, ``python`` this interpreter) runs in a
+                subprocess from the checkout: exit 0, a ``removed step_N``
+                line for each step the report said it reclaims (command,
+                exit code, wall and last line printed), and a second report
                 with no orphan step, chunk, segment or marker and no ``gc``
                 action; both reports' walls printed
    storage depth — each phase removes its directories before the next:
@@ -194,7 +205,14 @@ calls, in phases that each print one JSON line:
                 and ``restore_at(3)`` are bit-exact in place; a corrupt
                 seg 4 falls back to step 3 with the ``restore_latest`` and
                 ``journal`` fallback events; with it removed, ``gc_detail``
-                reclaims exactly its chunks, bytes as its manifest states
+                reclaims exactly its chunks, bytes as its manifest states.
+                The port's CLI over the root as it goes: ``diff`` of step 0
+                and seg 1 (exit 1; changed exactly ``wk`` and ``w_gate``,
+                nothing added or unverified, removed the leaves the delta
+                does not carry), ``stats`` of seg 1, ``steps`` against
+                ``restore_point_times``, ``history --json`` against
+                ``history.read`` and the dry-run ``gc`` against
+                ``gc_detail(apply=False)``
    manager_async_journal — a segment saved with ``async_=True`` in
                 pinned_host mode (every tensor mutated after the return):
                 stall and total; its manifest equals the sync segment of
@@ -258,7 +276,9 @@ calls, in phases that each print one JSON line:
                 high-water growth over the copy at most the 2 GiB byte
                 budget plus one 512 MiB payload; bit-exact restore; one
                 flipped byte of the replica is exactly one corrupt item in
-                ``integrity.audit`` (naming it) and ``ChecksumError`` from
+                the audit of ``verify`` through the port's CLI (exit 1,
+                ``verified <items-1> payloads, 1 corrupt, 0 unreadable``,
+                one problem line naming it) and ``ChecksumError`` from
                 ``restore``; the replica is then removed
    replicate_s3 — an fs take of the 8-layer cut (``CLOUD_LAYERS``, as
                 the S3 phases) copied to ``s3://smoke/replica`` (the fake S3
@@ -283,7 +303,10 @@ calls, in phases that each print one JSON line:
                 and bytes); ``store.chunk_classification`` accounts for
                 every chunk left; a fresh ``Snapshot(...).restore`` of each
                 tenant's step 1, no knob set, resolves through the root's
-                ``.store`` pointer, bit-exact in place
+                ``.store`` pointer, bit-exact in place; then the port's CLI:
+                ``info`` of A's step 1 names the store, ``stats`` prints the
+                tenant lines of ``store.tenant_usage``, and the dry-run
+                ``gc`` of A the counts of ``store.chunk_classification``
    host cache — ``TPUSNAP_CACHE_DIR`` on ``<workdir>/cache``, origin metered
                 by ``TPUSNAP_FAULTS=none`` (payload files only); free disk
                 checked first, every directory removed after:
@@ -346,6 +369,9 @@ calls, in phases that each print one JSON line:
                 bytes, and each daemon's ``serve`` entry is live and fresh
                 at the default stale bound; after the daemons close, their
                 ``serve`` entries are done
+   cli        — every CLI command the phases ran (in this process, or the
+                postmortem's gc line in a subprocess): its arguments, exit
+                code (each the one its phase requires) and wall
 8. yardsticks — raw pinned D2H and H2D GB/s over a 1 GiB copy and raw
                 fsync'd disk write GB/s
 
@@ -363,6 +389,7 @@ import contextlib
 import json
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -460,6 +487,48 @@ def nvidia_smi_line() -> str:
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# The command line (``python -m torchsnapshot_tpu_torch``): the phases run its
+# commands over the files they already wrote, before they remove them; each
+# run lands here, and the ``cli`` line prints them all.
+CLI_RUNS: list = []
+
+
+def record_cli(phase, argv, rc, expect, seconds, how="in-process") -> None:
+    CLI_RUNS.append({"phase": phase, "argv": [os.path.relpath(a, HERE) if os.path.isabs(a) else a for a in argv],
+                     "rc": rc, "expect": expect, "s": round(seconds, 4), "how": how})
+
+
+def run_cli(argv, phase, expect=0):
+    """``main(argv)`` of the port's CLI in this process with its stdout
+    captured: (exit code, stdout).  ``expect`` is the exit code the phase
+    requires."""
+    import io
+
+    from torchsnapshot_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    begin = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    record_cli(phase, argv, rc, expect, time.monotonic() - begin)
+    return rc, out.getvalue()
+
+
+def array_bytes(obj) -> int:
+    """Bytes of every tensor and numpy array in a nested state."""
+    import numpy as np
+
+    if hasattr(obj, "element_size"):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, dict):
+        return sum(array_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(array_bytes(v) for v in obj)
+    return 0
 
 
 N_STEPS = 5
@@ -995,6 +1064,75 @@ def chunks_on_disk(root):
     return out
 
 
+MUTATED_PATHS = ("0/model/layers/attn/wk", "0/model/layers/mlp/w_gate")  # what mutate_step changes
+
+
+def cli_segment_checks(ts, root, step):
+    """The command line over a journal root's ``step_0`` and segment
+    ``step``: ``diff`` reads the two manifests as they are, so it exits 1
+    with exactly the mutated paths changed, nothing added or unverified,
+    and as removed exactly the step-0 leaves the segment's delta does not
+    carry (it holds the entries whose records changed); ``stats`` of the
+    segment reports its take."""
+    from torchsnapshot_tpu_torch.manifest_utils import is_container_entry
+
+    base, seg = os.path.join(root, "step_0"), os.path.join(root, f"seg_{step}")
+    leaves = [{p for p, e in ts.Snapshot(path).metadata.manifest.items() if not is_container_entry(e)}
+              for path in (base, seg)]
+    rc, out = run_cli(["diff", base, seg, "--limit", str(len(leaves[0]) + len(leaves[1]))], "manager_journal",
+                      expect=1)
+    buckets = {}
+    for line in out.splitlines()[:-1]:
+        label, _, path = line.strip().partition("  ")
+        buckets.setdefault(label, []).append(path)
+    removed = sorted(leaves[0] - leaves[1])
+    diff_ok = (rc == 1 and sorted(buckets.get("changed", [])) == sorted(MUTATED_PATHS)
+               and buckets.get("removed", []) == removed and not buckets.get("added") and not buckets.get("unverified")
+               and out.splitlines()[-1] == f"0 added, {len(removed)} removed, {len(MUTATED_PATHS)} changed, "
+               f"{len(leaves[0] & leaves[1]) - len(MUTATED_PATHS)} identical")
+    stats_rc, stats = run_cli(["stats", seg], "manager_journal")
+    ops = re.fullmatch(r"(\d+) operation\(s\) recorded", stats.splitlines()[-1] if stats else "")
+    stats_ok = stats_rc == 0 and ops is not None and int(ops.group(1)) >= 1
+    return diff_ok and stats_ok, {"diff_exit_code": rc, "diff_summary": out.splitlines()[-1] if out else None,
+                                  "diff_changed": buckets.get("changed", []), "diff_removed": len(removed),
+                                  "stats_operations": int(ops.group(1)) if ops else None}
+
+
+def cli_root_checks(root, mgr):
+    """``steps`` of a manager root prints ``restore_point_times`` (each
+    point, its committed instant, the latest), and ``history --json`` is
+    ``history.read`` of the root."""
+    from datetime import datetime
+
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+    from torchsnapshot_tpu_torch.telemetry import history
+
+    points = mgr.restore_point_times()
+    want = [(f"step_{s}" if kind == "full" else f"seg_{s} (journal delta)")
+            + (f"  committed {datetime.fromtimestamp(t).isoformat(timespec='seconds')}" if t is not None else "")
+            for s, kind, t in points] + [f"latest: {points[-1][0]}"]
+    steps_rc, steps = run_cli(["steps", root], "manager_journal")
+    storage = url_to_storage_plugin(root)
+    try:
+        entries = history.read(storage)
+    finally:
+        storage.sync_close()
+    history_rc, history_out = run_cli(["history", root, "--json"], "manager_journal")
+    ok = steps_rc == history_rc == 0 and steps.splitlines() == want and json.loads(history_out) == entries
+    return ok, {"steps": steps.splitlines(), "history_entries": len(entries)}
+
+
+def cli_gc_dry_run_check(root, dry):
+    """The dry-run ``gc`` of a root names what ``gc_detail(apply=False)``
+    returned: its orphan steps, segments and chunks."""
+    rc, out = run_cli(["gc", root], "manager_journal")
+    lines = out.splitlines()
+    named = ([int(m.group(1)) for m in map(re.compile(r"orphan step_(\d+) \(").match, lines) if m],
+             [m.group(1) for m in map(re.compile(r"orphan chunk (\S+) \(").match, lines) if m],
+             [int(m.group(1)) for m in map(re.compile(r"orphan/stale journal segment seg_(\d+)$").match, lines) if m])
+    return rc == 0 and named == tuple(dry), {"gc_dry_run_lines": len(lines), "gc_dry_run_named_chunks": len(named[1])}
+
+
 def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, workdir):
     """SnapshotManager(root, max_to_keep=1, journal=True) with
     TPUSNAP_JOURNAL_MAX_SEGMENTS=3: step 0 (the base), steps 1-3 (segments;
@@ -1058,6 +1196,8 @@ def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
                 "delta_bytes": commit[-1]["delta_bytes"] if commit else None,
                 "folded": any(e.name == "journal.compaction" for e in new_events),
                 "phases": phase_summary(stats)})
+            if step == 1:
+                seg_cli_ok, seg_cli = cli_segment_checks(ts, root, 1)
             if step == 3:
                 step3_files = sorted(os.listdir(os.path.join(root, "step_3")))
         points = mgr.restore_points()
@@ -1082,6 +1222,7 @@ def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
     at3_s, at3_bad, at3_moved, _ = restore_check(torch, ts, None, app_state, ref, phase_stats,
                                                  restore_fn=lambda a: landed.append(mgr.restore_at(3, a)))
     restores_ok = landed == [4, 3] and not (latest_bad or latest_moved or at3_bad or at3_moved)
+    root_cli_ok, root_cli = cli_root_checks(root, mgr)
 
     # A corrupt seg 4: restore_latest falls back to step 3.
     seg4_refs, seg4_sizes = committed_refs(ts, root)
@@ -1101,6 +1242,7 @@ def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
     shutil.rmtree(os.path.join(root, "seg_4"))
     disk_before_gc = chunks_on_disk(root)
     dry = mgr.gc_detail(apply=False)
+    gc_cli_ok, gc_cli = cli_gc_dry_run_check(root, dry)
     begin = time.monotonic()
     applied = mgr.gc_detail(apply=True)
     gc_s = time.monotonic() - begin
@@ -1108,7 +1250,8 @@ def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
     gc_bytes_manifest = sum(seg4_sizes.get(c, -1) for c in seg4_only)
     gc_ok = (dry == applied == ([], seg4_only, []) and bool(seg4_only) and gc_bytes_disk == gc_bytes_manifest
              and set(chunks_on_disk(root)) == set(disk_before_gc) - set(seg4_only))
-    ok = segs_ok and fold_ok and restores_ok and fallback_ok and gc_ok
+    cli_ok = seg_cli_ok and root_cli_ok and gc_cli_ok
+    ok = segs_ok and fold_ok and restores_ok and fallback_ok and gc_ok and cli_ok
     emit({"phase": "manager_journal", "ok": ok, "max_to_keep": 1, "journal_max_segments": 3, "saves": saves,
           "segments_ok": segs_ok, "fold_ok": fold_ok, "fold_s": round(folds[0]["seconds"], 4) if folds else None,
           "fold_files_written": folds[0]["files_written"] if folds else None,
@@ -1122,10 +1265,12 @@ def manager_journal_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes,
           "fallback_step": fb_step, "fallback_s": round(fb_s, 3), "fallback_events": fb_events,
           "fallback_bit_exact": not fb_bad,
           "gc_reclaimed_chunks": applied[1], "gc_expected_chunks": seg4_only, "gc_reclaimed_bytes": gc_bytes_disk,
-          "gc_expected_bytes_from_manifest": gc_bytes_manifest, "gc_s": round(gc_s, 4)})
+          "gc_expected_bytes_from_manifest": gc_bytes_manifest, "gc_s": round(gc_s, 4),
+          "cli": {"ok": cli_ok, "segment_1": seg_cli, **root_cli, **gc_cli}})
     if not ok:
         raise RuntimeError("manager_journal: a segment past its bound, a fold that wrote payload, reclamation "
-                           "other than the unreferenced chunks, a restore not bit-exact, or no fallback to step 3")
+                           "other than the unreferenced chunks, a restore not bit-exact, no fallback to step 3, or "
+                           "a CLI command that printed other than the library returned")
     return root
 
 
@@ -1797,9 +1942,6 @@ def read_file(path: str) -> bytes:
 def replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nbytes, workdir):
     """replicate_fs_link and replicate_fs_stream from a fresh fs take of the
     state; returns the take's path (the S3 phase's source)."""
-    from torchsnapshot_tpu_torch import integrity
-    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
-
     src = os.path.join(workdir, "replicate_src")
     device_sync(torch)
     begin = time.monotonic()
@@ -1843,13 +1985,15 @@ def replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nb
         byte = f.read(1)
         f.seek(-1, os.SEEK_CUR)
         f.write(bytes([byte[0] ^ 0x40]))
-    storage = url_to_storage_plugin(dst)
-    try:
-        begin = time.monotonic()
-        flipped_ok, corrupt, unreadable, problems = integrity.audit(storage, metadata)
-        flipped_audit_s = time.monotonic() - begin
-    finally:
-        storage.sync_close()
+    # The audit through the command line: its problem lines come before
+    # the compression line, its counts on the last.
+    begin = time.monotonic()
+    verify_rc, verify_out = run_cli(["verify", dst], "replicate_fs_stream", expect=1)
+    flipped_audit_s = time.monotonic() - begin
+    lines = verify_out.splitlines()
+    problems = lines[: next((i for i, line in enumerate(lines) if line.startswith("compression:")), 0)]
+    counts = re.fullmatch(r"verified (\d+) payloads, (\d+) corrupt, (\d+) unreadable", lines[-1] if lines else "")
+    flipped_ok, corrupt, unreadable = (int(n) for n in counts.groups()) if counts else (None, None, None)
     try:
         ts.Snapshot(dst).restore(app_state)
         raised = None
@@ -1862,16 +2006,17 @@ def replicate_fs_phases(torch, ts, phase_stats, RSSWatermark, app_state, ref, nb
         _, bad, _, _ = restore_check(torch, ts, src, app_state, ref, phase_stats)
         recovered = not bad
     ok = (linked == 0 and watermark.delta <= rss_bound and audits == [(items, 0, 0, [])] and not mismatched
-          and not moved and (flipped_ok, corrupt, unreadable) == (items - 1, 1, 0) and len(problems) == 1
-          and victim in problems[0] and raised is not None and recovered)
+          and not moved and verify_rc == 1 and (flipped_ok, corrupt, unreadable) == (items - 1, 1, 0)
+          and len(problems) == 1 and victim in problems[0] and raised is not None and recovered)
     emit({"phase": "replicate_fs_stream", "ok": ok, "force_stream": True, "payload_bytes": payload_bytes,
           "payloads": len(locations), "linked": linked, "copy_s": round(copy_s, 3),
           "copy_gbps": round(payload_bytes / GB / copy_s, 3), "audit_s": round(audit_s, 3),
           "audit_ok": audits[0][0] if audits else None, "checksummed_items": items,
           "rss_growth_bytes": watermark.delta, "rss_bound_bytes": rss_bound, "counts": replicate_counts(stats),
           "restore_s": round(seconds, 3), "bit_exact": not mismatched, "data_ptr_unchanged": not moved,
-          "flipped": victim, "flipped_audit": [flipped_ok, corrupt, unreadable], "flipped_audit_s":
-          round(flipped_audit_s, 3), "problems": problems[:2], "checksum_error": raised,
+          "flipped": victim, "verify_exit_code": verify_rc, "verify_last_line": lines[-1] if lines else None,
+          "flipped_audit": [flipped_ok, corrupt, unreadable], "flipped_audit_s": round(flipped_audit_s, 3),
+          "problems": problems[:2], "checksum_error": raised,
           "leaves_overwritten_by_failed_restore": len(damaged), "recovered_from_source": recovered,
           "phases": phase_summary(stats)})
     shutil.rmtree(dst)
@@ -2132,20 +2277,46 @@ def store_sweep_phase(torch, ts, knobs, phase_stats, app_state, ref, S, roots, r
         restores.append({"root": os.path.basename(root), "restore_s": round(seconds, 3), "bit_exact": not mismatched,
                          "data_ptr_unchanged": not moved, "mismatched": mismatched[:5],
                          "phases": phase_summary(rstats)})
+    cli_ok, cli = cli_store_checks(S, A, cls)
     ok = (removed_steps == [] and swept == stale and len(stale) > 0 and quarantined == []
           and set(present) == refs1 and cls["referenced"] == sorted(refs1) and cls["orphan"] == []
           and cls["condemned"] == [] and knobs.get_store_url() is None
-          and all(r["bit_exact"] and r["data_ptr_unchanged"] for r in restores))
+          and all(r["bit_exact"] and r["data_ptr_unchanged"] for r in restores) and cli_ok)
     emit({"phase": "store_sweep", "ok": ok, "quarantine_s": 0.0, "ledger_wait_s": round(wait_s, 3),
           "gc_s": round(gc_s, 4), "condemned_and_deleted": swept, "expected_chunks": stale,
           "condemned_and_deleted_bytes": sum(sizes[c] for c in swept if c in sizes),
           "expected_bytes": stale_bytes, "chunks_left": len(present), "classification":
-          {k: len(v) for k, v in cls.items()}, "restores": restores})
+          {k: len(v) for k, v in cls.items()}, "restores": restores, "cli": cli})
     for path in (S, *roots):
         shutil.rmtree(path)
     if not ok:
         raise RuntimeError("store_sweep: gc reclaimed other chunks than the unreferenced step-0 versions, a chunk "
-                           "is unclassified, or a tenant's restore through .store was not bit-exact in place")
+                           "is unclassified, a tenant's restore through .store was not bit-exact in place, or a "
+                           "CLI command printed other store lines than the library returned")
+
+
+def cli_store_checks(S, A, cls):
+    """The command line over tenant A of store S: ``info`` of its step 1
+    names the store; ``stats`` prints one line per tenant of
+    ``store.tenant_usage(S)``; the dry-run ``gc`` of A prints the counts of
+    ``store.chunk_classification(S)`` (``cls``)."""
+    from torchsnapshot_tpu_torch import store
+    from torchsnapshot_tpu_torch.__main__ import _human
+
+    step = os.path.join(A, "step_1")
+    info_rc, info = run_cli(["info", step], "store_sweep")
+    usage = store.tenant_usage(S)
+    stats_rc, stats = run_cli(["stats", step], "store_sweep")
+    tenants = [f"  tenant {tid} ({t['root']}): {_human(t['logical_bytes'])} logical, "
+               f"{_human(t['exclusive_bytes'])} exclusive, {t['chunks']} chunk(s)"
+               for tid, t in sorted(usage["tenants"].items())]
+    gc_rc, gc = run_cli(["gc", A], "store_sweep")
+    counts = (f"shared store {S}: {len(cls['referenced'])} referenced, {len(cls['orphan'])} orphan, "
+              f"{len(cls['condemned'])} condemned chunk(s) store-wide")
+    ok = (info_rc == stats_rc == gc_rc == 0 and info.splitlines()[-1] == f"store:       shared CAS at {S}"
+          and len(tenants) == 2 and stats.splitlines()[-2:] == tenants and gc.splitlines()[-1] == counts)
+    return ok, {"ok": ok, "info_store_line": info.splitlines()[-1] if info else None,
+                "stats_tenant_lines": stats.splitlines()[-2:], "gc_store_line": gc.splitlines()[-1] if gc else None}
 
 
 def store_phases(torch, ts, knobs, phase_stats, app_state, ref, events, workdir):
@@ -3452,9 +3623,10 @@ def monitor_crash_phase(workdir, seed, n_layers):
 
 def postmortem_crash_phase(crash_root, bb_dir, child_pid, crash) -> bool:
     """postmortem_crash: ``analyze_root`` over monitor_crash's killed root
-    and ring, its checks, the prescribed gc, and a second report that must
-    find the debris gone.  Prints its line, then returns whether it held."""
-    import torchsnapshot_tpu_torch as ts
+    and ring, its checks, the same report through ``postmortem --json``,
+    the report's gc command run as a subprocess, and a second report that
+    must find the debris gone.  Prints its line, then returns whether it
+    held."""
     from torchsnapshot_tpu_torch.telemetry import analyze, postmortem
 
     begin = time.monotonic()
@@ -3476,12 +3648,32 @@ def postmortem_crash_phase(crash_root, bb_dir, child_pid, crash) -> bool:
           and stamps == sorted(stamps) and len(events) == len(stamps) and all("ts" in e for e in events)
           and "classification: killed_mid_take" in text and f"pid {child_pid}" in text)
 
-    ts.SnapshotManager(crash_root).gc_detail(apply=True, force=True)
+    # The command line's report of the same root says the same.
+    cli_rc, cli_out = run_cli(["postmortem", crash_root, "--blackbox", bb_dir, "--json"], "postmortem_crash")
+    cli_doc = json.loads(cli_out) if cli_rc == 0 else {}
+    cli_same = (cli_doc.get("classification") == report["classification"]
+                and (cli_doc.get("first_dead") or {}).get("pid") == fd.get("pid"))
+    # The report's own gc line, run as printed (``python`` is this
+    # interpreter) from the checkout's root.
+    argv = shlex.split(gc[0]["command"] if gc else f"python -m torchsnapshot_tpu_torch gc {crash_root} --apply --force")
+    argv = [sys.executable if argv[0] == "python" else argv[0]] + argv[1:]
+    begin = time.monotonic()
+    proc = subprocess.run(argv, cwd=HERE, capture_output=True, text=True, timeout=CRASH_TIMEOUT_S)
+    gc_s = time.monotonic() - begin
+    record_cli("postmortem_crash", argv[1:], proc.returncode, 0, gc_s, how="subprocess")
+    gc_lines = proc.stdout.splitlines()
+    # The CLI names each orphan step it removes (the JAX CLI's lines: no
+    # line for a marker, which the second report must find gone).
+    reclaims = gc[0]["reclaims"]["steps"] if gc else []
+    gc_named = (all(f"removed step_{step} (uncommitted)" in gc_lines for step in reclaims)
+                and f"{len(reclaims)} orphaned snapshot dir(s) removed" in gc_lines)
     begin = time.monotonic()
     after = postmortem.analyze_root(crash_root, blackbox_dir=bb_dir)
     second_s = time.monotonic() - begin
     left = {k: after["debris"][k] for k in ("orphan_steps", "orphan_chunks", "orphan_segments", "inflight_markers")}
-    converged = not any(left.values()) and not any(a["action"] == "gc" for a in after["remediation"]["actions"])
+    converged = (proc.returncode == 0 and gc_named and not any(left.values())
+                 and not any(a["action"] == "gc" for a in after["remediation"]["actions"]))
+    ok = ok and cli_same
     emit({"phase": "postmortem_crash", "ok": ok and converged, "fault_spec": CRASH_FAULT,
           "classification": report["classification"], "first_dead_pid": fd.get("pid"), "child_pid": child_pid,
           "verdict": fd.get("verdict"), "op": fd.get("op"), "fault": fault, "phase_at_death": fd.get("phase"),
@@ -3491,6 +3683,11 @@ def postmortem_crash_phase(crash_root, bb_dir, child_pid, crash) -> bool:
           "gc": gc[0] if gc else None, "committed_points": report["remediation"]["restore"]["committed_points"],
           "processes": len(report["processes"]), "timeline_entries": len(stamps), "perfetto_events": len(events),
           "report_lines": len(text.splitlines()), "analyze_s": round(first_s, 4),
+          "cli_json": {"exit_code": cli_rc, "classification": cli_doc.get("classification"),
+                       "first_dead_pid": (cli_doc.get("first_dead") or {}).get("pid"), "same": cli_same},
+          "gc_command": " ".join(shlex.quote(a) for a in argv), "gc_exit_code": proc.returncode,
+          "gc_wall_s": round(gc_s, 3), "gc_last_line": gc_lines[-1] if gc_lines else None,
+          "gc_named_reclaimed_steps": gc_named, "gc_stderr_tail": proc.stderr[-400:] if proc.returncode else None,
           "after": {"classification": after["classification"], "debris_left": left, "converged": converged,
                     "actions": [a["action"] for a in after["remediation"]["actions"]], "analyze_s": round(second_s, 4)}})
     return ok and converged
@@ -4260,6 +4457,30 @@ def dist_phases(torch, ts, args) -> None:
     shutil.rmtree(snap)
 
 
+def cli_take_phase(snap_path, manifest, array_nbytes):
+    """cli_take: the command line over the take phase's snapshot, before it
+    goes: ``info`` states its array bytes (the state's, the RNG states'
+    arrays included) in the CLI's units, ``ls`` prints one line per manifest
+    entry, and ``cat`` of the 8 KiB ``final_norm`` reads it onto the default
+    device, the card, and prints its values (ones; bfloat16, which numpy
+    lacks, prints through torch)."""
+    from torchsnapshot_tpu_torch.__main__ import _human
+
+    info_rc, info = run_cli(["info", snap_path], "cli_take")
+    array_line = next((line for line in info.splitlines() if line.startswith("array bytes:")), None)
+    ls_rc, ls = run_cli(["ls", snap_path], "cli_take")
+    cat_argv = ["cat", snap_path, "0/model/final_norm"] + ([] if DEV == "cuda" else ["--device", DEV])
+    cat_rc, cat = run_cli(cat_argv, "cli_take")
+    ok = (info_rc == ls_rc == cat_rc == 0 and array_line == f"array bytes: {_human(array_nbytes)}"
+          and len(ls.splitlines()) == len(manifest) and cat.startswith("tensor([1., 1., 1., 1.,  ..., 1., 1., 1., 1.]")
+          and "dtype=torch.bfloat16" in cat and (DEV != "cuda" or "device='cuda:0'" in cat))
+    emit({"phase": "cli_take", "ok": ok, "info_array_bytes": array_line, "expected_array_bytes": array_nbytes,
+          "ls_lines": len(ls.splitlines()), "manifest_entries": len(manifest), "cat": " ".join(cat.split()),
+          "exit_codes": [info_rc, ls_rc, cat_rc]})
+    if not ok:
+        raise RuntimeError("cli_take: info, ls or cat of the take's snapshot printed other than the state holds")
+
+
 def run(args) -> int:
     try:
         import torch
@@ -4418,6 +4639,7 @@ def run(args) -> int:
     emit({"phase": "integrity", "ok": raised is not None, "checksum_error": raised})
     if raised is None:
         raise RuntimeError("a flipped payload byte was not detected")
+    cli_take_phase(snap_path, manifest, nbytes + array_bytes(app_state["rng"].state_dict()))
     shutil.rmtree(snap_path)
 
     # async phases: async_take in each staging mode at full size.  The
@@ -4460,6 +4682,11 @@ def run(args) -> int:
     cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args)
     peer_phases(torch, ts, knobs, args)
     event_handlers.unregister_event_handler(events.append)
+    cli_ok = bool(CLI_RUNS) and all(r["rc"] == r["expect"] for r in CLI_RUNS)
+    emit({"phase": "cli", "ok": cli_ok, "commands": len(CLI_RUNS), "seconds": round(sum(r["s"] for r in CLI_RUNS), 3),
+          "runs": CLI_RUNS})
+    if not cli_ok:
+        raise RuntimeError("cli: a command returned another exit code than its phase expected")
 
     # 8. yardsticks for the take/restore rates.
     n = 1 << 30

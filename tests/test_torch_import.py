@@ -51,6 +51,7 @@ def test_import_leaves_forbidden_modules_unloaded():
         "import torchsnapshot_tpu_torch.journal\n"
         "import torchsnapshot_tpu_torch.manager\n"
         "import torchsnapshot_tpu_torch.replication\n"
+        "import torchsnapshot_tpu_torch.__main__\n"
         "import torchsnapshot_tpu_torch.telemetry\n"
         "import torchsnapshot_tpu_torch.telemetry.sidecar\n"
         "import torchsnapshot_tpu_torch.telemetry.history\n"

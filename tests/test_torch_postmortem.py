@@ -5,8 +5,8 @@ and server-tracer cases, and its verdicts one by one.
   no JAX) is named by ``analyze_root``: ``killed_mid_take``, verdict
   ``crash_fault``, op ``take``, the ring's pid, the faulted write; the
   prescribed ``gc --force`` converges.  ``to_perfetto`` and
-  ``format_report`` render that report (the library half of the CLI case,
-  whose command line waits for the port's CLI).
+  ``format_report`` render that report (the library half of the CLI case;
+  tests/test_torch_cli_gc.py runs the command lines).
 - A clean root is ``no_failure``; the heartbeat written by the port's
   monitor lands in the timeline.
 - ``ServerTracer`` flushes an idle daemon's spans and flushes on close.

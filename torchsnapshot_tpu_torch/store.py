@@ -163,7 +163,7 @@ def _resolve_store_url(path: str) -> Optional[str]:
     """Shared-store URL a path participates in, if any: the
     ``TPUSNAP_STORE`` knob wins, else the ``.store`` pointer at ``path``
     (a manager root) or, for a snapshot or segment path, at its parent.
-    The postmortem reads it here, and so will the command line.  Unlike
+    The postmortem and the command line read it here.  Unlike
     ``SnapshotManager._resolve_store_url``, which reads only its root and
     caches the answer, each call reads again."""
     from . import knobs
