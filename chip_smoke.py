@@ -22,7 +22,9 @@ calls, in phases that each print one JSON line:
                 ``dist_restore`` (zeroed, restored in place: bit-exact,
                 ``data_ptr()`` unchanged), ``dist_async_take`` (mutated
                 after the return; one commit through the LinearBarrier;
-                the restore equals the state before the mutation),
+                the restore equals the state before the mutation; the
+                CLI's ``analyze --barrier --json`` over its four sidecars
+                prints ``barrier_blame``'s report),
                 ``dist_cas_take`` (two ``TPUSNAP_CAS`` takes into
                 ``<root>/step_0`` and ``step_1`` with every box of ``wk``
                 refilled between them: step 1's bytes written, summed over
@@ -61,6 +63,18 @@ calls, in phases that each print one JSON line:
                 span bytes equal to the state's, the metrics' written bytes
                 equal to the payload on disk and the read bytes to what the
                 restore's read requests consumed, bit-exact
+                Then the port's CLI over the same files (``analyze_traces``
+                line): ``trace --out`` prints the merge of the two files with
+                the span count read from them (the merged file holds that
+                many), ``analyze --snapshot --json`` prints the library's
+                report, and ``analyze``'s text names both ops
+   scheduler_waits — two traced takes of 8 float32 tensors of 64 MiB made on
+                the card: at an I/O concurrency of 1, and with the memory
+                budget at one request's staging cost; the CLI's ``analyze
+                --json`` must show an ``io_concurrency`` group wall above 0
+                in the first and a ``memory_budget`` one in the second, the
+                second restores bit-exact; both groups' walls beside each
+                take's wall
    profile_take_restore — the take and the in-place restore again with
                 ``TPUSNAP_PROFILE`` set at the default 99 Hz (through
                 ``knobs.override_profile_dir``): both walls beside the
@@ -71,7 +85,11 @@ calls, in phases that each print one JSON line:
                 ``/proc`` reader; every profile file
                 valid under the port's ``validate_profile``, every collapsed
                 line ``phase;state;frames count``, each op's untagged on-CPU
-                share under 5% (the reference's bar), bit-exact
+                share under 5% (the reference's bar), bit-exact; the CLI's
+                ``analyze --profile --json`` prints the library's profiles,
+                ``profile diff`` of the take's file against the restore's
+                prints ``diff_profiles`` of their metas, and the directory
+                diffed with itself names no frame
    host data plane — each phase removes its directories before the next:
    direct_io_take — ``Snapshot.take`` with ``TPUSNAP_DIRECT_IO=1``: the
                 resolved mode (1 io_uring, 2 O_DIRECT pwrite, 3 the
@@ -126,7 +144,9 @@ calls, in phases that each print one JSON line:
                 counted once in the process totals, the calibrated publish
                 bill (measured once ``os.sync()`` flushed the take's dirty
                 pages) under 1% of the take's wall; the publishes, the raw
-                and calibrated overhead and the entry's bytes printed
+                and calibrated overhead and the entry's bytes printed; after
+                the restore the CLI's ``top --json`` lists the take's and
+                the restore's entries as the library reads them
    monitor_restore — the in-place restore under the same knobs: bit-exact,
                 no stall, the ring holding its start and end, its terminal
                 fleet entry done and successful
@@ -332,8 +352,11 @@ calls, in phases that each print one JSON line:
                 snapshot's ``telemetry/live``, a 0.1 s interval): its
                 aggregate holds the two processes, done, with cache hit and
                 miss bytes equal to the workers' own sums and origin bytes
-                at most 1.25x the logical bytes; a 1 ms stale bound then
-                reads no entry
+                at most 1.25x the logical bytes; the CLI's ``top --json`` is
+                that view (ages aside), ``top --prometheus`` carries both
+                workers' registries (the workers run with
+                ``TPUSNAP_METRICS=1``), ``top --once`` names both pids; a
+                1 ms stale bound then reads no entry
    peer tier — port ``PeerDaemon``s, each in a spawned process advertising
                 127.0.0.1 on a FileStore registry under the work
                 directory, serving an 8-layer cut of the same widths taken
@@ -351,7 +374,10 @@ calls, in phases that each print one JSON line:
                 daemon A's ``peerd_handle`` spans, each parented on a
                 worker ``peer_fetch`` span; per GET the time to first byte
                 and the transfer; daemon A's ``/metrics`` count of 200
-                chunk answers must equal the worker's peer hits
+                chunk answers must equal the worker's peer hits; over a
+                copy of its trace files the CLI's ``analyze --peer --json``
+                prints ``peer_report`` and ``trace --fleet`` the worker's
+                trace id with the count of events that carry it
    peer_fault — B stopped, ``TPUSNAP_FAULTS=peer:2:peer_truncated``:
                 exactly one reject, peer hit bytes > 0, peer hit plus origin
                 bytes equal to the chunk bytes, bit-exact
@@ -2509,8 +2535,10 @@ def cache_two_workers_phase(torch, ts, knobs, args):
     if DEV == "cuda":
         torch.cuda.empty_cache()  # the workers' restores get the freed memory
     begin = time.monotonic()
+    # With the metrics on, each worker's entries carry its registry, which
+    # ``top --prometheus`` merges.
     knob_env = {"TPUSNAP_CACHE_DIR": cache_dir, "TPUSNAP_FAULTS": "none", "TPUSNAP_FLEET_TELEMETRY": spool,
-                "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S": SERVE_FLEET_INTERVAL_S}
+                "TPUSNAP_FLEET_TELEMETRY_INTERVAL_S": SERVE_FLEET_INTERVAL_S, "TPUSNAP_METRICS": "1"}
     workers = spawn_collect(restore_worker_entry, [(snap_path, knob_env, args.seed, n_layers, ())] * CACHE_WORKERS,
                             "cache_two_workers", "worker")
     wall = time.monotonic() - begin
@@ -2518,12 +2546,13 @@ def cache_two_workers_phase(torch, ts, knobs, args):
     miss = sum(w["miss_bytes"] for w in workers)
     hit = sum(w["hit_bytes"] for w in workers)
     view = fleet.aggregate(fleet.collect(spool, stale_s=600, sweep=False))
+    cli = cli_top_checks(fleet, spool, view)
     time.sleep(0.05)
     aged_out = len(fleet.collect(spool, stale_s=0.001))
     fleet_ok = (view["n_processes"] == CACHE_WORKERS and view["n_entries"] == CACHE_WORKERS
                 and all(w["kind"] == "restore" and w["state"] == "done" for w in view["workers"])
                 and view["cache"]["hit_bytes"] == hit and view["cache"]["miss_bytes"] == miss
-                and view["cache"]["origin_bytes"] <= 1.25 * logical and aged_out == 0)
+                and view["cache"]["origin_bytes"] <= 1.25 * logical and aged_out == 0 and cli["ok"])
     ok = (miss <= 1.25 * logical and hit + miss == CACHE_WORKERS * logical and origin == miss
           and all(not w["mismatched"] and not w["jax_imported"] for w in workers) and fleet_ok)
     emit({"phase": "cache_two_workers", "ok": ok, "workers": CACHE_WORKERS, "n_layers": n_layers,
@@ -2536,13 +2565,58 @@ def cache_two_workers_phase(torch, ts, knobs, args):
                     "n_entries": view["n_entries"], "states": [w["state"] for w in view["workers"]],
                     "cache": view["cache"], "publishes": [w["proc"].get("publishes") for w in view["workers"]],
                     "overhead_s": [w["proc"].get("overhead_s") for w in view["workers"]],
-                    "entries_after_stale_0.001": aged_out}})
+                    "entries_after_stale_0.001": aged_out, "cli": cli}})
     for path in (snap_path, cache_dir):
         shutil.rmtree(path)
     if not ok:
         raise RuntimeError("cache_two_workers: origin bytes over 1.25x the logical bytes, hit + miss not twice "
-                           "them, a worker's tensors differ from the seeded values, or the fleet view is not both "
-                           "workers done with the workers' own cache totals")
+                           "them, a worker's tensors differ from the seeded values, the fleet view is not both "
+                           "workers done with the workers' own cache totals, or the CLI's top differs from it")
+
+
+# Read at call time, so left out where ``top --json`` is held against the
+# library's view: an entry's age, the view's time, a suspect's last beacon.
+CALL_TIME_KEYS = ("age_s", "time", "last_seen_s")
+
+
+def without_call_time(obj):
+    if isinstance(obj, dict):
+        return {k: without_call_time(v) for k, v in obj.items() if k not in CALL_TIME_KEYS}
+    if isinstance(obj, list):
+        return [without_call_time(v) for v in obj]
+    return obj
+
+
+def cli_top_json(fleet, spool, stale_s, phase):
+    """``top <spool> --json --stale S`` against ``aggregate(collect(spool,
+    stale_s=S, sweep=False))`` read just before it, apart from ages: (exit
+    code, equal, the CLI's view)."""
+    want = without_call_time(json.loads(json.dumps(fleet.aggregate(fleet.collect(spool, stale_s=stale_s,
+                                                                                  sweep=False)))))
+    rc, out = run_cli(["top", spool, "--json", "--stale", str(stale_s)], phase)
+    try:
+        got = json.loads(out)
+    except ValueError:
+        got = {}
+    return rc, without_call_time(got) == want, got
+
+
+def cli_top_checks(fleet, spool, view):
+    """The CLI over cache_two_workers' spool: ``top --json`` is the
+    library's view; ``top --prometheus`` carries each worker's registry
+    (its ``worker`` label) and two fleet workers; ``top --once``, last
+    (its table sweeps stale entries), names both workers' pids."""
+    workers = [w["worker"] for w in view["workers"]]
+    rc, same, _ = cli_top_json(fleet, spool, 600, "cache_two_workers")
+    rc_prom, prom = run_cli(["top", spool, "--prometheus", "--stale", "600"], "cache_two_workers")
+    prom_ok = (rc_prom == 0 and "tpusnap_fleet_workers 2" in prom.splitlines()
+               and all(f'worker="{w}"' in prom for w in workers))
+    rc_once, table = run_cli(["top", spool, "--once", "--stale", "600"], "cache_two_workers")
+    pids = [w.rsplit(":", 1)[1] for w in workers]
+    once_ok = rc_once == 0 and len(pids) == 2 and all(re.search(rf":{pid}\b", table) for pid in pids)
+    return {"ok": rc == 0 and same and prom_ok and once_ok, "json_equal": same,
+            "prometheus_lines": len(prom.splitlines()), "prometheus_workers": prom_ok, "once_names_pids": once_ok,
+            "pids": pids}
 
 
 def cache_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args):
@@ -2769,7 +2843,7 @@ def peer_fetch_phases(torch, ts, knobs, args):
               "warm_a_s": round(warm_s, 3), "warm_a_bytes": warmed["bytes"], "worker_wall_s": round(wall, 3),
               "gbps": round(logical / GB / w["restore_s"], 3), "daemons": daemons.addrs,
               "registered": ["a: warmed", "b: empty"], "trace": traced, **peer_worker_line(w)})
-        analyzed = analyze_peer_phase(trace_docs, daemons)
+        analyzed = analyze_peer_phase(trace_docs, daemons, trace_dir, traced["trace_id"])
         if not ok:
             raise RuntimeError("peer_restore: origin was read, peer hit bytes differ from the chunk bytes, a reject, "
                                "the worker's tensors differ from the seeded values, a trace file or access log is "
@@ -2777,7 +2851,8 @@ def peer_fetch_phases(torch, ts, knobs, args):
                                "other 200 chunk answers than the worker's peer hits")
         if not analyzed:
             raise RuntimeError("analyze_peer: the per-peer fetch counts or daemon A's request count differ from the "
-                               "spans in the trace files, or the slowest peer is not one of the two daemons")
+                               "spans in the trace files, the slowest peer is not one of the two daemons, or the "
+                               "CLI's analyze --peer or trace --fleet differs from the library over the files")
 
         daemons.stop(1)
         w = peer_restore_worker(snap_path, os.path.join(work, "cache_fault"), kv, "peer:2:peer_truncated", args.seed,
@@ -2971,7 +3046,7 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
     take_end = [e.metadata for e in events[n_events:] if e.name == "take.end"][-1]
     payload = dir_bytes(snap_path)
     want_read = read_pipeline_bytes(snapshot.get_manifest())
-    problems, totals, d2h_bytes, files = {}, {}, 0, []
+    problems, totals, d2h_bytes, files, span_events = {}, {}, 0, [], 0
     for path in sorted(os.listdir(trace_dir)):
         with open(os.path.join(trace_dir, path), encoding="utf-8") as f:
             doc = json.load(f)
@@ -2980,6 +3055,7 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
         for ev in doc["traceEvents"]:
             if ev["ph"] != "X":
                 continue
+            span_events += 1
             totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"] / 1e6
             if ev["name"] == "d2h" and path.startswith("take-"):
                 d2h_bytes += int(ev["args"].get("bytes", 0))
@@ -2989,14 +3065,14 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
           and not mismatched and not moved)
     emit({"phase": "trace_take_restore", "ok": ok, "take_s": round(traced_take_s, 3), "untraced_take_s": round(take_s, 3),
           "restore_s": round(seconds, 3), "untraced_restore_s": round(restore_s, 3), "state_bytes": nbytes,
-          "trace_files": files, "validate_trace": problems, "spans": spans,
+          "trace_files": files, "validate_trace": problems, "spans": spans, "span_events_in_files": span_events,
           "calibrated_span_cost": {"per_span_s": cost["per_span_s"], "estimated_s": round(cost["estimated_s"], 6)},
           "top_spans_s": [[name, round(t, 3)] for name, t in top], "d2h_span_bytes": d2h_bytes,
           "metrics_written_bytes": written, "payload_bytes_on_disk": payload, "take_end_bytes": take_end["bytes"],
           "metrics_read_bytes": read, "read_pipeline_bytes": want_read, "operations": ops,
           "bit_exact": not mismatched, "data_ptr_unchanged": not moved, "mismatched": mismatched[:5]})
     metrics.reset()
-    analyzed = analyze_traces_phase(trace_dir, snap_path)
+    analyzed = analyze_traces_phase(trace_dir, snap_path, span_events)
     for path in (snap_path, trace_dir):
         shutil.rmtree(path)
     if not ok:
@@ -3005,8 +3081,74 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
     if not analyzed:
         raise RuntimeError("analyze_traces: the report lacks the take or the restore of rank 0, an op's scheduler "
                            "idle lies outside 0 and its wall, the take has no d2h wall or the restore no h2d wall, "
-                           "a limiting resource names no group, a phase is classified other, or the rendering "
-                           "misses an op")
+                           "a limiting resource names no group, a phase is classified other, the rendering "
+                           "misses an op, or the CLI's trace or analyze differs from the library over the files")
+
+
+# ---------------------------------------------------- the scheduler's waits
+#
+# The two wait phases the analyzer names a throttled op by: ``io_slot_wait``
+# (a request's wait for its I/O slot, over 1 ms) and ``budget_wait`` (a
+# pipeline turn in which the memory budget binds), each provoked in a take
+# of its own and read back through the CLI's ``analyze --json``.
+
+WAIT_TENSORS = 8
+WAIT_ELEMS = 16 << 20  # float32: 64 MiB a tensor, one write request each
+
+
+def scheduler_waits_phase(torch, ts, knobs, workdir, seed):
+    """scheduler_waits: two traced takes of WAIT_TENSORS float32 tensors of
+    64 MiB made on the card: the first at an I/O concurrency of 1, which must
+    record ``io_slot_wait``, the second with the memory budget at one
+    request's staging cost (its pinned buffer) and the default I/O cap,
+    which must record ``budget_wait``.  For each, ``analyze <traces>
+    --json`` through the CLI must show the matching group (``io_concurrency``,
+    then ``memory_budget``) with a wall above 0; both groups' walls are
+    printed beside the take's wall.  The second take restores bit-exact."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 3)
+    tensors = {f"w{i}": torch.randn(WAIT_ELEMS, generator=g, device=DEV) for i in range(WAIT_TENSORS)}
+    request_bytes = WAIT_ELEMS * 4
+    cases = [("io_cap_1", "io_slot_wait", "io_concurrency", lambda: knobs.override_max_per_rank_io_concurrency(1)),
+             ("budget_one_request", "budget_wait", "memory_budget",
+              lambda: knobs.override_per_rank_memory_budget_bytes(request_bytes))]
+    takes, ok = [], True
+    for name, phase, group, knob in cases:
+        root, trace_dir = os.path.join(workdir, f"waits_{name}"), os.path.join(workdir, f"waits_{name}_traces")
+        with knob(), knobs.override_trace_dir(trace_dir):
+            device_sync(torch)
+            begin = time.monotonic()
+            snap = ts.Snapshot.take(root, {"m": ts.StateDict(tensors)})
+            take_s = time.monotonic() - begin
+        rc, out = run_cli(["analyze", trace_dir, "--json"], "scheduler_waits")
+        ops = [op for op in (json.loads(out)["ops"] if rc == 0 else []) if op["kind"] == "take"]
+        op = ops[0] if len(ops) == 1 else {"groups": {}, "phases": {}}
+        row = {"case": name, "take_s": round(take_s, 3), "gbps": round(WAIT_TENSORS * request_bytes / GB / take_s, 3),
+               "io_concurrency_wall_s": op["groups"].get("io_concurrency", 0.0),
+               "memory_budget_wall_s": op["groups"].get("memory_budget", 0.0),
+               "limiting_resource": op.get("limiting_resource"), "dominant_phase": op.get("dominant_phase"),
+               "wait_phase": phase, "wait_phase_wall_s": op["phases"].get(phase, {}).get("wall_s")}
+        case_ok = rc == 0 and len(ops) == 1 and op["groups"].get(group, 0.0) > 0
+        if name == "budget_one_request":
+            dst = {k: torch.zeros_like(t) for k, t in tensors.items()}
+            device_sync(torch)
+            begin = time.monotonic()
+            snap.restore({"m": ts.StateDict(dst)})
+            device_sync(torch)
+            row["restore_s"] = round(time.monotonic() - begin, 3)
+            row["bit_exact"] = all(torch.equal(dst[k], t) for k, t in tensors.items())
+            case_ok = case_ok and row["bit_exact"]
+            del dst
+        row["ok"] = case_ok
+        ok = ok and case_ok
+        takes.append(row)
+        for path in (root, trace_dir):
+            shutil.rmtree(path)
+    emit({"phase": "scheduler_waits", "ok": ok, "tensors": WAIT_TENSORS, "request_bytes": request_bytes,
+          "takes": takes})
+    if not ok:
+        raise RuntimeError("scheduler_waits: a take at an I/O concurrency of 1 shows no io_concurrency wall, or one "
+                           "under a budget of one request no memory_budget wall, in the CLI's analyze, or that take "
+                           "does not restore bit-exact")
 
 
 # ------------------------------------------------------------ the analyses
@@ -3020,13 +3162,14 @@ def trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
 # against the shape the analyzer promises.
 
 
-def analyze_traces_phase(trace_dir, snap_path) -> bool:
+def analyze_traces_phase(trace_dir, snap_path, span_events) -> bool:
     """analyze_traces: ``analyze_traces`` over trace_take_restore's trace
     files and its snapshot's sidecars: exactly the take and the restore,
     rank 0 each; per op a scheduler idle between 0 and the op's wall; a
     ``d2h`` group wall above 0 in the take and an ``h2d`` one in the
     restore; a limiting resource that is one of the groups; no phase in
-    ``other`` (the line lists any); ``render`` naming both ops."""
+    ``other`` (the line lists any); ``render`` naming both ops.  Then the
+    CLI over the same files (``cli_trace_checks``)."""
     from torchsnapshot_tpu_torch.telemetry import analyze
 
     begin = time.monotonic()
@@ -3043,14 +3186,49 @@ def analyze_traces_phase(trace_dir, snap_path) -> bool:
           and all(op["limiting_resource"] in analyze.PHASE_GROUPS for op in ops.values())
           and not any(other.values())
           and all(f"{op['kind']} {op['op'][:8]} " in text for op in ops.values()))
+    cli = cli_trace_checks(trace_dir, snap_path, span_events, report)
+    ok = ok and cli["ok"]
     emit({"phase": "analyze_traces", "ok": ok, "trace_dir_files": len(os.listdir(trace_dir)),
           "ops": [{"kind": op["kind"], "op": op["op"][:8], "ranks": op["ranks"], "duration_s": op["duration_s"]["p50"],
                    "idle_s": op["idle"]["mean_s"], "limiting_resource": op["limiting_resource"],
                    "dominant_phase": op["dominant_phase"], "groups": op["groups"],
                    "sidecar_joined": bool(op.get("sidecars")), "phases_in_other": other[op["kind"]]}
                   for op in report["ops"]],
-          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3)})
+          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3), "cli": cli})
     return ok
+
+
+def cli_json(argv, phase, want):
+    """(exit code, whether ``argv``'s stdout parses to ``want`` as JSON
+    carries it) of the port's CLI in this process."""
+    rc, out = run_cli(argv, phase)
+    try:
+        same = json.loads(out) == json.loads(json.dumps(want))
+    except ValueError:
+        same = False
+    return rc, same
+
+
+def cli_trace_checks(trace_dir, snap_path, span_events, report):
+    """The CLI over trace_take_restore's files: ``trace --out`` prints the
+    merge of the take's and the restore's files with the span count the
+    phase read from them, and the merged file holds that many spans;
+    ``analyze --snapshot --json`` prints ``report`` (the library's over
+    the same files); ``analyze``'s text names both ops."""
+    merged_path = trace_dir + ".merged.json"
+    rc, out = run_cli(["trace", trace_dir, "--out", merged_path], "trace_take_restore")
+    merged_spans = None
+    if rc == 0:
+        with open(merged_path, encoding="utf-8") as f:
+            merged_spans = sum(1 for ev in json.load(f)["traceEvents"] if ev.get("ph") == "X")
+        os.unlink(merged_path)
+    summary = f"merged 2 trace file(s): 1x restore, 1x take, {span_events} spans"
+    trace_ok = rc == 0 and summary in out.splitlines() and merged_spans == span_events
+    rc, json_same = cli_json(["analyze", trace_dir, "--snapshot", snap_path, "--json"], "trace_take_restore", report)
+    rc_text, text = run_cli(["analyze", trace_dir], "trace_take_restore")
+    names = rc_text == 0 and all(f"{op['kind']} {op['op'][:8]} " in text for op in report["ops"])
+    return {"ok": trace_ok and rc == 0 and json_same and names, "trace_summary": summary if trace_ok else out[-300:],
+            "merged_spans": merged_spans, "analyze_json_equal": json_same, "analyze_text_names_ops": names}
 
 
 def analyze_profile_phase(prof_dir, ops) -> bool:
@@ -3071,14 +3249,41 @@ def analyze_profile_phase(prof_dir, ops) -> bool:
           and all(profs[k]["untagged_oncpu_share"] == ops[k]["untagged_oncpu_share"] for k in ops)
           and all(sink is not None and sink["phase"] in profs[k]["phases"] and sink["phase"] != "<untagged>"
                   for k, sink in sinks.items()))
+    cli = cli_profile_checks(prof_dir, report)
+    ok = ok and cli["ok"]
     emit({"phase": "analyze_profile", "ok": ok,
           "profiles": [{"kind": p["kind"], "op": p["op"][:8], "samples_total": p["samples_total"],
                         "oncpu_s": p["oncpu_s"], "untagged_oncpu_share": p["untagged_oncpu_share"],
                         "phase_untagged_oncpu_share": ops.get(p["kind"], {}).get("untagged_oncpu_share"),
                         "dominant_cpu_sink": p["dominant_cpu_sink"], "groups_cpu_s": p["groups_cpu_s"]}
                        for p in report["profiles"]],
-          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3)})
+          "rendered_lines": len(text.splitlines()), "analysis_s": round(read_s, 3), "cli": cli})
     return ok
+
+
+def cli_profile_checks(prof_dir, report):
+    """The CLI over profile_take_restore's files: ``analyze --profile
+    --json`` prints ``report``'s profiles (and no op: the directory holds no
+    trace); ``profile diff`` of the take's file against the restore's prints
+    ``diff_profiles`` of their metas at the default 10 rows;
+    ``profile diff`` of the directory against itself names no frame."""
+    from torchsnapshot_tpu_torch.telemetry import profiler
+
+    rc, same = cli_json(["analyze", prof_dir, "--profile", "--json"], "profile_take_restore",
+                        {"ops": [], "profiles": report["profiles"]})
+    files = {name.split("-", 1)[0]: os.path.join(prof_dir, name) for name in os.listdir(prof_dir)
+             if name.endswith(profiler.PROFILE_FILE_SUFFIX)}
+    metas = {kind: profiler.load_profile_file(path)["tpusnap"] for kind, path in files.items()}
+    want = profiler.diff_profiles(metas["take"], metas["restore"], top=10)
+    rc_diff, diff_same = cli_json(["profile", "diff", files["take"], files["restore"], "--json"],
+                                  "profile_take_restore", want)
+    rc_self, out = run_cli(["profile", "diff", prof_dir, prof_dir], "profile_take_restore")
+    unmoved = rc_self == 0 and out.count("\n    (none)") == 2 and not re.search(r"^ +[+-]\d", out, re.M)
+    return {"ok": rc == 0 and same and rc_diff == 0 and diff_same and unmoved, "analyze_profile_json_equal": same,
+            "diff_json_equal": diff_same,
+            "top_regressed": [[r["frame"], r["delta_s"]] for r in want["top_regressed"][:3]],
+            "top_improved": [[r["frame"], r["delta_s"]] for r in want["top_improved"][:3]],
+            "self_diff_names_no_frame": unmoved}
 
 
 def analyze_barrier_phase(snap_path, world) -> bool:
@@ -3091,21 +3296,52 @@ def analyze_barrier_phase(snap_path, world) -> bool:
     sidecars = analyze.load_sidecars(snap_path)
     reports = analyze.barrier_blame(sidecars)
     rep = reports[0] if len(reports) == 1 else {}
+    # The CLI over the same sidecars prints the same reports.
+    rc, cli_same = cli_json(["analyze", snap_path, "--barrier", "--json"], "dist_async_take", reports)
     ok = (rep.get("kind") == "async_take" and rep.get("world") == world and len(rep["arrivals_rel_s"]) == world
-          and rep["skew_s"] >= 0 and rep["blamed_rank"] in range(world) and rep["blamed_phase"] is not None)
-    emit({"phase": "analyze_barrier", "ok": ok, "ranks": world,
+          and rep["skew_s"] >= 0 and rep["blamed_rank"] in range(world) and rep["blamed_phase"] is not None
+          and rc == 0 and cli_same)
+    emit({"phase": "analyze_barrier", "ok": ok, "ranks": world, "cli_barrier_json_equal": cli_same,
           "sidecars": sorted(f"{d.get('action')}/rank{d.get('rank')}" for d in sidecars), "reports": len(reports),
           **{k: rep.get(k) for k in ("kind", "world", "skew_s", "first_rank", "blamed_rank", "blamed_phase",
                                      "blamed_phase_wall_s", "arrivals_rel_s", "barrier_wait_s")}})
     return ok
 
 
-def analyze_peer_phase(docs, daemons) -> bool:
+def analyze_peer_phase(docs, daemons, trace_dir, trace_id) -> bool:
     """analyze_peer: ``peer_report`` over the peer restore's trace files, as
     ``peer_trace_split`` loaded them: the worker's ``peer_fetch`` spans per
     peer and daemon A's ``peerd_handle`` spans counted as in the files, and
-    a slowest peer that is one of the two daemons."""
+    a slowest peer that is one of the two daemons.  Then the CLI over a
+    copy of the directory's trace files (the daemons still flush theirs):
+    ``analyze --peer --json`` prints ``peer_report`` of the copy, and
+    ``trace --fleet`` a ``trace <id>`` line for the worker's restore with
+    the count of the copy's events that carry that id."""
     from torchsnapshot_tpu_torch.telemetry import analyze, trace
+
+    # The trace files only: a daemon's flush writes a temporary beside its
+    # file and renames it over the file, so the file is always whole.
+    frozen = trace_dir + ".copy"
+    os.makedirs(frozen)
+    for name in os.listdir(trace_dir):
+        if name.endswith(trace.TRACE_FILE_SUFFIX):
+            shutil.copy(os.path.join(trace_dir, name), frozen)
+    try:
+        rc, peer_same = cli_json(["analyze", frozen, "--peer", "--json"], "peer_restore",
+                                 analyze.peer_report(analyze.load_trace_dir(frozen)))
+        carried = 0
+        for doc in analyze.load_trace_dir(frozen):
+            for ev in doc["traceEvents"]:
+                if ev.get("ph") != "M" and ((ev.get("args") or {}).get("trace")
+                                            or doc["otherData"].get("trace_id")) == trace_id:
+                    carried += 1
+        rc_fleet, out = run_cli(["trace", frozen, "--fleet"], "peer_restore")
+        line = f"  trace {trace_id}: {carried} span(s)"
+        cli = {"ok": rc == 0 and peer_same and rc_fleet == 0 and line in out.splitlines() and carried > 0,
+               "peer_json_equal": peer_same, "fleet_trace_line": line if line in out.splitlines() else None,
+               "events_carrying_trace_id": carried}
+    finally:
+        shutil.rmtree(frozen)
 
     report = analyze.peer_report(list(docs.values()))
     text = analyze.render_peer(report)
@@ -3119,8 +3355,9 @@ def analyze_peer_phase(docs, daemons) -> bool:
     ident_a = f"{daemon_a['otherData'].get('host', '?')}/{str(daemon_a['otherData'].get('op', '?'))[:8]}"
     ok = ({a: row["fetches"] for a, row in report["peers"].items()} == fetches and bool(fetches)
           and report["daemons"].get(ident_a, {}).get("requests") == handles_a > 0
-          and report["slowest_peer"] in daemons.addrs and report["slowest_peer"] in text)
+          and report["slowest_peer"] in daemons.addrs and report["slowest_peer"] in text and cli["ok"])
     emit({"phase": "analyze_peer", "ok": ok, "fetches_in_files": fetches, "daemon_a_handles_in_file": handles_a,
+          "cli": cli,
           "peers": {a: {k: row[k] for k in ("fetches", "hit_rate", "fallback_rate", "p50_s", "p99_s", "bytes")}
                     for a, row in report["peers"].items()},
           "daemons": report["daemons"], "daemon_a": ident_a, "slowest_peer": report["slowest_peer"],
@@ -3436,6 +3673,11 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
         fleet_totals = fleet.process_totals()
         restore_entries = fleet_entries(fleet, spool, "restore", stale_s=FLEET_READ_STALE_S)
         entry_bytes = os.path.getsize(os.path.join(spool, fleet.entry_name("async_take", 0)))
+        # After wait() and the restore: a read during the drain would be
+        # one more file call behind it.
+        rc, top_same, top_view = cli_top_json(fleet, spool, FLEET_READ_STALE_S, "monitor_async_take")
+        top_kinds = sorted(w["kind"] for w in top_view.get("workers", []))
+        top_ok = rc == 0 and top_same and top_kinds == sorted(d["kind"] for d in take_entries + restore_entries)
     rings = ring_records(blackbox, bb_dir)
     records = rings.get(os.getpid(), [])
     progress_records = [r for r in records if r["kind"] == "progress"]
@@ -3463,7 +3705,7 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
                 and restore_entries[0]["op"]["done"] is True and restore_entries[0]["op"]["success"] is True
                 and restore_entries[0]["proc"]["ops_done"] == 2
                 and fleet_totals["ops_done"] == 2 and fleet_totals["ops_failed"] == 0
-                and fleet_cost["estimated_s"] < FLEET_OVERHEAD_BAR * total_s)
+                and fleet_cost["estimated_s"] < FLEET_OVERHEAD_BAR * total_s and top_ok)
     ok = (monotone and final["bytes"]["written"] == take_end["bytes"] and final["done"] is True
           and final["success"] is True and len(mid_drain) >= 2 and terminal is not None and terminal["done"] is True
           and not take_stalls and final["stalls"] == 0
@@ -3490,13 +3732,15 @@ def monitor_async_take_phase(torch, ts, knobs, phase_stats, app_state, ref, nbyt
                     "raw_overhead_s_with_restore": round(fleet_totals["overhead_s"], 6),
                     "calibrated_at_wait": fleet_cost_at_wait, "sync_s": round(sync_s, 3), "calibrated": fleet_cost,
                     "calibrated_share_of_total": round(fleet_cost["estimated_s"] / total_s, 6),
-                    "bar": f"calibrated estimate < {FLEET_OVERHEAD_BAR} x total_s", "entry_bytes": entry_bytes}})
+                    "bar": f"calibrated estimate < {FLEET_OVERHEAD_BAR} x total_s", "entry_bytes": entry_bytes,
+                    "cli_top": {"ok": top_ok, "json_equal": top_same, "kinds": top_kinds}}})
     if not ok:
         raise RuntimeError("monitor_async_take: progress not monotone or not ending at async_take.end's bytes, fewer "
                            "than two heartbeats written mid-drain, a stall, a ring without the op or progress records, no "
                            "RSS high water in the sidecar, or the fleet spool short of two live entries written with "
-                           "monotone bytes, a terminal entry at async_take.end's bytes, each op counted once and "
-                           "a calibrated publish bill under 1% of the take's wall")
+                           "monotone bytes, a terminal entry at async_take.end's bytes, each op counted once, "
+                           "a calibrated publish bill under 1% of the take's wall, and the CLI's top --json "
+                           "listing the take's and the restore's entries")
     restore_stalls = [e.metadata for e in restore_events if e.name == "watchdog.stall"]
     ok = (not mismatched and not moved and not restore_stalls and stalls_total == 0
           and {"restore.start", "restore.end"} <= set(op_names(records)))
@@ -4392,7 +4636,7 @@ def dist_phases(torch, ts, args) -> None:
         raise RuntimeError("dist_async_take: not bit-exact, wrong mode, not one commit, or bytes differ")
     if not analyzed:
         raise RuntimeError("analyze_barrier: not one report for the async take with the four ranks' arrivals, a "
-                           "skew below 0, or no blamed rank and phase")
+                           "skew below 0, no blamed rank and phase, or the CLI's --barrier report differs")
     shutil.rmtree(async_snap)
 
     cas_ = [r["dist_cas_take"] for r in ranks]
@@ -4650,6 +4894,7 @@ def run(args) -> int:
     event_handlers.register_event_handler(events.append)
     trace_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, take_s,
                              restore_s)
+    scheduler_waits_phase(torch, ts, knobs, args.workdir, args.seed)
     profile_take_restore_phase(torch, ts, knobs, phase_stats, app_state, ref, nbytes, args.workdir, take_s, restore_s)
     # host data plane phases, held against the take phase's manifest.
     data_plane_phases(torch, ts, knobs, phase_stats, app_state, ref, nbytes, events, args.workdir, manifest)

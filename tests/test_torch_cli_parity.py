@@ -12,7 +12,9 @@ same exit code, whichever package wrote them.
   package named in its ``gc`` command.
 - The subcommand set is the JAX set less the commands not ported yet, and
   each ported subcommand keeps the JAX parser's options (``dest``,
-  ``default``, ``nargs``, flags, type and help), plus ``cat --device``."""
+  ``default``, ``nargs``, flags, type and help), plus ``cat --device``;
+  a nested parser (``profile diff``) is pinned the same way.  The
+  telemetry verbs' output is held in tests/test_torch_cli_telemetry_parity.py."""
 
 import argparse
 import os
@@ -35,7 +37,7 @@ from torch_env import default_knob_env, no_leaked_threads  # noqa: F401  fixture
 
 pytestmark = pytest.mark.usefixtures("no_leaked_threads")
 
-NOT_PORTED = {"lint", "trace", "analyze", "profile", "top", "repack", "warm", "serve", "rollout"}
+NOT_PORTED = {"lint", "repack", "warm", "serve", "rollout"}
 
 
 def _state(step=1, changed=False):
@@ -187,7 +189,10 @@ def test_subcommand_set_is_the_jax_set_less_the_unported():
     port_cmds = set(_subparsers(_parser_of(port_main)).choices)
     assert NOT_PORTED <= jax_cmds
     assert port_cmds == jax_cmds - NOT_PORTED
-    assert port_cmds == {"info", "ls", "cat", "steps", "gc", "verify", "diff", "cp", "stats", "history", "postmortem"}
+    assert port_cmds == {
+        "info", "ls", "cat", "steps", "gc", "verify", "diff", "cp", "stats", "history", "postmortem",
+        "trace", "analyze", "profile", "top",
+    }
     for cmd in NOT_PORTED:
         with pytest.raises(SystemExit) as e:
             port_main([cmd, "x"])
@@ -202,21 +207,38 @@ def _options(sub):
     ]
 
 
-def test_ported_subcommands_keep_the_jax_options():
-    port_parser = _parser_of(port_main)
-    jax_sub, port_sub = _subparsers(_parser_of(jax_main)), _subparsers(port_parser)
+def _fn_name(parser):
+    fn = parser.get_default("fn")
+    return None if fn is None else fn.__name__
+
+
+def _assert_same_subcommands(jax_sub, port_sub, path=()):
+    """Each of ``port_sub``'s commands keeps the JAX command's options, help
+    and handler name, and so does each command of a nested parser."""
     jax_help = {c.dest: c.help for c in jax_sub._choices_actions}
     port_help = {c.dest: c.help for c in port_sub._choices_actions}
     for cmd, sub in port_sub.choices.items():
         want = _options(jax_sub.choices[cmd])
         got = _options(sub)
-        if cmd == "cat":
+        if path + (cmd,) == ("cat",):
             (device,) = [o for o in got if o[0] == "device"]
             assert device[1:4] == (("--device",), "cuda", None)
             got.remove(device)
-        assert got == want, cmd
-        assert port_help[cmd] == jax_help[cmd], cmd
-        assert sub.get_default("fn").__name__ == jax_sub.choices[cmd].get_default("fn").__name__
+        assert got == want, path + (cmd,)
+        assert port_help[cmd] == jax_help[cmd], path + (cmd,)
+        assert _fn_name(sub) == _fn_name(jax_sub.choices[cmd]), path + (cmd,)
+        nested = [a for a in sub._actions if isinstance(a, argparse._SubParsersAction)]
+        if nested:
+            assert set(nested[0].choices) == set(_subparsers(jax_sub.choices[cmd]).choices), path + (cmd,)
+            _assert_same_subcommands(_subparsers(jax_sub.choices[cmd]), nested[0], path + (cmd,))
+
+
+def test_ported_subcommands_keep_the_jax_options():
+    port_parser = _parser_of(port_main)
+    port_sub = _subparsers(port_parser)
+    _assert_same_subcommands(_subparsers(_parser_of(jax_main)), port_sub)
+    assert set(port_sub.choices["profile"]._actions[-1].choices) == {"diff"}
+    assert _fn_name(port_sub.choices["profile"]._actions[-1].choices["diff"]) == "cmd_profile_diff"
     assert port_parser.prog == "python -m torchsnapshot_tpu_torch"
 
 

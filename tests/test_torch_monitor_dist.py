@@ -57,6 +57,18 @@ def test_async_take_sidecar_carries_barrier_table():
 
 
 @run_with_procs(nproc=2, gloo=True)
+def barrier_snapshot_2():
+    """Two ranks' async take into ``TPUSNAP_TEST_SNAPSHOT``: each rank's
+    sidecar carries the commit barrier's arrival table (the input of
+    ``analyze --barrier``; tests/test_torch_cli_telemetry_parity.py)."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    pg = make_test_pg()
+    state = {"m": StateDict({"w": torch.full((8,), float(pg.get_rank()))})}
+    Snapshot.async_take(os.environ["TPUSNAP_TEST_SNAPSHOT"], state, pg=pg).wait()
+
+
+@run_with_procs(nproc=2, gloo=True)
 def _stall_escalation_body():
     from torchsnapshot_tpu_torch import Snapshot, StateDict
     from torchsnapshot_tpu_torch.dist_store import StorePeerError

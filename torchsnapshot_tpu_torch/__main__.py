@@ -9,14 +9,23 @@
     python -m torchsnapshot_tpu_torch diff <snapshot-url-a> <snapshot-url-b>
     python -m torchsnapshot_tpu_torch cp <src-url> <dst-url> [--verify]
     python -m torchsnapshot_tpu_torch stats <snapshot-url> [--json] [--metrics]
+    python -m torchsnapshot_tpu_torch trace <trace-dir> [--out merged.json] [--fleet [--spool DIR]]
+    python -m torchsnapshot_tpu_torch analyze <trace-dir> [--snapshot URL] [--json]
+    python -m torchsnapshot_tpu_torch analyze <trace-dir> --profile [--json]
+    python -m torchsnapshot_tpu_torch analyze <trace-dir> --peer [--json]
+    python -m torchsnapshot_tpu_torch analyze <snapshot-url> --barrier [--json]
+    python -m torchsnapshot_tpu_torch profile diff <a> <b> [--top N] [--json]
     python -m torchsnapshot_tpu_torch history <manager-root-url> [--json]
     python -m torchsnapshot_tpu_torch postmortem <manager-root-url> [--json | --perfetto]
+    python -m torchsnapshot_tpu_torch top [spool-or-root] [--json | --prometheus | --once]
 
 Each command prints what the JAX package's command of that name prints over
 the same snapshot or root, and returns the same exit code; the two packages
 read and write one on-disk format, so either CLI reads either package's
-snapshots.  Read-only except ``cp`` and ``gc --apply``; works against any
-storage backend URL.
+snapshots, traces, profiles and fleet spools.  Read-only except ``cp``,
+``gc --apply`` and ``top``'s table, which sweeps stale spool entries
+(``--json`` and ``--prometheus`` are pure reads); works against any storage
+backend URL.
 
 ``cat`` is the one command that touches the device: like
 ``Snapshot.read_object`` it places a tensor on ``--device`` (default
@@ -25,8 +34,8 @@ prints through numpy where the tensor's dtype has a numpy counterpart, and
 through torch, with the same threshold and edge items, where it has none
 (``bfloat16``, the float8 types).
 
-The JAX package's ``lint``, ``trace``, ``analyze``, ``profile``, ``top``,
-``repack``, ``warm``, ``serve`` and ``rollout`` have no counterpart here yet.
+The JAX package's ``lint``, ``repack``, ``warm``, ``serve`` and ``rollout``
+have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -569,6 +578,162 @@ def cmd_stats(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_trace(args: argparse.Namespace) -> int:
+    """Validate and merge the per-rank, per-op trace files of a
+    ``TPUSNAP_TRACE_DIR`` into one Perfetto-loadable JSON.  ``--fleet``
+    stitches a fleet's files (client ranks and peer daemons) into one
+    distributed timeline: clock skew is corrected per host from the fleet
+    spool's publish stamps, and spans group by the trace id propagated in
+    ``traceparent`` headers."""
+    import glob
+    import json
+    import os as _os
+
+    from .telemetry import trace
+
+    paths = sorted(glob.glob(_os.path.join(args.trace_dir, f"*{trace.TRACE_FILE_SUFFIX}")))
+    if not paths:
+        print(f"no *{trace.TRACE_FILE_SUFFIX} files under {args.trace_dir}")
+        return 2
+    try:
+        if args.fleet:
+            from . import knobs as _knobs
+
+            spool = args.spool or _knobs.get_fleet_telemetry_dir()
+            merged = trace.merge_fleet_traces(paths, spool=spool)
+        else:
+            merged = trace.merge_trace_files(paths)
+    except ValueError as e:
+        print(f"invalid trace input: {e}")
+        return 1
+    n_spans = sum(1 for ev in merged["traceEvents"] if ev.get("ph") == "X")
+    ops: dict = {}
+    for src in merged["otherData"]["merged_from"]:
+        ops[src.get("kind", "?")] = ops.get(src.get("kind", "?"), 0) + 1
+    for path in paths:
+        print(f"  {_os.path.basename(path)}")
+    print(
+        f"merged {len(paths)} trace file(s): "
+        + ", ".join(f"{n}x {k}" for k, n in sorted(ops.items()))
+        + f", {n_spans} spans"
+    )
+    if args.fleet:
+        for tid, count in merged["otherData"].get("trace_ids", {}).items():
+            print(f"  trace {tid}: {count} span(s)")
+        skews = {src.get("skew_s", 0.0) for src in merged["otherData"]["merged_from"]}
+        if any(abs(s) > 0.0005 for s in skews):
+            print(f"  clock skew corrected: up to {max(abs(s) for s in skews) * 1e3:.1f}ms across hosts")
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(merged, f)
+        print(f"wrote {args.out} (open in ui.perfetto.dev or chrome://tracing)")
+    return 0
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """Cross-rank, cross-phase bottleneck analysis over a trace directory
+    (telemetry/analyze.py): per-phase exclusive wall, scheduler idle, the
+    limiting resource (d2h, serialize, storage, or budget or I/O-cap
+    throttling) and the straggler rank; ``--snapshot`` joins that
+    snapshot's telemetry sidecars.  ``--barrier`` switches to the commit
+    barrier's blame report over the sidecars' barrier stamps (the
+    positional argument is then the snapshot URL), ``--peer`` to the
+    serving plane's per-peer report from ``peer_fetch`` and
+    ``peerd_handle`` spans, and ``--profile`` folds the profile files of
+    the same directory into the report."""
+    import json
+
+    from .telemetry import analyze, trace
+
+    if args.barrier:
+        sidecars = analyze.load_sidecars(args.snapshot or args.trace_dir)
+        reports = analyze.barrier_blame(sidecars)
+        if args.json:
+            print(json.dumps(reports, indent=1))
+        else:
+            print(analyze.render_barrier(reports))
+        return 0 if reports else 2
+
+    profile_docs = None
+    if args.profile:
+        try:
+            profile_docs = analyze.load_profile_dir(args.trace_dir)
+        except ValueError as e:
+            print(f"invalid profile input: {e}")
+            return 1
+    try:
+        docs = analyze.load_trace_dir(args.trace_dir)
+    except ValueError as e:
+        print(f"invalid trace input: {e}")
+        return 1
+    if not docs and not profile_docs:
+        suffixes = f"*{trace.TRACE_FILE_SUFFIX}"
+        if args.profile:
+            from .telemetry import profiler
+
+            suffixes += f" / *{profiler.PROFILE_FILE_SUFFIX}"
+        print(f"no {suffixes} files under {args.trace_dir}")
+        return 2
+    if args.peer:
+        report = analyze.peer_report(docs)
+        if args.json:
+            print(json.dumps(report, indent=1))
+        else:
+            print(analyze.render_peer(report))
+        return 0 if report.get("peers") else 2
+    sidecars = analyze.load_sidecars(args.snapshot) if args.snapshot else None
+    analysis = analyze.analyze_traces(docs, sidecars)
+    if profile_docs is not None:
+        analysis["profiles"] = analyze.profile_report(profile_docs)["profiles"]
+    if args.json:
+        print(json.dumps(analysis, indent=1))
+        return 0
+    if docs:
+        print(analyze.render(analysis))
+    if profile_docs is not None:
+        if docs:
+            print()
+        print(analyze.render_profile({"profiles": analysis.get("profiles", [])}))
+    return 0
+
+
+def cmd_profile_diff(args: argparse.Namespace) -> int:
+    """Differential profile of two runs (telemetry/profiler.py): the frames
+    that gained or lost self on-CPU seconds from A to B.  Each argument is a
+    ``*.profile.json`` file or a profile directory, whose per-rank and
+    per-op files merge first.  An invalid profile exits 1, an empty
+    directory 2, as ``trace`` does."""
+    import json
+    import os as _os
+
+    from .telemetry import profiler
+
+    def _load(path: str):
+        if _os.path.isdir(path):
+            docs = profiler.load_profile_dir(path)
+            if not docs:
+                raise FileNotFoundError(f"no *{profiler.PROFILE_FILE_SUFFIX} files under {path}")
+            return profiler.merge_metas([d["tpusnap"] for d in docs])
+        return profiler.load_profile_file(path)["tpusnap"]
+
+    try:
+        meta_a = _load(args.a)
+        meta_b = _load(args.b)
+    except FileNotFoundError as e:
+        print(e)
+        return 2
+    except ValueError as e:
+        print(f"invalid profile input: {e}")
+        return 1
+    diff = profiler.diff_profiles(meta_a, meta_b, top=args.top)
+    if args.json:
+        print(json.dumps(diff, indent=1))
+    else:
+        print(f"profile diff: A={args.a}  B={args.b}")
+        print(profiler.render_diff(diff))
+    return 0
+
+
 def cmd_history(args: argparse.Namespace) -> int:
     """Render a SnapshotManager root's step-save history
     (telemetry/history.jsonl): the per-step duration and GB/s trend with
@@ -618,6 +783,80 @@ def cmd_postmortem(args: argparse.Namespace) -> int:
         print(json.dumps(report, indent=1, default=str))
     else:
         print(postmortem.format_report(report))
+    return 0
+
+
+def _store_usage_lines(store_url) -> list:
+    """``top``'s view of the shared store (``TPUSNAP_STORE``): one line for
+    the store, one per tenant."""
+    if store_url is None:
+        return []
+    from . import store as store_mod
+
+    try:
+        usage = store_mod.tenant_usage(store_url)
+    except Exception as e:  # noqa: BLE001 — report the store, keep the table
+        return [f"store {store_url}: usage unavailable ({e})"]
+    ratio = usage.get("dedup_ratio")
+    lines = [
+        f"store {store_url}: {_human(usage['physical_bytes'])} physical"
+        f" / {_human(usage['logical_bytes'])} logical" + (f" (dedup {ratio}x)" if ratio else "")
+    ]
+    for tid, t in sorted(usage.get("tenants", {}).items()):
+        lines.append(
+            f"  tenant {tid}: {_human(t['logical_bytes'])} logical, {_human(t['exclusive_bytes'])} exclusive"
+        )
+    return lines
+
+
+def cmd_top(args: argparse.Namespace) -> int:
+    """Cross-process fleet view (telemetry/fleet.py): every op publishing
+    into the ``TPUSNAP_FLEET_TELEMETRY`` spool is one row (phase state,
+    bytes staged and written, ETA) under the aggregate bandwidth, the cache
+    hit ratio and origin bytes, and the straggler.  The table refreshes
+    every ``--interval`` until Ctrl-C (``--once``: one table); ``--json``
+    is one machine-readable view, ``--prometheus`` one merged exposition
+    of the whole fleet."""
+    import json
+    import os as _os
+    import time as _time
+
+    from . import knobs as _knobs
+    from .telemetry import fleet
+
+    spool = fleet.resolve_spool(args.path)
+    if spool is None or not _os.path.isdir(spool):
+        print(
+            "no fleet telemetry spool found: pass a spool dir (or a root "
+            "with telemetry/live under it) or set TPUSNAP_FLEET_TELEMETRY"
+        )
+        return 2
+    if args.prometheus:
+        print(fleet.render_prometheus(fleet.collect(spool, stale_s=args.stale, sweep=False)), end="")
+        return 0
+    store_url = _knobs.get_store_url()
+    if args.json:
+        doc = fleet.aggregate(fleet.collect(spool, stale_s=args.stale, sweep=False))
+        if store_url is not None:
+            from . import store as store_mod
+
+            try:
+                doc["store"] = store_mod.tenant_usage(store_url)
+            except Exception as e:  # noqa: BLE001 — the view stands without the store
+                doc["store"] = {"error": str(e)}
+        print(json.dumps(doc, indent=1))
+        return 0
+    try:
+        while True:
+            print(fleet.render(fleet.aggregate(fleet.collect(spool, stale_s=args.stale)), spool))
+            for line in _store_usage_lines(store_url):
+                print(line)
+            if args.once:
+                return 0
+            print()
+            _time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        pass
     return 0
 
 
@@ -683,6 +922,74 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true", help="dump raw sidecar JSON")
     p.add_argument("--metrics", action="store_true", help="also print the in-process Prometheus registry")
     p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser("trace", help="validate + merge per-rank Perfetto trace files")
+    p.add_argument("trace_dir")
+    p.add_argument("--out", default=None, help="write the merged trace-event JSON here")
+    p.add_argument(
+        "--fleet",
+        action="store_true",
+        help="stitch client + peer-daemon trace files into one distributed timeline grouped by propagated trace id "
+        "(clock-skew corrected per host)",
+    )
+    p.add_argument(
+        "--spool",
+        default=None,
+        help="fleet telemetry spool used for clock-skew correction (default: $TPUSNAP_FLEET_TELEMETRY; only with "
+        "--fleet)",
+    )
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("analyze", help="cross-rank bottleneck analysis over per-rank trace files")
+    p.add_argument("trace_dir")
+    p.add_argument("--snapshot", default=None, help="snapshot URL whose telemetry sidecars enrich the report")
+    p.add_argument(
+        "--barrier",
+        action="store_true",
+        help="cross-rank commit-barrier blame report from the snapshot's sidecars (the positional argument is the "
+        "snapshot URL)",
+    )
+    p.add_argument(
+        "--peer",
+        action="store_true",
+        help="serving-plane report from peer_fetch/peerd_handle spans: per-peer p50/p99 latency, "
+        "hit/reject/fallback rates, TTFB-vs-transfer split",
+    )
+    p.add_argument(
+        "--profile",
+        action="store_true",
+        help="fold continuous-profiling files (*.profile.json in the same dir) into the report: per-phase CPU "
+        "seconds, hottest frames, on/off-CPU split, dominant CPU sink",
+    )
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=cmd_analyze)
+
+    p = sub.add_parser("profile", help="continuous-profiling tools over *.profile.json files")
+    psub = p.add_subparsers(dest="profile_cmd", required=True)
+    pd = psub.add_parser(
+        "diff", help="differential profile: which frames gained/lost CPU seconds between run A and run B"
+    )
+    pd.add_argument("a", help="profile file or dir (baseline)")
+    pd.add_argument("b", help="profile file or dir (comparison)")
+    pd.add_argument("--top", type=int, default=10, help="rows per direction")
+    pd.add_argument("--json", action="store_true", help="machine-readable output")
+    pd.set_defaults(fn=cmd_profile_diff)
+
+    p = sub.add_parser("top", help="live fleet view over a TPUSNAP_FLEET_TELEMETRY spool")
+    p.add_argument(
+        "path",
+        nargs="?",
+        default=None,
+        help="spool dir, or a root with telemetry/live under it (default: $TPUSNAP_FLEET_TELEMETRY)",
+    )
+    p.add_argument("--json", action="store_true", help="one-shot aggregated snapshot")
+    p.add_argument("--prometheus", action="store_true", help="one-shot merged Prometheus exposition across the fleet")
+    p.add_argument("--once", action="store_true", help="render the table once and exit")
+    p.add_argument("--interval", type=float, default=2.0, help="refresh seconds for the live table")
+    p.add_argument(
+        "--stale", type=float, default=None, help="age-out seconds (default: TPUSNAP_FLEET_TELEMETRY_STALE_S)"
+    )
+    p.set_defaults(fn=cmd_top)
 
     p = sub.add_parser(
         "postmortem",

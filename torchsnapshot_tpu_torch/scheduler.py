@@ -324,12 +324,23 @@ class _WritePipeline:
 async def _with_retries(fn, what: str, path: str, rank: int, semaphore) -> None:
     """Await ``fn()`` under an I/O slot, retrying transient failures up to
     ``TPUSNAP_IO_RETRIES`` times; the backoff sleeps outside the slot.  A
-    retry re-sends the same staged buffer / re-issues the same read."""
+    retry re-sends the same staged buffer / re-issues the same read.
+
+    Each attempt's wait for its slot, when over 1 ms, is recorded as
+    ``io_slot_wait``: when it dominates an op, the limiting resource is the
+    I/O concurrency cap, not the storage (the distinction ``analyze``
+    draws).  The wait is the request's own, so a retried request is charged
+    for each of its waits; a request the fs plugin micro-batches holds its
+    own slot until its batch has flushed."""
     max_retries = knobs.get_io_retries()
     attempt = 0
     while True:
         try:
+            slot_wait_begin = time.monotonic()
             async with semaphore:
+                slot_wait_s = time.monotonic() - slot_wait_begin
+                if slot_wait_s > 0.001:
+                    phase_stats.add("io_slot_wait", slot_wait_s)
                 await fn()
                 return
         except asyncio.CancelledError:
@@ -589,6 +600,14 @@ async def execute_write_reqs(
         while staging_tasks or ready_for_staging:
             # With the starvation guard, nothing may be staging while an
             # over-budget request waits for in-flight writes to free budget.
+            # ``budget_wait``: the budget binds this turn when the queue
+            # head cannot be admitted while nothing stages and I/O slots
+            # sit idle, so a bigger budget would add parallelism.  A head
+            # queued behind busy storage or staging is not budget-bound.
+            # The monitor does not count it as progress: a rank parked
+            # here behind hung storage is a stall.
+            budget_bound = bool(ready_for_staging) and not staging_tasks and len(io_live) < io_cap
+            blocked_begin = time.monotonic() if budget_bound else None
             # The timeout lets the progress table fire while a rank is
             # blocked on hung storage, when no task completes.
             done, _ = await asyncio.wait(
@@ -596,6 +615,8 @@ async def execute_write_reqs(
                 timeout=reporter._interval_s or None,
                 return_when=asyncio.FIRST_COMPLETED,
             )
+            if blocked_begin is not None:
+                phase_stats.add("budget_wait", time.monotonic() - blocked_begin)
             for task in done:
                 if task in staging_tasks:
                     pipeline = staging_tasks.pop(task)
@@ -740,7 +761,8 @@ async def execute_read_reqs(
             key=lambda p: p.consuming_cost,
         )
     )
-    io_semaphore = asyncio.Semaphore(knobs.get_max_per_rank_io_concurrency())
+    io_cap = knobs.get_max_per_rank_io_concurrency()
+    io_semaphore = asyncio.Semaphore(io_cap)
     io_tasks: set = set()
     consume_tasks: set = set()
     pipelines: dict = {}  # task -> pipeline, to re-credit on failure
@@ -776,11 +798,18 @@ async def execute_read_reqs(
     try:
         dispatch_io()
         while io_tasks or consume_tasks:
+            # The write side's ``budget_wait``, mirrored: the consuming
+            # budget binds when the queue head cannot be admitted while
+            # read slots sit idle.
+            budget_bound = bool(ready_for_io) and len(io_tasks) < io_cap
+            blocked_begin = time.monotonic() if budget_bound else None
             done, _ = await asyncio.wait(
                 io_tasks | consume_tasks,
                 timeout=reporter._interval_s or None,
                 return_when=asyncio.FIRST_COMPLETED,
             )
+            if blocked_begin is not None:
+                phase_stats.add("budget_wait", time.monotonic() - blocked_begin)
             for task in done:
                 pipeline = pipelines.pop(task)
                 if task in io_tasks:
